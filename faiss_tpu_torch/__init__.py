@@ -1,0 +1,31 @@
+"""faiss_tpu_torch — the PyTorch and CUDA port of faiss_tpu for one NVIDIA
+H100 (Hopper, sm_90a).
+
+faiss_tpu (JAX on a TPU) stays beside it as the reference. This package
+imports torch and numpy only, never jax or faiss_tpu. Plain tensor work is
+PyTorch; each TPU kernel on a ported path is a hand-written Hopper kernel
+under ``csrc/``, built with nvcc at first use. Every index takes an explicit
+``device``.
+
+Ported so far: the IVF4096,PQ32x4fs,RFlat serving path —
+``IndexRefineFlat(IndexIVFPQFastScan(...), store_float16=True)`` with
+``train``, ``add``, ``search`` and ``search_submit``/``search_collect`` at a
+selective nprobe with soft probing (``strict_probe = False``).
+"""
+
+import torch
+
+# The coarse GEMM, the k-means assignments, the PQ encode and the plain K1
+# scan are float32 contracts: no TF32 anywhere.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .base import Index, SearchParameters, query_buckets  # noqa: E402,F401
+from .clustering import Clustering, ClusteringParameters  # noqa: E402,F401
+from .codecs.pq import ProductQuantizer  # noqa: E402,F401
+from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
+from .models.flat import IndexFlat, IndexFlatL2  # noqa: E402,F401
+from .models.ivf import IndexIVF  # noqa: E402,F401
+from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan  # noqa: E402,F401
+from .models.meta import IndexRefine, IndexRefineFlat  # noqa: E402,F401
+from .utils.evaluation import recall_at_k  # noqa: E402,F401

@@ -1,0 +1,226 @@
+// K1: the dynamic-chunk recon scan with an exact top-128, for sm_90a.
+//
+// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas in its soft
+// mode (no probe penalty, one bf16 store plane). It computes what that kernel
+// computes, not how: for every query row r it returns the EXACT top-128 of
+//     key(s) = n2[s] - 2 * q_r . yT[:, s]
+// over all slots s of the chunks cmap[r / qt, :], keys ascending, slots as
+// packed positions chunk * ct + col (-1 where the key is +inf), and an all
+// +inf eviction floor, since an exact select never evicts.
+//
+// Design. One block serves QB queries of one qt-query tile, so they share the
+// tile's worklist. The queries sit in shared memory in float32 (q is never
+// rounded to bf16: the TPU kernel's hi/lo split exists only to keep it f32).
+// Each thread scores two adjacent slots per step for all QB queries: one
+// bf16x2 load of yT[k, s:s+2] per dimension, coalesced along s, upcast to
+// float32 and accumulated with FMAs on the CUDA cores. Per query, shared
+// memory holds a buffer of CAP (key, slot) pairs whose first K entries are
+// the current top-K in ascending order; a key below the K-th key is appended
+// with a shared-memory atomic, and whenever the next step could overflow the
+// buffer a bitonic sort of all CAP pairs keeps the best K and raises the
+// threshold.
+//
+// What bounds it: every block re-reads the worklist's columns of yT (the
+// qt / QB blocks of a tile read the same chunks, mostly from L2), and the
+// float32 FMA rate of the CUDA cores (d FMAs per query and slot). wgmma on
+// bf16 tiles with the query split into bf16 hi + lo, TMA loads of the chunks
+// and the tile sizes are later work.
+//
+// Offsets into yT and n2 are 64-bit: d_pad * S passes 2^31 at 10M slots.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int K = 128;            // top-K width of the contract
+constexpr int QB = 8;             // queries per block (QUERIES_PER_BLOCK)
+constexpr int THREADS = 256;      // threads per block
+constexpr int STEP = 2 * THREADS; // slots scored per block step
+constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
+
+static_assert(CAP >= K + STEP, "a step must fit after a compaction");
+static_assert((CAP & (CAP - 1)) == 0, "bitonic sort needs a power of two");
+
+// Ascending bitonic sort of CAP pairs by the whole block.
+__device__ void sort_pairs(float* key, int* slot) {
+  for (int size = 2; size <= CAP; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < CAP / 2; t += THREADS) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const bool up = (i & size) == 0;
+        const float ki = key[i], kj = key[j];
+        if ((ki > kj) == up) {
+          key[i] = kj;
+          key[j] = ki;
+          const int s = slot[i];
+          slot[i] = slot[j];
+          slot[j] = s;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Keep the best K of one query's buffer and set its threshold. Called by
+// every thread of the block with the same arguments.
+__device__ void compact(float* key, int* slot, int* cnt, float* thr) {
+  const int c = *cnt;  // read by every thread before thread 0 rewrites it
+  for (int i = c + threadIdx.x; i < CAP; i += THREADS) {
+    key[i] = CUDART_INF_F;
+    slot[i] = -1;
+  }
+  __syncthreads();
+  sort_pairs(key, slot);
+  if (threadIdx.x == 0) {
+    *cnt = K;
+    *thr = key[K - 1];
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS)
+ivf_recon_dyn_kernel(const float* __restrict__ xq,
+                     const __nv_bfloat16* __restrict__ yT,
+                     const float* __restrict__ n2,
+                     const int* __restrict__ cmap,
+                     float* __restrict__ out_key, int* __restrict__ out_slot,
+                     float* __restrict__ out_floor, int d_pad, long long S,
+                     int msteps, int qt, int ct) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);            // [QB][d_pad]
+  float* bkey = qs + QB * d_pad;                         // [QB][CAP]
+  int* bslot = reinterpret_cast<int*>(bkey + QB * CAP);  // [QB][CAP]
+  int* cnt = bslot + QB * CAP;                           // [QB]
+  float* thr = reinterpret_cast<float*>(cnt + QB);       // [QB]
+
+  const int tid = threadIdx.x;
+  const long long q0 = static_cast<long long>(blockIdx.x) * QB;
+  const long long tile = q0 / qt;
+
+  for (int i = tid; i < QB * d_pad; i += THREADS) qs[i] = xq[q0 * d_pad + i];
+  for (int i = tid; i < QB * CAP; i += THREADS) {
+    bkey[i] = CUDART_INF_F;
+    bslot[i] = -1;
+  }
+  if (tid < QB) {
+    cnt[tid] = K;  // the first K entries are the (empty) running top-K
+    thr[tid] = CUDART_INF_F;
+  }
+  __syncthreads();
+
+  const int* work = cmap + tile * msteps;
+  const long long row2 = S / 2;  // bf16x2 stride between dimensions
+  for (int step = 0; step < msteps; ++step) {
+    const long long base = static_cast<long long>(work[step]) * ct;
+    for (int off = 0; off < ct; off += STEP) {
+      for (int qi = 0; qi < QB; ++qi) {
+        if (cnt[qi] > CAP - STEP) {  // uniform: cnt changes only in compact
+          compact(bkey + qi * CAP, bslot + qi * CAP, cnt + qi, thr + qi);
+        }
+      }
+      const int col = off + 2 * tid;
+      if (col < ct) {
+        const long long s = base + col;
+        float acc0[QB], acc1[QB];
+#pragma unroll
+        for (int qi = 0; qi < QB; ++qi) {
+          acc0[qi] = 0.f;
+          acc1[qi] = 0.f;
+        }
+        const __nv_bfloat162* yp =
+            reinterpret_cast<const __nv_bfloat162*>(yT + s);
+        for (int k = 0; k < d_pad; k += 4) {
+          float2 y[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            y[u] = __bfloat1622float2(yp[(k + u) * row2]);
+          }
+#pragma unroll
+          for (int qi = 0; qi < QB; ++qi) {
+            const float4 q =
+                *reinterpret_cast<const float4*>(qs + qi * d_pad + k);
+            acc0[qi] = fmaf(q.x, y[0].x, acc0[qi]);
+            acc1[qi] = fmaf(q.x, y[0].y, acc1[qi]);
+            acc0[qi] = fmaf(q.y, y[1].x, acc0[qi]);
+            acc1[qi] = fmaf(q.y, y[1].y, acc1[qi]);
+            acc0[qi] = fmaf(q.z, y[2].x, acc0[qi]);
+            acc1[qi] = fmaf(q.z, y[2].y, acc1[qi]);
+            acc0[qi] = fmaf(q.w, y[3].x, acc0[qi]);
+            acc1[qi] = fmaf(q.w, y[3].y, acc1[qi]);
+          }
+        }
+        const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
+#pragma unroll
+        for (int qi = 0; qi < QB; ++qi) {
+          const float t = thr[qi];
+          const float k0 = nn.x - 2.f * acc0[qi];
+          const float k1 = nn.y - 2.f * acc1[qi];
+          if (k0 < t) {
+            const int p = atomicAdd(cnt + qi, 1);
+            bkey[qi * CAP + p] = k0;
+            bslot[qi * CAP + p] = static_cast<int>(s);
+          }
+          if (k1 < t) {
+            const int p = atomicAdd(cnt + qi, 1);
+            bkey[qi * CAP + p] = k1;
+            bslot[qi * CAP + p] = static_cast<int>(s + 1);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int qi = 0; qi < QB; ++qi) {
+    compact(bkey + qi * CAP, bslot + qi * CAP, cnt + qi, thr + qi);
+  }
+  for (int i = tid; i < QB * K; i += THREADS) {
+    const int qi = i / K, j = i % K;
+    const float kv = bkey[qi * CAP + j];
+    const long long o = (q0 + qi) * K + j;
+    out_key[o] = kv;
+    out_slot[o] = isinf(kv) ? -1 : bslot[qi * CAP + j];
+    out_floor[o] = CUDART_INF_F;
+  }
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block: queries, (key, slot) buffers, counts
+// and thresholds.
+extern "C" long long ivf_recon_dyn_smem_bytes(int d_pad) {
+  return static_cast<long long>(sizeof(float)) * QB * d_pad +
+         static_cast<long long>(sizeof(float) + sizeof(int)) * QB * CAP +
+         static_cast<long long>(sizeof(int) + sizeof(float)) * QB;
+}
+
+extern "C" int ivf_recon_dyn_launch(const void* xq, const void* yT,
+                                    const void* n2, const void* cmap,
+                                    void* out_key, void* out_slot,
+                                    void* out_floor, int nq, int d_pad,
+                                    long long S, int msteps, int qt, int ct,
+                                    void* stream) {
+  if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct % 2 != 0 ||
+      d_pad % 4 != 0 || S % ct != 0 || msteps <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = ivf_recon_dyn_smem_bytes(d_pad);
+  cudaError_t err = cudaFuncSetAttribute(
+      ivf_recon_dyn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ivf_recon_dyn_kernel<<<nq / QB, THREADS, static_cast<size_t>(smem),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
+      static_cast<const float*>(n2), static_cast<const int*>(cmap),
+      static_cast<float*>(out_key), static_cast<int*>(out_slot),
+      static_cast<float*>(out_floor), d_pad, S, msteps, qt, ct);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* ivf_recon_dyn_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
