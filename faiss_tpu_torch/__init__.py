@@ -7,16 +7,22 @@ PyTorch; each TPU kernel on a ported path is a hand-written Hopper kernel
 under ``csrc/``, built with nvcc at first use. Every index takes an explicit
 ``device``.
 
-Ported so far: the IVF4096,PQ32x4fs,RFlat serving path —
-``IndexRefineFlat(IndexIVFPQFastScan(...), store_float16=True)`` with
-``train``, ``add``, ``search`` and ``search_submit``/``search_collect`` at a
-selective nprobe with soft probing (``strict_probe = False``).
+Ported so far:
+
+  - the IVF4096,PQ32x4fs,RFlat serving path —
+    ``IndexRefineFlat(IndexIVFPQFastScan(...), store_float16=True)`` with
+    ``train``, ``add``, ``search`` and ``search_submit``/``search_collect`` at
+    a selective nprobe with soft probing (``strict_probe = False``);
+  - exact flat search — ``IndexFlatL2`` and ``IndexFlatIP`` with ``add``,
+    ``search`` and ``search_submit``/``search_collect`` for k <= 2048 through
+    the bf16 hi/lo screen, the striped large-k screen and the fused exact
+    kernel.
 """
 
 import torch
 
-# The coarse GEMM, the k-means assignments, the PQ encode and the plain K1
-# scan are float32 contracts: no TF32 anywhere.
+# The coarse GEMM, the k-means assignments, the PQ encode, exact flat search
+# and the plain kernel versions are float32 contracts: no TF32 anywhere.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -24,7 +30,7 @@ from .base import Index, SearchParameters, query_buckets  # noqa: E402,F401
 from .clustering import Clustering, ClusteringParameters  # noqa: E402,F401
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
 from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
-from .models.flat import IndexFlat, IndexFlatL2  # noqa: E402,F401
+from .models.flat import IndexFlat, IndexFlatIP, IndexFlatL2  # noqa: E402,F401
 from .models.ivf import IndexIVF  # noqa: E402,F401
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan  # noqa: E402,F401
 from .models.meta import IndexRefine, IndexRefineFlat  # noqa: E402,F401

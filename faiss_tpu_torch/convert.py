@@ -1,8 +1,9 @@
-"""Build port indexes from the state of trained faiss_tpu indexes.
+"""Build port indexes from the state of faiss_tpu indexes.
 
 The state is handed over as numpy arrays, so this module needs neither JAX
 nor faiss_tpu. With both packages serving the same trained state, search
-parity does not depend on k-means RNG. For a faiss_tpu
+parity does not depend on k-means RNG. For a faiss_tpu flat index ``flat``
+the state is ``flat.vectors()`` and its metric; for a faiss_tpu
 ``IndexRefineFlat(IndexIVFPQFastScan(...))`` named ``ref`` the arrays are::
 
     base = ref.base_index
@@ -16,9 +17,22 @@ from __future__ import annotations
 
 import numpy as np
 
-from .models.flat import IndexFlatL2
+from .metric import MetricType
+from .models.flat import IndexFlat, IndexFlatL2
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan
 from .models.meta import IndexRefineFlat
+
+
+def flat_from_arrays(xb, metric=MetricType.L2, *, device) -> IndexFlat:
+    """IndexFlat (METRIC_L2 or METRIC_INNER_PRODUCT) holding the rows
+    ``xb`` [n, d] in order, as a faiss_tpu flat index's ``vectors()`` gives
+    them."""
+    xb = np.ascontiguousarray(xb, np.float32)
+    if xb.ndim != 2:
+        raise ValueError(f"xb must be [n, d], got shape {xb.shape}")
+    index = IndexFlat(xb.shape[1], MetricType(metric), device=device)
+    index.add(xb)
+    return index
 
 
 def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device

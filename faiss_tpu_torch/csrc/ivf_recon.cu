@@ -1,0 +1,179 @@
+// K2: the exhaustive recon scan with an exact top-128, for sm_90a.
+//
+// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_pallas in its
+// unmasked mode (no probe penalty), with one bf16 store plane or two (hi and
+// lo). For every query row r it returns the EXACT top-128 of
+//     key(s) = n2[s] - 2 * q_r . (y_hi[:, s] + y_lo[:, s])
+// over every column s of the store, keys ascending (the query norm is not
+// added), the column of each key (-1 where the key is +inf), and an all +inf
+// eviction floor, since the select never evicts.
+//
+// Arithmetic. The query stays float32. The bf16 planes are upcast and summed
+// in float32 (exact: the lo plane holds the residual below hi's 8 mantissa
+// bits), and the sum is multiplied by the query in float32 FMAs on the CUDA
+// cores, with no TF32. The TPU kernel splits the query into bf16 hi and lo
+// and drops the ql * yl term, so this product is closer to the float32 value
+// than the one the exact-flat certificate's delta (faiss_tpu/models/flat.py:
+// 84-93) was sized for, and that delta stays sound here unchanged.
+//
+// Design. One block serves QB queries and walks all S columns in order, two
+// adjacent columns per thread and step: one bf16x2 load of each plane per
+// dimension, coalesced along s. Blocks walk the columns in the same order,
+// so blocks resident at the same time share the store's lines through L2.
+// The keys go through the exact select of exact_select.cuh. The store may be
+// a column slice of a wider one (a stripe of the striped large-k flat path):
+// ``ld`` is the row stride of both planes, so no stripe is copied.
+//
+// What bounds it: with 8 queries per block every block streams the whole
+// store (2 * 2 * d_pad bytes per column with two planes, about 2 FMAs per
+// byte), from L2 where blocks stay in step and from HBM where they drift;
+// and the float32 FMA rate of the CUDA cores. bf16 wgmma with a split query,
+// TMA loads and more queries per block are later work.
+//
+// Offsets are 64-bit; column indices (the slots) are 32-bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "exact_select.cuh"
+
+namespace {
+
+constexpr int K = 128;            // top-K width of the contract
+constexpr int QB = 8;             // queries per block (QUERIES_PER_BLOCK)
+constexpr int THREADS = 256;      // threads per block
+constexpr int STEP = 2 * THREADS; // columns scored per block step
+constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
+
+using Select = exact_select::Select<K, CAP, QB, THREADS, STEP>;
+
+template <bool HILO>
+__global__ void __launch_bounds__(THREADS)
+ivf_recon_kernel(const float* __restrict__ xq,
+                 const __nv_bfloat16* __restrict__ yT,
+                 const __nv_bfloat16* __restrict__ yT_lo, long long ld,
+                 const float* __restrict__ n2, float* __restrict__ out_key,
+                 int* __restrict__ out_slot, float* __restrict__ out_floor,
+                 int d_pad, long long S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [QB][d_pad]
+  Select sel(smem + sizeof(float) * QB * d_pad);
+
+  const int tid = threadIdx.x;
+  const long long q0 = static_cast<long long>(blockIdx.x) * QB;
+
+  for (int i = tid; i < QB * d_pad; i += THREADS) qs[i] = xq[q0 * d_pad + i];
+  sel.init();
+  __syncthreads();
+
+  const long long row2 = ld / 2;  // bf16x2 stride between dimensions
+  for (long long off = 0; off < S; off += STEP) {
+    sel.make_room();
+    const long long s = off + 2 * tid;
+    if (s < S) {  // S is even, so s + 1 < S too
+      float acc0[QB], acc1[QB];
+#pragma unroll
+      for (int qi = 0; qi < QB; ++qi) {
+        acc0[qi] = 0.f;
+        acc1[qi] = 0.f;
+      }
+      const __nv_bfloat162* hp =
+          reinterpret_cast<const __nv_bfloat162*>(yT + s);
+      const __nv_bfloat162* lp =
+          HILO ? reinterpret_cast<const __nv_bfloat162*>(yT_lo + s) : nullptr;
+      for (int k = 0; k < d_pad; k += 4) {
+        float2 y[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          y[u] = __bfloat1622float2(hp[(k + u) * row2]);
+          if constexpr (HILO) {
+            const float2 lo = __bfloat1622float2(lp[(k + u) * row2]);
+            y[u].x += lo.x;
+            y[u].y += lo.y;
+          }
+        }
+#pragma unroll
+        for (int qi = 0; qi < QB; ++qi) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(qs + qi * d_pad + k);
+          acc0[qi] = fmaf(q.x, y[0].x, acc0[qi]);
+          acc1[qi] = fmaf(q.x, y[0].y, acc1[qi]);
+          acc0[qi] = fmaf(q.y, y[1].x, acc0[qi]);
+          acc1[qi] = fmaf(q.y, y[1].y, acc1[qi]);
+          acc0[qi] = fmaf(q.z, y[2].x, acc0[qi]);
+          acc1[qi] = fmaf(q.z, y[2].y, acc1[qi]);
+          acc0[qi] = fmaf(q.w, y[3].x, acc0[qi]);
+          acc1[qi] = fmaf(q.w, y[3].y, acc1[qi]);
+        }
+      }
+      const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
+#pragma unroll
+      for (int qi = 0; qi < QB; ++qi) {
+        sel.offer(qi, nn.x - 2.f * acc0[qi], static_cast<int>(s));
+        sel.offer(qi, nn.y - 2.f * acc1[qi], static_cast<int>(s + 1));
+      }
+    }
+    __syncthreads();
+  }
+  sel.finish();
+  for (int i = tid; i < QB * K; i += THREADS) {
+    const int qi = i / K, j = i % K;
+    const float kv = sel.kth_key(qi, j);
+    const long long o = (q0 + qi) * K + j;
+    out_key[o] = kv;
+    out_slot[o] = isinf(kv) ? -1 : sel.kth_slot(qi, j);
+    out_floor[o] = CUDART_INF_F;
+  }
+}
+
+template <bool HILO>
+int launch(const void* xq, const void* yT, const void* yT_lo, long long ld,
+           const void* n2, void* out_key, void* out_slot, void* out_floor,
+           int nq, int d_pad, long long S, long long smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ivf_recon_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ivf_recon_kernel<HILO><<<nq / QB, THREADS, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
+      static_cast<const __nv_bfloat16*>(yT_lo), ld,
+      static_cast<const float*>(n2), static_cast<float*>(out_key),
+      static_cast<int*>(out_slot), static_cast<float*>(out_floor), d_pad, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block: queries, (key, slot) buffers, counts
+// and thresholds.
+extern "C" long long ivf_recon_smem_bytes(int d_pad) {
+  return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
+}
+
+// yT_lo may be null (one plane). qt and ct are the TPU kernel's tiles: a
+// block here needs neither, and they are checked for the contract only
+// (nq a multiple of qt, itself a multiple of QB; S a multiple of ct).
+extern "C" int ivf_recon_launch(const void* xq, const void* yT,
+                                const void* yT_lo, long long ld,
+                                const void* n2, void* out_key, void* out_slot,
+                                void* out_floor, int nq, int d_pad,
+                                long long S, int qt, int ct, void* stream) {
+  if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct <= 0 ||
+      ct % 2 != 0 || S % ct != 0 || d_pad % 4 != 0 || ld % 2 != 0 ||
+      ld < S || S >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = ivf_recon_smem_bytes(d_pad);
+  if (yT_lo != nullptr) {
+    return launch<true>(xq, yT, yT_lo, ld, n2, out_key, out_slot, out_floor,
+                        nq, d_pad, S, smem, stream);
+  }
+  return launch<false>(xq, yT, yT_lo, ld, n2, out_key, out_slot, out_floor,
+                       nq, d_pad, S, smem, stream);
+}
+
+extern "C" const char* ivf_recon_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

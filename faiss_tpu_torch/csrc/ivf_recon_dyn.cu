@@ -13,12 +13,10 @@
 // rounded to bf16: the TPU kernel's hi/lo split exists only to keep it f32).
 // Each thread scores two adjacent slots per step for all QB queries: one
 // bf16x2 load of yT[k, s:s+2] per dimension, coalesced along s, upcast to
-// float32 and accumulated with FMAs on the CUDA cores. Per query, shared
-// memory holds a buffer of CAP (key, slot) pairs whose first K entries are
-// the current top-K in ascending order; a key below the K-th key is appended
-// with a shared-memory atomic, and whenever the next step could overflow the
-// buffer a bitonic sort of all CAP pairs keeps the best K and raises the
-// threshold.
+// float32 and accumulated with FMAs on the CUDA cores. The keys go through
+// the exact select of exact_select.cuh (a shared-memory buffer per query,
+// appends below the running K-th key, a block-wide bitonic sort before a
+// step could overflow it).
 //
 // What bounds it: every block re-reads the worklist's columns of yT (the
 // qt / QB blocks of a tile read the same chunks, mostly from L2), and the
@@ -32,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "exact_select.cuh"
+
 namespace {
 
 constexpr int K = 128;            // top-K width of the contract
@@ -40,47 +40,7 @@ constexpr int THREADS = 256;      // threads per block
 constexpr int STEP = 2 * THREADS; // slots scored per block step
 constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
 
-static_assert(CAP >= K + STEP, "a step must fit after a compaction");
-static_assert((CAP & (CAP - 1)) == 0, "bitonic sort needs a power of two");
-
-// Ascending bitonic sort of CAP pairs by the whole block.
-__device__ void sort_pairs(float* key, int* slot) {
-  for (int size = 2; size <= CAP; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < CAP / 2; t += THREADS) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        const float ki = key[i], kj = key[j];
-        if ((ki > kj) == up) {
-          key[i] = kj;
-          key[j] = ki;
-          const int s = slot[i];
-          slot[i] = slot[j];
-          slot[j] = s;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Keep the best K of one query's buffer and set its threshold. Called by
-// every thread of the block with the same arguments.
-__device__ void compact(float* key, int* slot, int* cnt, float* thr) {
-  const int c = *cnt;  // read by every thread before thread 0 rewrites it
-  for (int i = c + threadIdx.x; i < CAP; i += THREADS) {
-    key[i] = CUDART_INF_F;
-    slot[i] = -1;
-  }
-  __syncthreads();
-  sort_pairs(key, slot);
-  if (threadIdx.x == 0) {
-    *cnt = K;
-    *thr = key[K - 1];
-  }
-  __syncthreads();
-}
+using Select = exact_select::Select<K, CAP, QB, THREADS, STEP>;
 
 __global__ void __launch_bounds__(THREADS)
 ivf_recon_dyn_kernel(const float* __restrict__ xq,
@@ -91,25 +51,15 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
                      float* __restrict__ out_floor, int d_pad, long long S,
                      int msteps, int qt, int ct) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);            // [QB][d_pad]
-  float* bkey = qs + QB * d_pad;                         // [QB][CAP]
-  int* bslot = reinterpret_cast<int*>(bkey + QB * CAP);  // [QB][CAP]
-  int* cnt = bslot + QB * CAP;                           // [QB]
-  float* thr = reinterpret_cast<float*>(cnt + QB);       // [QB]
+  float* qs = reinterpret_cast<float*>(smem);  // [QB][d_pad]
+  Select sel(smem + sizeof(float) * QB * d_pad);
 
   const int tid = threadIdx.x;
   const long long q0 = static_cast<long long>(blockIdx.x) * QB;
   const long long tile = q0 / qt;
 
   for (int i = tid; i < QB * d_pad; i += THREADS) qs[i] = xq[q0 * d_pad + i];
-  for (int i = tid; i < QB * CAP; i += THREADS) {
-    bkey[i] = CUDART_INF_F;
-    bslot[i] = -1;
-  }
-  if (tid < QB) {
-    cnt[tid] = K;  // the first K entries are the (empty) running top-K
-    thr[tid] = CUDART_INF_F;
-  }
+  sel.init();
   __syncthreads();
 
   const int* work = cmap + tile * msteps;
@@ -117,11 +67,7 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
   for (int step = 0; step < msteps; ++step) {
     const long long base = static_cast<long long>(work[step]) * ct;
     for (int off = 0; off < ct; off += STEP) {
-      for (int qi = 0; qi < QB; ++qi) {
-        if (cnt[qi] > CAP - STEP) {  // uniform: cnt changes only in compact
-          compact(bkey + qi * CAP, bslot + qi * CAP, cnt + qi, thr + qi);
-        }
-      }
+      sel.make_room();
       const int col = off + 2 * tid;
       if (col < ct) {
         const long long s = base + col;
@@ -156,33 +102,20 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
         const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
 #pragma unroll
         for (int qi = 0; qi < QB; ++qi) {
-          const float t = thr[qi];
-          const float k0 = nn.x - 2.f * acc0[qi];
-          const float k1 = nn.y - 2.f * acc1[qi];
-          if (k0 < t) {
-            const int p = atomicAdd(cnt + qi, 1);
-            bkey[qi * CAP + p] = k0;
-            bslot[qi * CAP + p] = static_cast<int>(s);
-          }
-          if (k1 < t) {
-            const int p = atomicAdd(cnt + qi, 1);
-            bkey[qi * CAP + p] = k1;
-            bslot[qi * CAP + p] = static_cast<int>(s + 1);
-          }
+          sel.offer(qi, nn.x - 2.f * acc0[qi], static_cast<int>(s));
+          sel.offer(qi, nn.y - 2.f * acc1[qi], static_cast<int>(s + 1));
         }
       }
       __syncthreads();
     }
   }
-  for (int qi = 0; qi < QB; ++qi) {
-    compact(bkey + qi * CAP, bslot + qi * CAP, cnt + qi, thr + qi);
-  }
+  sel.finish();
   for (int i = tid; i < QB * K; i += THREADS) {
     const int qi = i / K, j = i % K;
-    const float kv = bkey[qi * CAP + j];
+    const float kv = sel.kth_key(qi, j);
     const long long o = (q0 + qi) * K + j;
     out_key[o] = kv;
-    out_slot[o] = isinf(kv) ? -1 : bslot[qi * CAP + j];
+    out_slot[o] = isinf(kv) ? -1 : sel.kth_slot(qi, j);
     out_floor[o] = CUDART_INF_F;
   }
 }
@@ -192,9 +125,7 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
 // Dynamic shared memory of one block: queries, (key, slot) buffers, counts
 // and thresholds.
 extern "C" long long ivf_recon_dyn_smem_bytes(int d_pad) {
-  return static_cast<long long>(sizeof(float)) * QB * d_pad +
-         static_cast<long long>(sizeof(float) + sizeof(int)) * QB * CAP +
-         static_cast<long long>(sizeof(int) + sizeof(float)) * QB;
+  return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
 }
 
 extern "C" int ivf_recon_dyn_launch(const void* xq, const void* yT,

@@ -303,7 +303,7 @@ def _fused_search_rerank_recon_dyn(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe,
     slots = torch.where(
         slots_raw >= 0, br["slot_map_dev"][slots_raw.clamp_min(0).long()], -1
     )[:, :kc]
-    D, I = rerank_exact(xq[perm], xb, slots, k, xb_n2)
+    D, I = rerank_exact(xq[perm], xb, slots, k, xb_n2=xb_n2)
     inv = torch.argsort(perm, stable=True)
     return D[inv], I[inv], ndropped
 

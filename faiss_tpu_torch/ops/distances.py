@@ -2,7 +2,10 @@
 
 Plain PyTorch: the L2 expansion ``||x||^2 + ||y||^2 - 2 x.y`` as float32
 matrix products (TF32 is off, see the package ``__init__``), chunked so no
-large distance matrix is materialised at once."""
+large distance matrix is materialised at once. faiss_tpu computes its
+float32 products as six bf16 passes because the TPU's float32 matrix product
+is slow; on the card a float32 ``torch.matmul`` is the plain form. These are
+the large products the reference leaves to XLA outside any Pallas kernel."""
 
 from __future__ import annotations
 
@@ -10,8 +13,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..metric import MetricType
-from .topk import topk
+from ..metric import MetricType, is_similarity_metric
+from .topk import merge_topk, topk
+
+# Database rows per score tile of the chunked k-NN scan: a [2048, 2^17]
+# float32 tile is 1 GiB (faiss_tpu/ops/distances.py:35).
+DEFAULT_DB_CHUNK = 1 << 17
 
 
 def l2_norms(x: torch.Tensor, chunk: int = 1 << 20) -> torch.Tensor:
@@ -21,6 +28,99 @@ def l2_norms(x: torch.Tensor, chunk: int = 1 << 20) -> torch.Tensor:
         [x[s : s + chunk].float().square().sum(-1) for s in range(0, len(x), chunk)]
         or [x.new_zeros((0,), dtype=torch.float32)]
     )
+
+
+def pairwise_inner_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[nx, d] x [ny, d] -> [nx, ny] float32 inner products
+    (faiss_tpu/ops/distances.py:101)."""
+    return x.float() @ y.float().T
+
+
+def pairwise_l2sqr(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    y_norms: Optional[torch.Tensor] = None,
+    x_norms: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Squared L2 distances via the norm expansion, clamped at 0
+    (faiss_tpu/ops/distances.py:126)."""
+    ip = pairwise_inner_product(x, y)
+    if x_norms is None:
+        x_norms = l2_norms(x)
+    if y_norms is None:
+        y_norms = l2_norms(y)
+    return (x_norms[:, None] + y_norms[None, :] - 2.0 * ip).clamp_min(0.0)
+
+
+def _score_tile(x, y, metric, x_norms, y_norms):
+    """Distances of a query block to a database tile
+    (faiss_tpu/ops/distances.py:360)."""
+    if metric == MetricType.L2:
+        return pairwise_l2sqr(x, y, y_norms, x_norms)
+    if metric == MetricType.INNER_PRODUCT:
+        return pairwise_inner_product(x, y)
+    raise NotImplementedError(
+        f"knn: metric {metric!r} is ROADMAP queue 1 item 10"
+    )
+
+
+def knn(
+    x: torch.Tensor,  # [nq, d]
+    y: torch.Tensor,  # [nb, d]
+    k: int,
+    metric: MetricType = MetricType.L2,
+    y_norms: Optional[torch.Tensor] = None,
+    db_chunk: int = DEFAULT_DB_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact brute-force k-NN of x against y (faiss_tpu/ops/distances.py:
+    220): score tiles of ``db_chunk`` rows, each reduced to its top-k and
+    merged. The last tile is clamped to [nb - db_chunk, nb), and the rows the
+    previous tile already scored are masked off (``col >= ci * db_chunk``).
+    Returns (D [nq, k] f32, I [nq, k] int64) best-first; when nb < k the
+    tail is filled with -1 and +inf (-inf for inner product)."""
+    nq, nb = x.shape[0], y.shape[0]
+    largest = is_similarity_metric(metric)
+    sentinel = float("-inf") if largest else float("inf")
+    kk = min(k, nb)
+    if kk == 0:
+        return (
+            torch.full((nq, k), sentinel, device=x.device),
+            torch.full((nq, k), -1, dtype=torch.int64, device=x.device),
+        )
+    if metric == MetricType.L2 and y_norms is None:
+        y_norms = l2_norms(y)
+    x_norms = l2_norms(x) if metric == MetricType.L2 else None
+
+    if nb <= db_chunk:
+        scores = _score_tile(x, y, metric, x_norms, y_norms)
+        vals, ids = topk(scores, kk, largest=largest)
+    else:
+        vals = torch.full((nq, kk), sentinel, device=x.device)
+        ids = torch.full((nq, kk), -1, dtype=torch.int64, device=x.device)
+        cols = torch.arange(db_chunk, device=x.device)
+        for ci in range(-(-nb // db_chunk)):
+            start = min(ci * db_chunk, nb - db_chunk)
+            tile = slice(start, start + db_chunk)
+            scores = _score_tile(
+                x, y[tile], metric, x_norms,
+                y_norms[tile] if metric == MetricType.L2 else None,
+            )
+            col = cols + start
+            valid = col >= ci * db_chunk  # tail-overlap rows already scored
+            scores = torch.where(valid[None, :], scores, sentinel)
+            cv, cp = topk(scores, kk, largest=largest)
+            cids = torch.where(valid[cp], col[cp], -1)
+            vals, ids = merge_topk(vals, ids, cv, cids, kk, largest=largest)
+
+    if kk < k:
+        vals = torch.cat(
+            [vals, torch.full((nq, k - kk), sentinel, device=x.device)], dim=1
+        )
+        ids = torch.cat(
+            [ids, torch.full((nq, k - kk), -1, dtype=ids.dtype, device=x.device)],
+            dim=1,
+        )
+    return vals, ids.long()
 
 
 def assign_flat(
@@ -50,19 +150,27 @@ def rerank_exact(
     xb: torch.Tensor,  # [nb, d] exact vectors (float32 or float16 store)
     cand: torch.Tensor,  # [nq, kc] candidate rows (-1 = missing)
     k: int,
+    metric: MetricType = MetricType.L2,
     xb_n2: Optional[torch.Tensor] = None,  # [nb] precomputed ||xb||^2
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 re-rank of per-query candidate lists (the IndexRefineFlat
+    """Exact re-rank of per-query candidate lists (the IndexRefineFlat
     inner loop as one gather + batched contraction;
     faiss_tpu/ops/distances.py:372). The store is upcast after the gather
     and the products are exact float32 (elementwise multiply and sum).
-    Returns (D [nq, min(k, kc)] f32, I int64), -1 where D is +inf."""
+    L2 ascending, inner product descending. Returns (D [nq, min(k, kc)]
+    f32, I int64), -1 where D is the sentinel (+inf, or -inf for inner
+    product)."""
+    largest = metric == MetricType.INNER_PRODUCT
     safe = cand.clamp_min(0).long()
     cv = xb[safe].float()  # [nq, kc, d]
     ip = (xq[:, None, :] * cv).sum(-1)
-    cn2 = xb_n2[safe] if xb_n2 is not None else cv.square().sum(-1)
-    d = (xq.square().sum(-1)[:, None] + cn2 - 2.0 * ip).clamp_min(0.0)
-    d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
-    vals, pos = topk(d, k, largest=False)
+    if metric == MetricType.L2:
+        cn2 = xb_n2[safe] if xb_n2 is not None else cv.square().sum(-1)
+        d = (xq.square().sum(-1)[:, None] + cn2 - 2.0 * ip).clamp_min(0.0)
+    else:
+        d = ip
+    sentinel = float("-inf") if largest else float("inf")
+    d = torch.where(cand >= 0, d, torch.full_like(d, sentinel))
+    vals, pos = topk(d, k, largest=largest)
     ids = torch.gather(cand.long(), 1, pos)
     return vals, torch.where(torch.isinf(vals), torch.full_like(ids, -1), ids)

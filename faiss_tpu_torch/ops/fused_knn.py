@@ -1,7 +1,8 @@
-"""Kernel K1: the dynamic-chunk recon scan with an exact top-128.
+"""The port's scan kernels K1, K2 and K3, each with its plain PyTorch version.
 
-Counterpart of faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas in its
-soft mode (no probe penalty, one bf16 store plane). Contract, for every query
+K1 ``ivf_recon_fused_dyn`` (csrc/ivf_recon_dyn.cu): the dynamic-chunk recon
+scan, counterpart of faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas
+in its soft mode (no probe penalty, one bf16 store plane). For every query
 row r of a tile of ``qt`` rows:
 
   keys  [nq, 128] f32  the 128 smallest ``n2[s] - 2 q_r . yT[:, s]`` over all
@@ -13,16 +14,29 @@ row r of a tile of ``qt`` rows:
   floor [nq, 128] f32  all +inf: an exact select never evicts (the TPU
                        kernel reports its best evicted key here).
 
-The product is the float32 query against the bf16 store upcast to float32,
-accumulated in float32. ``ivf_recon_fused_dyn`` launches the CUDA kernel
-(csrc/ivf_recon_dyn.cu) for CUDA tensors and runs ``ivf_recon_fused_dyn_ref``,
-the plain PyTorch version of the same contract, for CPU tensors only.
+K2 ``ivf_recon_fused`` (csrc/ivf_recon.cu): the exhaustive recon scan,
+counterpart of ivf_recon_fused_pallas unmasked. The same triple over every
+column of ``yT`` (one bf16 plane) or of ``yT + yT_lo`` (the hi/lo planes of
+the exact flat screen); slots are columns of the given store, which may be a
+column slice (a stripe) of a wider one.
 
-The kernel is compiled with nvcc at first use into ``_build/<source hash>/``
-(a plain C interface loaded with ctypes); nothing is built at import."""
+K3 ``knn_fused`` (csrc/knn_fused.cu): exact float32 brute-force k-NN,
+counterpart of knn_fused_pallas. Top-``k_lanes`` values best-first WITH the
+query norm (L2: ``max(||q||^2 + ||y||^2 - 2 q.y, 0)``; IP: ``q.y``, largest
+first), int32 ids (-1 with +inf / -inf where none) and the floor [nq, 128]
+(+inf for L2, -inf for IP).
+
+The kernels compute the products in float32 on the CUDA cores (the bf16
+planes upcast); the plain versions use float32 matrix products with TF32 off
+and chunk over columns, so neither builds a full [nq, nb] score matrix. A
+wrapper launches its kernel for CUDA tensors and runs its plain version for
+CPU tensors only; any other device raises. Each kernel is compiled with nvcc
+at first use into ``_build/<source hash>/`` (a plain C interface loaded with
+ctypes); nothing is built at import."""
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -33,16 +47,37 @@ from pathlib import Path
 
 import torch
 
-LANES = 128  # top-K width of the kernel contract
-QUERIES_PER_BLOCK = 8  # QB in csrc/ivf_recon_dyn.cu: qt must be a multiple
+from .topk import merge_topk
+
+LANES = 128  # top-K width of the K1/K2 contract; floor width of K3
+QUERIES_PER_BLOCK = 8  # QB in the kernels: qt must be a multiple
+MAX_K_LANES = 2048  # K3's widest select (faiss's BlockSelect range)
+REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ivf_recon_dyn.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# kernel name -> (launch argtypes, smem_bytes argtypes); each library exports
+# <name>_launch, <name>_smem_bytes and <name>_error_string
+KERNELS = {
+    "ivf_recon_dyn": (
+        [_vp] * 7 + [_ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci],
+    ),
+    "ivf_recon": (
+        [_vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _ci, _ci, _ll, _ci, _ci, _vp],
+        [_ci],
+    ),
+    "knn_fused": (
+        [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp],
+        [_ci, _ci],
+    ),
+}
 
 
 def _nvcc() -> str:
@@ -50,46 +85,109 @@ def _nvcc() -> str:
     found = str(cand) if cand.exists() else shutil.which("nvcc")
     if not found:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the K1 CUDA kernel builds only "
+            "nvcc not found (set CUDA_HOME): the CUDA kernels build only "
             "where the CUDA toolkit is installed"
         )
     return found
 
 
 @functools.lru_cache(maxsize=None)
-def build_kernel():
-    """Compile csrc/ivf_recon_dyn.cu for sm_90a (once per source hash) and
-    load it. Returns (ctypes library, ptxas report text)."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / key
-    lib_path = out / "libivf_recon_dyn.so"
+def build_kernel(name: str):
+    """Compile csrc/<name>.cu for sm_90a (once per hash of the source, the
+    shared headers and the flags) and load it. Returns (ctypes library,
+    ptxas report text)."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / digest.hexdigest()[:16]
+    lib_path = out / f"lib{name}.so"
     report = out / "ptxas.txt"
     if not lib_path.exists():
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"libivf_recon_dyn.{os.getpid()}.so"
+        tmp = out / f"lib{name}.{os.getpid()}.so"
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
         report.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ivf_recon_dyn_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ci, ci, ctypes.c_longlong, ci, ci, ci, vp,
-    ]
-    lib.ivf_recon_dyn_launch.restype = ci
-    lib.ivf_recon_dyn_smem_bytes.argtypes = [ci]
-    lib.ivf_recon_dyn_smem_bytes.restype = ctypes.c_longlong
-    lib.ivf_recon_dyn_error_string.argtypes = [ci]
-    lib.ivf_recon_dyn_error_string.restype = ctypes.c_char_p
+    launch_args, smem_args = KERNELS[name]
+    getattr(lib, f"{name}_launch").argtypes = launch_args
+    getattr(lib, f"{name}_launch").restype = _ci
+    getattr(lib, f"{name}_smem_bytes").argtypes = smem_args
+    getattr(lib, f"{name}_smem_bytes").restype = _ll
+    getattr(lib, f"{name}_error_string").argtypes = [_ci]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     return lib, report.read_text()
 
 
-def _check(xq, yT, n2, cmap, qt, ct):
+def build_all():
+    """Build every kernel, one nvcc process per source, all started
+    together. Returns {name: (library, ptxas report)}."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build_kernel, KERNELS)))
+
+
+def _launch(name, *args):
+    lib, _ = build_kernel(name)
+    err = getattr(lib, f"{name}_launch")(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: "
+            + getattr(lib, f"{name}_error_string")(err).decode()
+        )
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _route(name, tensors):
+    """True to launch the kernel (CUDA tensors), False to run the plain
+    version (CPU tensors); raises for any other device."""
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: all tensors must be on one device")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {dev}")
+    return dev.type == "cuda"
+
+
+def _check_tiles(nq, qt):
+    if nq == 0 or qt <= 0 or nq % qt or qt % QUERIES_PER_BLOCK:
+        raise ValueError(
+            f"nq={nq} must be a positive multiple of qt={qt}, itself a "
+            f"multiple of {QUERIES_PER_BLOCK}"
+        )
+
+
+def _check_columns(S, ct, d_pad):
+    """The recon kernels' store: S columns in whole tiles of an even ct,
+    slots fit int32, dims in groups of 4."""
+    if ct <= 0 or ct % 2 or S % ct or S >= 1 << 31 or d_pad % 4:
+        raise ValueError(
+            f"need ct even, S={S} a multiple of ct={ct} below 2^31 and "
+            f"d_pad={d_pad} a multiple of 4"
+        )
+
+
+def _check_aligned(what, t, nbytes):
+    """The kernels load two adjacent columns as one vector (bf16x2 or
+    float2), so a store or norm row must start on an even column."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{what} must start on a {nbytes}-byte boundary")
+
+
+# -- K1 ----------------------------------------------------------------------
+
+
+def _check_dyn(xq, yT, n2, cmap, qt, ct):
     nq, d_pad = xq.shape if xq.dim() == 2 else (None, None)
     if (xq.dtype, yT.dtype, n2.dtype, cmap.dtype) != (
         torch.float32, torch.bfloat16, torch.float32, torch.int32
@@ -103,22 +201,14 @@ def _check(xq, yT, n2, cmap, qt, ct):
     S = yT.shape[1]
     if tuple(n2.shape) != (1, S):
         raise ValueError(f"n2 must be [1, {S}], got {tuple(n2.shape)}")
-    if nq == 0 or qt <= 0 or nq % qt or qt % QUERIES_PER_BLOCK:
-        raise ValueError(
-            f"nq={nq} must be a positive multiple of qt={qt}, itself a "
-            f"multiple of {QUERIES_PER_BLOCK}"
-        )
+    _check_tiles(nq, qt)
     if cmap.dim() != 2 or cmap.shape[0] != nq // qt or cmap.shape[1] < 1:
         raise ValueError(f"cmap must be [{nq // qt}, msteps], got {tuple(cmap.shape)}")
-    if ct <= 0 or ct % 2 or S % ct or S >= 1 << 31 or d_pad % 4:
-        raise ValueError(
-            f"need ct even, S={S} a multiple of ct={ct} below 2^31 and "
-            f"d_pad={d_pad} a multiple of 4"
-        )
+    _check_columns(S, ct, d_pad)
     if not all(t.is_contiguous() for t in (xq, yT, n2, cmap)):
         raise ValueError("xq, yT, n2 and cmap must be contiguous")
-    if len({t.device for t in (xq, yT, n2, cmap)}) != 1:
-        raise ValueError("xq, yT, n2 and cmap must be on one device")
+    _check_aligned("yT", yT, 4)
+    _check_aligned("n2", n2, 8)
 
 
 def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int):
@@ -130,33 +220,29 @@ def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int):
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
-    _check(xq, yT, n2, cmap, qt, ct)
-    if xq.device.type == "cpu":
+    _check_dyn(xq, yT, n2, cmap, qt, ct)
+    if not _route("K1", (xq, yT, n2, cmap)):
         return ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt, ct)
-    if xq.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {xq.device}")
-    lib, _ = build_kernel()
     nq, d_pad = xq.shape
-    keys = torch.empty(nq, LANES, dtype=torch.float32, device=xq.device)
-    slots = torch.empty(nq, LANES, dtype=torch.int32, device=xq.device)
-    floor = torch.empty(nq, LANES, dtype=torch.float32, device=xq.device)
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = lib.ivf_recon_dyn_launch(
-        xq.data_ptr(), yT.data_ptr(), n2.data_ptr(), cmap.data_ptr(),
-        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(),
-        nq, d_pad, yT.shape[1], cmap.shape[1], qt, ct, stream,
+    keys, slots, floor = _lane_outputs(nq, xq.device)
+    _launch(
+        "ivf_recon_dyn", xq.data_ptr(), yT.data_ptr(), n2.data_ptr(),
+        cmap.data_ptr(), keys.data_ptr(), slots.data_ptr(), floor.data_ptr(),
+        nq, d_pad, yT.shape[1], cmap.shape[1], qt, ct, _stream(xq.device),
     )
-    if err != 0:
-        raise RuntimeError(
-            "ivf_recon_dyn launch failed: "
-            + lib.ivf_recon_dyn_error_string(err).decode()
-        )
     ivf_recon_fused_dyn.launches += 1
     return keys, slots, floor
 
 
 ivf_recon_fused_dyn.launches = 0
+
+
+def _lane_outputs(nq, device):
+    return (
+        torch.empty(nq, LANES, dtype=torch.float32, device=device),
+        torch.empty(nq, LANES, dtype=torch.int32, device=device),
+        torch.empty(nq, LANES, dtype=torch.float32, device=device),
+    )
 
 
 def ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt: int, ct: int):
@@ -176,3 +262,173 @@ def ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt: int, ct: int):
             torch.isinf(v), -1, idx[pos]
         ).int()
     return keys, slots, torch.full_like(keys, float("inf"))
+
+
+# -- K2 ----------------------------------------------------------------------
+
+
+def _check_recon(xq, yT, n2, yT_lo, qt, ct):
+    planes = (yT,) if yT_lo is None else (yT, yT_lo)
+    if xq.dtype != torch.float32 or n2.dtype != torch.float32 or any(
+        p.dtype != torch.bfloat16 for p in planes
+    ):
+        raise ValueError(
+            "expected xq float32, yT (and yT_lo) bfloat16, n2 float32; got "
+            f"{xq.dtype}, {[p.dtype for p in planes]}, {n2.dtype}"
+        )
+    if xq.dim() != 2 or any(p.dim() != 2 for p in planes):
+        raise ValueError("xq and the store planes must be 2-D")
+    nq, d_pad = xq.shape
+    S = yT.shape[1]
+    if any(tuple(p.shape) != (d_pad, S) for p in planes):
+        raise ValueError(
+            f"store planes must be [{d_pad}, S]: {[tuple(p.shape) for p in planes]}"
+        )
+    if tuple(n2.shape) != (1, S):
+        raise ValueError(f"n2 must be [1, {S}], got {tuple(n2.shape)}")
+    _check_tiles(nq, qt)
+    _check_columns(S, ct, d_pad)
+    if not xq.is_contiguous():
+        raise ValueError("xq must be contiguous")
+    # the planes may be column slices of wider stores: unit column stride,
+    # one even row stride for both, n2 a unit-stride row
+    ld = yT.stride(0)
+    if (
+        any(p.stride(1) != 1 or p.stride(0) != ld for p in planes)
+        or ld % 2 or ld < S or n2.stride(1) != 1
+    ):
+        raise ValueError(
+            "yT (and yT_lo) need unit column stride and one even row stride "
+            "of at least S; n2 unit stride"
+        )
+    for p in planes:
+        _check_aligned("yT (and yT_lo)", p, 4)
+    _check_aligned("n2", n2, 8)
+    return ld
+
+
+def ivf_recon_fused(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024):
+    """K2 (see the module docstring). ``xq`` [nq, d_pad] float32 (dims
+    zero-padded), ``yT`` [d_pad, S] bfloat16 transposed store and optionally
+    ``yT_lo`` its lo residual plane (same shape and row stride; both may be
+    column slices of a wider store), ``n2`` [1, S] float32 (+inf on pads).
+    Returns (keys, slots, floor), slots being columns of the given store.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising; any other device raises."""
+    ld = _check_recon(xq, yT, n2, yT_lo, qt, ct)
+    planes = (xq, yT, n2) + (() if yT_lo is None else (yT_lo,))
+    if not _route("K2", planes):
+        return ivf_recon_fused_ref(xq, yT, n2, yT_lo, qt=qt, ct=ct)
+    nq, d_pad = xq.shape
+    keys, slots, floor = _lane_outputs(nq, xq.device)
+    _launch(
+        "ivf_recon", xq.data_ptr(), yT.data_ptr(),
+        None if yT_lo is None else yT_lo.data_ptr(), ld, n2.data_ptr(),
+        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq, d_pad,
+        yT.shape[1], qt, ct, _stream(xq.device),
+    )
+    ivf_recon_fused.launches += 1
+    return keys, slots, floor
+
+
+ivf_recon_fused.launches = 0
+
+
+def ivf_recon_fused_ref(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024):
+    """Plain PyTorch version of K2's contract: per column chunk, score
+    ``n2 - 2 q @ (hi + lo).float()``, take ``torch.topk`` and merge."""
+    del qt, ct  # tiles of the TPU kernel; the result does not depend on them
+    nq, S = xq.shape[0], yT.shape[1]
+    keys = torch.full((nq, LANES), float("inf"), device=xq.device)
+    slots = torch.full((nq, LANES), -1, dtype=torch.int64, device=xq.device)
+    for c0 in range(0, S, REF_CHUNK):
+        y = yT[:, c0 : c0 + REF_CHUNK].float()
+        if yT_lo is not None:
+            y = y + yT_lo[:, c0 : c0 + REF_CHUNK].float()
+        sc = n2[:, c0 : c0 + REF_CHUNK] - 2.0 * (xq @ y)
+        v, pos = torch.topk(sc, min(LANES, sc.shape[1]), dim=1, largest=False)
+        keys, slots = merge_topk(keys, slots, v, pos + c0, LANES, largest=False)
+    slots = torch.where(torch.isinf(keys), -1, slots)
+    return keys, slots.int(), torch.full_like(keys, float("inf"))
+
+
+# -- K3 ----------------------------------------------------------------------
+
+
+def _check_knn(x, yT, nb, qt, ct, k_lanes):
+    if x.dtype != torch.float32 or yT.dtype != torch.float32:
+        raise ValueError(f"expected x and yT float32, got {x.dtype}, {yT.dtype}")
+    if x.dim() != 2 or yT.dim() != 2 or yT.shape[0] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} and yT {tuple(yT.shape)} differ in d")
+    nbp = yT.shape[1]
+    _check_tiles(x.shape[0], qt)
+    if ct <= 0 or nbp % ct or nbp % 2 or nbp >= 1 << 31 or not 0 <= nb <= nbp:
+        raise ValueError(
+            f"need the store width {nbp} even, a multiple of ct={ct} and below "
+            f"2^31, and 0 <= nb={nb} <= it"
+        )
+    if k_lanes % LANES or not LANES <= k_lanes <= MAX_K_LANES:
+        raise ValueError(
+            f"k_lanes={k_lanes} must be a multiple of {LANES} in "
+            f"[{LANES}, {MAX_K_LANES}]"
+        )
+    if not (x.is_contiguous() and yT.is_contiguous()):
+        raise ValueError("x and yT must be contiguous")
+    _check_aligned("yT", yT, 8)
+
+
+def knn_fused(x, yT, nb: int, *, metric_l2: bool = True, qt: int = 512,
+              ct: int = 1024, k_lanes: int = LANES):
+    """K3 (see the module docstring). ``x`` [nq, d] float32, ``yT`` [d, nbp]
+    float32 transposed store whose columns from ``nb`` on are zero pads.
+    Returns (values [nq, k_lanes] f32, ids int32, floor [nq, 128] f32).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising; any other device raises."""
+    nb = int(nb)
+    _check_knn(x, yT, nb, qt, ct, k_lanes)
+    if not _route("K3", (x, yT)):
+        return knn_fused_ref(x, yT, nb, metric_l2=metric_l2, qt=qt, ct=ct,
+                             k_lanes=k_lanes)
+    nq, d = x.shape
+    vals = torch.empty(nq, k_lanes, dtype=torch.float32, device=x.device)
+    ids = torch.empty(nq, k_lanes, dtype=torch.int32, device=x.device)
+    floor = torch.empty(nq, LANES, dtype=torch.float32, device=x.device)
+    _launch(
+        "knn_fused", x.data_ptr(), yT.data_ptr(), yT.shape[1], nb,
+        int(metric_l2), vals.data_ptr(), ids.data_ptr(), floor.data_ptr(),
+        nq, d, k_lanes, qt, ct, _stream(x.device),
+    )
+    knn_fused.launches += 1
+    return vals, ids, floor
+
+
+knn_fused.launches = 0
+
+
+def knn_fused_ref(x, yT, nb: int, *, metric_l2: bool = True, qt: int = 512,
+                  ct: int = 1024, k_lanes: int = LANES):
+    """Plain PyTorch version of K3's contract: per column chunk below ``nb``,
+    score ``||y||^2 - 2 x @ y`` (L2) or ``-x @ y`` (IP), take ``torch.topk``
+    and merge; then add ``||x||^2`` (L2) or negate (IP)."""
+    del qt, ct  # tiles of the TPU kernel; the result does not depend on them
+    nq = x.shape[0]
+    keys = torch.full((nq, k_lanes), float("inf"), device=x.device)
+    ids = torch.full((nq, k_lanes), -1, dtype=torch.int64, device=x.device)
+    for c0 in range(0, int(nb), REF_CHUNK):
+        y = yT[:, c0 : min(c0 + REF_CHUNK, int(nb))]
+        ip = x @ y
+        sc = y.square().sum(0)[None, :] - 2.0 * ip if metric_l2 else -ip
+        v, pos = torch.topk(sc, min(k_lanes, sc.shape[1]), dim=1, largest=False)
+        keys, ids = merge_topk(keys, ids, v, pos + c0, k_lanes, largest=False)
+    missing = torch.isinf(keys)
+    ids = torch.where(missing, -1, ids).int()
+    if metric_l2:
+        vals = (keys + x.square().sum(1)[:, None]).clamp_min(0.0)
+        vals = torch.where(missing, float("inf"), vals)
+        floor = torch.full((nq, LANES), float("inf"), device=x.device)
+    else:
+        vals = torch.where(missing, float("-inf"), -keys)
+        floor = torch.full((nq, LANES), float("-inf"), device=x.device)
+    return vals, ids, floor

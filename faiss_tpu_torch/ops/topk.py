@@ -17,3 +17,21 @@ def topk(
     best-first. ``k`` is clipped to the axis length."""
     k = min(k, scores.shape[-1])
     return torch.topk(scores, k, dim=-1, largest=largest, sorted=True)
+
+
+def merge_topk(
+    vals_a: torch.Tensor,
+    ids_a: torch.Tensor,
+    vals_b: torch.Tensor,
+    ids_b: torch.Tensor,
+    k: int,
+    *,
+    largest: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two top-k result sets (faiss_tpu/ops/topk.py:49): concatenate
+    the candidates along the last axis and reselect k, best-first. Inputs
+    need not be sorted."""
+    vals = torch.cat([vals_a, vals_b], dim=-1)
+    ids = torch.cat([ids_a, ids_b], dim=-1)
+    v, pos = topk(vals, k, largest=largest)
+    return v, torch.gather(ids, -1, pos)
