@@ -1,60 +1,94 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two ported paths once on one CUDA card and check
-them: the IVF4096,PQ32x4fs,RFlat serving path (kernel K1) and exact flat
-search (kernels K2 and K3).
+"""Drive the PyTorch port's ported paths once on one CUDA card and check
+them: IVF4096,PQ32x4fs search, refined and unrefined (kernels K1, K2, K4,
+K5, with the penalized mode of K1 and the masked mode of K2), and exact flat
+search (K2 and K3).
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. a CUDA card is present; print its name and power limit (nvidia-smi);
-  2. build K1, K2 and K3 (faiss_tpu_torch/csrc/*.cu), one nvcc per source,
-     all started together, and print each one's ptxas register lines and
-     dynamic shared memory per block;
+  2. build K1-K5 (faiss_tpu_torch/csrc/*.cu: ivf_recon_dyn, ivf_recon,
+     knn_fused, ivfpq_adc), one nvcc per source, all started together, and
+     print each one's ptxas register lines and dynamic shared memory;
   3. regenerate the 1M x 128 Gaussian mixture of bench.py (seeds 42, 1, 2, 3);
   4. train and add IndexRefineFlat(IndexIVFPQFastScan(d=128, nlist=4096,
      M=32, nbits=4), store_float16=True) on the card, then stage the search
      layout (20 k-means iterations);
   5. search the 8192 queries at nprobe=1, soft probing, k_factor=8,
-     pipeline_batch=2048, with the kernels' launch counts set to 0 before and
-     read after; recall@10 against bench_gt_cache.npz must reach 0.95, and
-     the returned distances must be the exact squared L2 to the fp16 store;
+     pipeline_batch=2048 (K1); recall@10 against bench_gt_cache.npz must
+     reach 0.95, and the returned distances must be the exact squared L2 to
+     the fp16 store;
   6. on the first real 2048-query sub-batch with its real worklists, K1 and
      its plain PyTorch version must return the same slots (tie-aware) and
      keys within 1e-4 * (|q|^2 + n2);
   7. time K1 and the plain version with CUDA events (plain, kernel, kernel,
-     plain) and the search of all 8192 queries with a host clock.
+     plain) and the search of all 8192 queries with a host clock;
+  8. the unrefined IndexIVFPQFastScan.search of the 8192 queries at
+     nprobe=1, k=10 (K4): on 64 rows the distances equal a float64 ADC of
+     each returned slot (the same bf16 LUTs, codes, n2 and coarse term)
+     within 1e-5 * (|q|^2 + max n2), and the ids agree tie-aware with a
+     float64 ADC brute force over the query's probed list; recall@10;
+ 9. refined with strict_probe=True, the default (K2 masked): on every row
+     whose probed list holds >= k * k_factor slots the ids lie in that list;
+     distances exact to the fp16 store; recall@10;
+ 10. K4 (the unrefined search's 8192-query bucket), K5, K1 penalized,
+     K2 masked and K2 unmasked (phase 12's scan; the first 2048-query
+     sub-batch of their paths) against their plain versions: keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|
+     (the second term covers float32's spacing of 64 at the 1e9 mask), ids
+     tie-aware; times by CUDA events, plain, kernel, kernel, plain;
+ 11. phase 9 with dyn_engage_frac = 0.7 (K1 penalized): on the rows of
+     phase 9's kind in sub-batches that dropped no probed chunk, the ids lie
+     in the probed list and agree tie-aware with phase 9;
+ 12. refined at nprobe = 0 on 2048 queries (K2 unmasked over the decoded
+     store);
+ 13-14. re-staged with recon_scan_max_bytes = 0 (no decoded store): refined
+     soft (K5) and refined strict (K4); both mask unprobed lists, so their
+     ids agree tie-aware on the rows of phase 11's kind where K5's sub-batch
+     dropped no probed chunk; recall@10 and ivf_fast_scan_stats.
+     Every search of phases 8-14 runs with all launch counts set to 0 just
+     before it and read just after, must launch its path's kernel, and is
+     timed by host clock, median of 5.
 The IVF-PQ index is then freed, and exact flat search follows on the same
 1M x 128 store. Every search below runs with all launch counts set to 0
 just before it and read just after, and must launch its path's kernel:
-  8. IndexFlatL2: add and stage the hi/lo screen store;
-  9. k=10 through ``search`` (screen, K2): the ids must agree tie-aware with
+ 15. IndexFlatL2: add and stage the hi/lo screen store;
+ 16. k=10 through ``search`` (screen, K2): the ids must agree tie-aware with
      bench_gt_cache.npz (float64 distances, tolerance 1e-6 * (|q|^2 +
      max |y|^2)); print recall@10;
- 10. k=100 (BASELINE config 1) through ``search_submit``/``search_collect``
+ 17. k=100 (BASELINE config 1) through ``search_submit``/``search_collect``
      (screen, K2): print the certified share and the repaired rows;
- 11. k=1024 (BASELINE row 9) through ``search`` (striped, K2 per stripe):
+ 18. k=1024 (BASELINE row 9) through ``search`` (striped, K2 per stripe):
      print the striped counters;
- 12. ``flat_screen = False``: k=100 on the 8192 queries and k=2000 on 1024
+ 19. ``flat_screen = False``: k=100 on the 8192 queries and k=2000 on 1024
      queries (fused, K3 at k_lanes 128 and 2048);
- 13. IndexFlatIP: k=100 on 1024 queries (screen, K2).
-     After each of 10-13, 64 rows must match a float64 brute force on the
+ 20. IndexFlatIP: k=100 on 1024 queries (screen, K2).
+     After each of 17-20, 64 rows must match a float64 brute force on the
      card: distances within 1e-5 * (|q|^2 + max |y|^2) (the float32 norm
      expansion's error scales with the norms, not with the distance) and ids
      tie-aware;
- 14. K2 (hi/lo and one plane) on the first 4096-query screen sub-batch
+ 21. K2 (hi/lo and one plane) on the first 4096-query screen sub-batch
      against the full store, K2 hi/lo on the first and the last (pad-filled)
      k=1024 stripe as the striped path passes them (column slices of the
      stripe-grid store, row stride wider than the slice), and K3 at k_lanes
      128 and 2048, against their plain versions: keys within
      1e-4 * (|q|^2 + n2), ids tie-aware;
- 15. time K2 (full store and one stripe) and K3 and their plain versions
+ 22. time K2 (full store and one stripe) and K3 and their plain versions
      with CUDA events (plain, kernel, kernel, plain), and ``search`` of the
      8192 queries at k=100 and k=1024 by host clock, median of 5, with QPS;
      peak device memory.
 The last two lines are the card's name and power limit, then the result
-line {"ok": true, "device": {...}}; the kernels' JSON line comes before.
+line {"ok": true, "device": {...}}; the kernels' JSON line comes before. Each
+kernel's entry there carries its bound, counted from this run's inputs: the
+larger of the time of its operations and the time of its bytes (inputs read
+once, outputs written once) over 3.35 TB/s. The recon kernels' operations
+are float32 FMAs over 67 TFLOP/s; the ADC kernels' are, whichever takes
+longer, their float32 adds over 33.5 T/s or their shared-memory LUT lookups
+at 32 a clock per SM at the card's max SM clock. Rates are an H100 SXM's
+peaks at 700 W; only the slots that hold a vector are counted.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -126,8 +160,69 @@ def host_median(fn, n=5):
 
 def reset_counts(fused_knn):
     for f in (fused_knn.ivf_recon_fused_dyn, fused_knn.ivf_recon_fused,
-              fused_knn.knn_fused):
+              fused_knn.knn_fused, fused_knn.ivfpq_fused,
+              fused_knn.ivfpq_fused_dyn):
         f.launches = 0
+    fused_knn.ivf_recon_fused_dyn.penalized_launches = 0
+    fused_knn.ivf_recon_fused.masked_launches = 0
+
+
+# H100 SXM at 700 W, datasheet peaks: float32 outside the tensor
+# cores, an FMA counted as 2 operations (so PEAK_FLOPS / 2 float32 adds a
+# second); HBM bytes per second
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+@functools.lru_cache(maxsize=None)
+def lookup_rate():
+    """Shared-memory 32-bit loads a second: 32 a clock per SM, at the card's
+    max SM clock as nvidia-smi reports it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 32 * float(mhz) * 1e6
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ops_s(store, keys):
+    """Seconds of a scan's operations over ``keys`` (query, slot) pairs. A
+    recon store (bf16 [d_pad, S]): an FMA per dimension. A code store
+    (uint8 [M, S]): M + 1 shared-memory lookups (the LUT entries and the
+    bias) at lookup_rate() and M + 2 float32 adds at PEAK_FLOPS / 2, the
+    larger."""
+    if store.dtype != torch.uint8:
+        return keys * 2 * store.shape[0] / PEAK_FLOPS
+    M = store.shape[0]
+    return max(keys * (M + 1) / lookup_rate(), keys * (M + 2) / (PEAK_FLOPS / 2))
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, t_ops, nbyt):
+    """One kernel of the kernels' JSON line. The bound is the larger of the
+    operations' time ``t_ops`` (seconds) and the bytes (each input read
+    once, each output written once) over PEAK_BYTES."""
+    t_ops, t_bytes = t_ops * 1e3, nbyt / PEAK_BYTES * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # no single PyTorch call computes a top-128 of these keys
+        "library_ms": None,
+    }
+
+
+def lane_tol(qn2, n2, rkeys, rslots):
+    """Per-key tolerance of a kernel against its plain version: 1e-4 of
+    |q|^2 + n2 of the slot, plus 1e-6 of |key| for the keys near 1e9 of
+    masked or penalized slots (float32 spacing there is 64)."""
+    n2s = np.where(rslots >= 0, n2[np.maximum(rslots, 0)], 0)
+    fin = np.where(np.isfinite(rkeys), np.abs(rkeys), 0)
+    return 1e-4 * (qn2[:, None] + n2s) + 1e-6 * fin
 
 
 def compare_lanes(keys, slots, rkeys, rslots, tol, what, ids_agree_tie_aware):
@@ -149,9 +244,11 @@ def compare_lanes(keys, slots, rkeys, rslots, tol, what, ids_agree_tie_aware):
 
 
 def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
-    """Phases 4-7: the IVF4096,PQ32x4fs,RFlat path and K1. Returns K1's
-    entry of the kernels' JSON line."""
-    from faiss_tpu_torch.models.ivf_pq import _k1_inputs
+    """Phases 4-14: the IVF4096,PQ32x4fs,RFlat path and K1, then the rest of
+    IVF-PQ search on the same index. Returns the entries of K1, K4, K5, K1
+    penalized and K2 masked in the kernels' JSON line, and K2's unmasked
+    launches and max_abs_err on the IVF-PQ path."""
+    from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
 
     base = ft.IndexIVFPQFastScan(None, D, NLIST, M, NBITS, device=dev)
@@ -201,16 +298,16 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     # K1 against its plain version on the first real sub-batch
     qt = 256
     xq_dev = torch.from_numpy(xq[:BATCH]).to(dev)
-    _, xq_p, cmap, ndropped = _k1_inputs(xq_dev, br, NPROBE, qt, msteps)
+    perm, _, _, cmap, ndropped = _dyn_inputs(xq_dev, br, NPROBE, qt, msteps)
+    xq_p = _pad_dims(xq_dev[perm], br)
     args = (xq_p, br["yT"], br["n2s"], cmap, qt, base.FUSED_CT)
     kk, ks, kf = fused_knn.ivf_recon_fused_dyn(*args)
     rk, rs_, _ = fused_knn.ivf_recon_fused_dyn_ref(*args)
     torch.cuda.synchronize()
     check(bool(torch.isinf(kf).all()), "K1's floor is not all +inf")
     n2 = br["n2s"][0].cpu().numpy()
-    rsn = rs_.cpu().numpy()
-    tol = 1e-4 * ((xq_p.cpu().numpy() ** 2).sum(1)[:, None]
-                  + np.where(rsn >= 0, n2[np.maximum(rsn, 0)], 0))
+    tol = lane_tol((xq_p.cpu().numpy() ** 2).sum(1), n2, rk.cpu().numpy(),
+                   rs_.cpu().numpy())
     max_abs_err = compare_lanes(kk, ks, rk, rs_, tol, "K1", ids_agree_tie_aware)
     print(f"K1 vs plain on sub-batch 0 [{BATCH} q, {cmap.shape[1]} steps, "
           f"ndropped {int(ndropped)}]: max_abs_err {max_abs_err:.3e}, "
@@ -226,16 +323,374 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
           f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> "
           f"{NQ / t_search:.0f} QPS; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return {
-        "name": "ivf_recon_fused_dyn",
-        "route": "cuda",
-        "source": "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
-        "replaces": "faiss_tpu/ops/pallas_knn.py:1249",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }
+    k1 = entry("ivf_recon_fused_dyn", "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
+               "faiss_tpu/ops/pallas_knn.py:1249", launches, max_abs_err, ms,
+               plain_ms, *dyn_cost(br, cmap, qt, br["yT"], (xq_p,), False))
+    out, k2_ivf = strict_and_adc_phases(fused_knn, base, index, br, xb, xq,
+                                        gt, dev, msteps)
+    return [k1] + out, k2_ivf
+
+
+def dyn_cost(br, cmap, qt, store, per_query, lid):
+    """(operations' seconds, bytes) of a worklist scan (K1, K5) in this run:
+    every query scores the vector-holding slots of its tile's non-PAD
+    worklist chunks (ops_s); the store columns of the worklists' union are
+    read once with their n2 (and lid), the per-query inputs and the
+    worklists once; three [nq, 128] outputs."""
+    nch = br["nchunks"]
+    ct = store.shape[1] // (nch + 1)
+    held = torch.isfinite(br["n2s"][0]).reshape(nch + 1, ct).sum(1)
+    real = cmap != nch
+    keys = int(held[cmap.long()][real].sum()) * qt
+    union = int(torch.unique(cmap[real]).numel()) * ct
+    per_col = store.shape[0] * store.element_size() + 4 + 4 * lid
+    nq = cmap.shape[0] * qt
+    return (ops_s(store, keys),
+            union * per_col + nbytes(cmap, *per_query) + 3 * nq * 512)
+
+
+def scan_cost(store, n2s, nq, per_query, lid):
+    """(operations' seconds, bytes) of an exhaustive scan (K2 one plane, K4):
+    every query scores every vector-holding slot (ops_s); every column of
+    the store is read once with n2 (and lid)."""
+    S = store.shape[1]
+    per_col = store.shape[0] * store.element_size() + 4 + 4 * lid
+    keys = nq * int(torch.isfinite(n2s).sum())
+    return (ops_s(store, keys),
+            S * per_col + nbytes(*per_query) + 3 * nq * 512)
+
+
+def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps):
+    """A kernel against its plain version on the same inputs (keys within
+    lane_tol, ids tie-aware, floor all +inf), then both timed in turns.
+    Returns (max_abs_err, kernel ms, plain ms)."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    kk, ks, kf = kern()
+    rk, rs_, _ = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isinf(kf).all()), f"{what}: floor is not all +inf")
+    tol = lane_tol(qn2, n2, rk.cpu().numpy(), rs_.cpu().numpy())
+    err = compare_lanes(kk, ks, rk, rs_, tol, what, ids_agree_tie_aware)
+    ms, plain_ms, t = turns(plain, kern, reps)
+    print(f"{what} vs plain: max_abs_err {err:.3e}, ids agree on all rows; "
+          f"{t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / {t[3]:.2f} ms",
+          flush=True)
+    return err, ms, plain_ms
+
+
+def counted(fused_knn, what, fn, count):
+    """Run fn with every launch count set to 0 just before and read just
+    after; ``count()`` (the path's kernel) must have launched."""
+    reset_counts(fused_knn)
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    n = count()
+    check(n > 0, f"{what} launched its kernel no time")
+    print(f"{what}: {time.time() - t0:.3f} s (first call), {n} launches",
+          flush=True)
+    return out, n
+
+
+def time_search(what, fn, n):
+    """Host-clock median of 5 calls of a search of n queries."""
+    med, times = host_median(fn)
+    print(f"{what} search of {n} queries: median {med * 1e3:.1f} ms over 5 "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> {n / med:.0f} QPS",
+          flush=True)
+
+
+def refined(index, x):
+    """index.search through search_submit / search_collect, with each
+    sub-batch's dropped probed chunks: (D, I, [(start, real, ndropped)])."""
+    handle = index.search_submit(x, K)
+    drops = [(st, real, int(out[2])) for st, real, out, _ in handle[1]["pending"]]
+    D, I = index.search_collect(handle)
+    return D, I, drops
+
+
+def undropped(drops, n):
+    ok = np.zeros(n, bool)
+    for st, real, nd in drops:
+        ok[st : st + real] = nd == 0
+    return ok
+
+
+def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
+    """Phases 8-14 on the trained 1M index: the unrefined search (K4), the
+    strict refined searches (K2 masked, K1 penalized), the exhaustive one
+    (K2), the four kernels against their plain versions, and without the
+    decoded store the code-streaming searches (K5, K4). Returns the entries
+    of K4, K5, K1 penalized and K2 masked, and K2's unmasked launches and
+    max_abs_err."""
+    from faiss_tpu_torch.models import ivf_pq as P
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+
+    ct, G = base.FUSED_CT, br["cn2g"].shape[0] // 128
+    sm = br["slot_map"]
+    S = len(sm)
+    valid = sm >= 0
+    pos_of = np.empty(int(valid.sum()), np.int64)  # input slot -> position
+    pos_of[sm[valid]] = np.where(valid)[0]
+    lid = br["lid"][0].cpu().numpy()
+    col_of = np.minimum(np.arange(S) // ct // br["cpg"], G - 1) * 128 + lid
+    col_of[~valid] = -1
+    col_size = np.bincount(col_of[valid], minlength=G * 128)
+    xq_all = torch.from_numpy(xq).to(dev)
+    key = br["cn2g"][None] - 2.0 * (xq_all @ br["centroids_g"].T)
+    probe = torch.topk(key, 1, largest=False).indices[:, 0].cpu().numpy()
+    kc = K * K_FACTOR
+    full = col_size[probe] >= kc  # rows whose probed list holds kc slots
+    xb16 = xb.astype(np.float16).astype(np.float32)
+
+    def slot_cols(I):
+        return np.where(I >= 0, col_of[pos_of[np.maximum(I, 0)]], -1)
+
+    def exact_fp16(D, I, what, rows=256):
+        d_chk = ((xq[:rows, None, :] - xb16[I[:rows]]) ** 2).sum(-1)
+        check(np.allclose(D[:rows], d_chk, rtol=1e-4, atol=1e-3),
+              f"{what}: distances are not the exact L2 to the fp16 store")
+
+    def tie_tol(D):  # exact re-ranked distances: float32 ties
+        return 1e-5 * np.abs(np.where(np.isfinite(D), D, 0)).max(1)
+
+    # 8. unrefined IndexIVFPQFastScan.search (K4), checked against a float64
+    # ADC of the same bf16 LUTs, codes, n2 and coarse term on 64 rows
+    (Du, Iu), k4_launches = counted(
+        fused_knn, f"8. unrefined search, nprobe={NPROBE} (K4)",
+        lambda: base.search(xq, K), lambda: fused_knn.ivfpq_fused.launches)
+    check(Du.shape == Iu.shape == (NQ, K), f"unrefined result shape {Du.shape}")
+    check(((Iu >= -1) & (Iu < NB)).all() and np.isfinite(Du[Iu >= 0]).all()
+          and np.isinf(Du[Iu < 0]).all(), "unrefined: invalid ids or distances")
+    r = EXACT_ROWS
+    qn2 = xq_all.double().square().sum(1).cpu().numpy()
+    codes = br["codesT"].long()
+    M = codes.shape[0]
+    moff = (torch.arange(M, device=dev) * (br["cbt"].shape[1] // M))[:, None]
+    n2d = br["n2s"][0].double()
+    yT = br["yT"]
+    cold = torch.from_numpy(np.maximum(col_of, 0)).to(dev)
+    cent64 = br["centroids_g"].double()
+
+    def adc64(q, pos):
+        """float64 ADC distances of query q to packed positions, from the
+        same bf16 LUTs, codes, n2 and coarse term as K4 and K5."""
+        x = xq_all[q : q + 1]
+        lut = P._adc_luts(x, br["cbt"]).double()[0]
+        cm = -2.0 * (x.double() @ cent64.T)[0]
+        p = torch.as_tensor(pos, device=dev)
+        return (n2d[p] + cm[cold[p]] + lut[codes[:, p] + moff].sum(0)
+                + qn2[q]).cpu().numpy()
+
+    def recon64(q, pos):
+        """float64 keys n2 - 2 q.y of query q over the bf16 decoded store,
+        as K1 and K2 rank them."""
+        p = torch.as_tensor(pos, device=dev)
+        return (n2d[p] - 2.0 * (xq_all[q].double() @ yT[:, p].double())).cpu().numpy()
+
+    n2max = float(br["n2s"][torch.isfinite(br["n2s"])].max())
+    tol = 1e-5 * (qn2[:r] + n2max)
+
+    def agree_at_cut(rows, Da, Ia, Db, Ib, key64, what):
+        """Two strict refined results of the same probed lists on ``rows``:
+        ids agree tie-aware, except that an id one result ranks clearly
+        inside the other's may be a candidate whose key ties, within
+        1e-5 * (|q|^2 + max n2), with the kc-th key of the probed list: at
+        that cut either of the tied candidates may reach the re-rank. Prints
+        and returns the rows that differed at the cut."""
+        tie = tie_tol(Da)
+        agree = ids_agree_tie_aware(Da[rows], Ia[rows], Db[rows], Ib[rows],
+                                    tie[rows])
+        cut = 0
+        for q in np.where(rows)[0][~agree]:
+            bad = []
+            for Dx, Ix, Dy, Iy in ((Da, Ia, Db, Ib), (Db, Ib, Da, Ia)):
+                only = ~np.isin(Ix[q], Iy[q]) & (Dx[q] < Dy[q][-1] - tie[q])
+                bad += list(Ix[q][only])
+            keys = key64(q, np.where(col_of == probe[q])[0])
+            kth = np.sort(keys)[kc - 1]
+            kb = key64(q, pos_of[np.asarray(bad)])
+            check((np.abs(kb - kth) <= 1e-5 * (qn2[q] + n2max)).all(),
+                  f"{what}: row {q} differs beyond a tie at the candidate cut "
+                  f"(keys {kb} against the kc-th {kth})")
+            cut += 1
+        print(f"{what}: ids agree tie-aware on {int(rows.sum()) - cut} of "
+              f"{int(rows.sum())} rows; {cut} differ only by candidates tied "
+              f"at the kc-th key", flush=True)
+    err = 0.0
+    bf_d = np.full((r, K), np.inf)
+    bf_i = np.full((r, K), -1)
+    for q in range(r):
+        got = Iu[q] >= 0
+        if got.any():
+            e = np.abs(Du[q, got] - adc64(q, pos_of[Iu[q, got]]))
+            err = max(err, float(e.max()))
+            check((e <= tol[q]).all(), f"unrefined: row {q} distances differ "
+                                       f"from the float64 ADC by {e.max():.3e}")
+        lst = np.where(col_of == probe[q])[0]
+        d = adc64(q, lst)
+        o = np.argsort(d, kind="stable")[:K]
+        bf_d[q, : len(o)] = d[o]
+        bf_i[q, : len(o)] = base._ids_host[sm[lst[o]]]
+    agree = ids_agree_tie_aware(bf_d, bf_i, Du[:r], Iu[:r], tol)
+    check(agree.all(), f"unrefined: ids differ from the float64 ADC brute force "
+                       f"over the probed list on {int((~agree).sum())} rows")
+    print(f"unrefined: {r} rows match a float64 ADC (max err {err:.3e}) and its "
+          f"brute force over the probed list; recall@10 "
+          f"{recall_at_k(Iu, gt, K):.4f}; {int((Iu < 0).sum())} empty results "
+          "(probed lists shorter than k)", flush=True)
+    time_search("unrefined (K4)", lambda: base.search(xq, K), NQ)
+
+    # 9. refined, strict_probe=True (the default): 128 chunks per worklist
+    # exceed dyn_engage_frac * nchunks, so the masked exhaustive scan (K2)
+    base.strict_probe = True
+    (Ds, Is, _), k2m_launches = counted(
+        fused_knn, f"9. refined strict search, nprobe={NPROBE} (K2 masked)",
+        lambda: refined(index, xq),
+        lambda: fused_knn.ivf_recon_fused.masked_launches)
+    check(np.isfinite(Ds).all() and (Is >= 0).all(), "strict: missing results")
+    inlist = (slot_cols(Is) == probe[:, None]).all(1)
+    check(inlist[full].all(), f"strict: {int((~inlist[full]).sum())} rows with "
+                              f"{kc} probed slots return ids of other lists")
+    exact_fp16(Ds, Is, "strict")
+    print(f"strict: ids in the probed list on all {int(full.sum())} rows whose "
+          f"list holds >= {kc} slots; recall@10 {recall_at_k(Is, gt, K):.4f}",
+          flush=True)
+    time_search("refined strict (K2 masked)", lambda: index.search(xq, K), NQ)
+
+    # 10. kernels against their plain versions on their paths' first
+    # sub-batch (keys within lane_tol, ids tie-aware), timed in turns
+    n2 = br["n2s"][0].cpu().numpy()
+    xq2 = xq_all[:BATCH]
+    qt = 256
+    out = []
+    # K4: the unrefined search's one 8192-query bucket
+    cm2 = P._masked_coarse_bias(xq_all, br["centroids_g"], br["cn2g"], NPROBE)
+    a4 = (cm2, P._adc_luts(xq_all, br["cbt"]), br["codesT"], br["n2s"], br["lid"])
+    err, ms, pms = kernel_check(
+        fused_knn, f"K4 [{NQ} q x {S} slots]",
+        lambda: fused_knn.ivfpq_fused(*a4, qt=qt, ct=ct),
+        lambda: fused_knn.ivfpq_fused_ref(*a4, qt=qt, ct=ct),
+        xq_all.square().sum(1).cpu().numpy(), n2, 3)
+    out.append(entry("ivfpq_fused", "faiss_tpu_torch/csrc/ivfpq_adc.cu",
+                     "faiss_tpu/ops/pallas_knn.py:1484", k4_launches, err, ms,
+                     pms, *scan_cost(br["codesT"], br["n2s"], len(xq_all), a4[:2],
+                                     True)))
+    # K5: the first soft refined sub-batch without a decoded store
+    perm, pcols_s, cm2, cmap, _ = P._dyn_inputs(xq2, br, NPROBE, qt, msteps)
+    xs = xq2[perm]
+    cm2_s = torch.where(P._probe_mask(cm2, pcols_s), cm2[perm], 1e9)
+    a5 = (cm2_s, P._adc_luts(xs, br["cbt"]), br["codesT"], br["n2s"], br["lid"],
+          cmap, br["cgroup"])
+    k5 = kernel_check(
+        fused_knn, f"K5 [{BATCH} q, {cmap.shape[1]} steps]",
+        lambda: fused_knn.ivfpq_fused_dyn(*a5, qt=qt, ct=ct),
+        lambda: fused_knn.ivfpq_fused_dyn_ref(*a5, qt=qt, ct=ct),
+        xs.square().sum(1).cpu().numpy(), n2, 5)
+    k5_cost = dyn_cost(br, cmap, qt, br["codesT"], a5[:2], True)
+    # K1 penalized: the first strict sub-batch at dyn_engage_frac = 0.7
+    pen = torch.where(P._probe_mask(cm2, pcols_s), 0.0, 1e9)
+    a1 = (P._pad_dims(xs, br), br["yT"], br["n2s"], cmap, qt, ct)
+    kw1 = dict(biasg=pen, lid=br["lid"], cgroup=br["cgroup"])
+    k1p = kernel_check(
+        fused_knn, f"K1 penalized [{BATCH} q, {cmap.shape[1]} steps]",
+        lambda: fused_knn.ivf_recon_fused_dyn(*a1, **kw1),
+        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1),
+        xs.square().sum(1).cpu().numpy(), n2, 10)
+    k1p_cost = dyn_cost(br, cmap, qt, br["yT"], (a1[0], pen), True)
+    # K2 masked: the first strict sub-batch
+    mask = torch.where(P._probed(xq2, br["centroids_g"], br["cn2g"], NPROBE)[1],
+                       0.0, 1e9)
+    a2 = (P._pad_dims(xq2, br), br["yT"], br["n2s"])
+    kw2 = dict(qt=qt, ct=ct, biasg=mask, lid=br["lid"])
+    err, ms, pms = kernel_check(
+        fused_knn, f"K2 masked [{BATCH} q x {S} slots]",
+        lambda: fused_knn.ivf_recon_fused(*a2, **kw2),
+        lambda: fused_knn.ivf_recon_fused_ref(*a2, **kw2),
+        xq2.square().sum(1).cpu().numpy(), n2, 3)
+    out.append(entry("ivf_recon_fused[masked]", "faiss_tpu_torch/csrc/ivf_recon.cu",
+                     "faiss_tpu/ops/pallas_knn.py:1362", k2m_launches, err, ms,
+                     pms, *scan_cost(br["yT"], br["n2s"], len(xq2), (a2[0], mask),
+                                     True)))
+    # K2 unmasked, as phase 12 runs it: the same sub-batch with no mask
+    k2_err = kernel_check(
+        fused_knn, f"K2 one plane [{BATCH} q x {S} slots]",
+        lambda: fused_knn.ivf_recon_fused(*a2, qt=qt, ct=ct),
+        lambda: fused_knn.ivf_recon_fused_ref(*a2, qt=qt, ct=ct),
+        xq2.square().sum(1).cpu().numpy(), n2, 1)[0]
+    del a1, a2, a4, a5, kw1, kw2, pen, mask, cm2, cm2_s
+
+    # 11. the same with dyn_engage_frac = 0.7: K1 penalized
+    base.dyn_engage_frac = 0.7
+    (Dp, Ip, drops), k1p_launches = counted(
+        fused_knn, "11. refined strict search, dyn_engage_frac=0.7 (K1 penalized)",
+        lambda: refined(index, xq),
+        lambda: fused_knn.ivf_recon_fused_dyn.penalized_launches)
+    rows = undropped(drops, NQ) & full
+    inlist_p = (slot_cols(Ip) == probe[:, None]).all(1)
+    check(inlist_p[rows].all(), f"K1 penalized: {int((~inlist_p[rows]).sum())} "
+                                "rows return ids of other lists")
+    print(f"K1 penalized: drops per sub-batch {[d for _, _, d in drops]}; ids "
+          f"in the probed list on all {int(rows.sum())} rows of undropped "
+          f"sub-batches whose list holds >= {kc} slots", flush=True)
+    agree_at_cut(rows, Ds, Is, Dp, Ip, recon64, "K1 penalized vs K2 masked")
+    time_search("refined strict (K1 penalized)", lambda: index.search(xq, K), NQ)
+    out.insert(1, entry("ivf_recon_fused_dyn[penalized]",
+                        "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
+                        "faiss_tpu/ops/pallas_knn.py:1249", k1p_launches, *k1p,
+                        *k1p_cost))
+    base.dyn_engage_frac = 0.08
+
+    # 12. nprobe = 0 on 2048 queries: the exhaustive scan (K2 unmasked)
+    base.nprobe = 0
+    nq0 = 2048
+    (D0, I0, _), k2_ivf_launches = counted(
+        fused_knn, f"12. refined search, nprobe=0, {nq0} queries (K2)",
+        lambda: refined(index, xq[:nq0]),
+        lambda: fused_knn.ivf_recon_fused.launches
+        - fused_knn.ivf_recon_fused.masked_launches)
+    exact_fp16(D0, I0, "nprobe=0")
+    print(f"nprobe=0: recall@10 {recall_at_k(I0, gt[:nq0], K):.4f}", flush=True)
+    time_search("refined nprobe=0 (K2)", lambda: index.search(xq[:nq0], K), nq0)
+    base.nprobe = NPROBE
+
+    # 13-14. without the decoded store: soft (K5) and strict (K4)
+    base.recon_scan_max_bytes = 0
+    base._brute = None
+    t0 = time.time()
+    br = base._build_brute()
+    torch.cuda.synchronize()
+    check(br["yT"] is None, "the decoded store was staged above the cap")
+    print(f"restaged without the decoded store in {time.time() - t0:.2f} s",
+          flush=True)
+    base.strict_probe = False
+    P.ivf_fast_scan_stats.reset()
+    (Dd, Id, drops), k5_launches = counted(
+        fused_knn, "13. refined soft search, no decoded store (K5)",
+        lambda: refined(index, xq), lambda: fused_knn.ivfpq_fused_dyn.launches)
+    print(f"K5 path: recall@10 {recall_at_k(Id, gt, K):.4f}; "
+          f"{P.ivf_fast_scan_stats}", flush=True)
+    time_search("refined soft, no decoded store (K5)", lambda: index.search(xq, K), NQ)
+    base.strict_probe = True
+    P.ivf_fast_scan_stats.reset()
+    (Dk, Ik, _), k4r_launches = counted(
+        fused_knn, "14. refined strict search, no decoded store (K4)",
+        lambda: refined(index, xq), lambda: fused_knn.ivfpq_fused.launches)
+    print(f"K4 path: recall@10 {recall_at_k(Ik, gt, K):.4f}; "
+          f"{P.ivf_fast_scan_stats}", flush=True)
+    time_search("refined strict, no decoded store (K4)", lambda: index.search(xq, K), NQ)
+    exact_fp16(Dd, Id, "K5 path")
+    exact_fp16(Dk, Ik, "K4 path")
+    rows = undropped(drops, NQ) & full
+    agree_at_cut(rows, Dk, Ik, Dd, Id, adc64, "K5 soft vs K4 strict")
+    out.insert(1, entry("ivfpq_fused_dyn", "faiss_tpu_torch/csrc/ivfpq_adc.cu",
+                        "faiss_tpu/ops/pallas_knn.py:570", k5_launches, *k5,
+                        *k5_cost))
+    out[0]["launches"] += k4r_launches
+
+    # K2's entry (flat_phases) adds phase 12's unmasked launches and error
+    return out, (k2_ivf_launches, k2_err)
 
 
 class Exact:
@@ -285,9 +740,11 @@ def flat_search(fused_knn, what, fn, kernel, nq, k):
     return Dp, Ip, launches
 
 
-def flat_phases(ft, fused_knn, xb, xq, gt, dev):
-    """Phases 8-15: exact flat search and K2/K3. Returns their entries of
-    the kernels' JSON line."""
+def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
+    """Phases 15-22: exact flat search and K2/K3. Returns their entries of
+    the kernels' JSON line; K2's launches and max_abs_err start at
+    ``k2_ivf``, those of the IVF-PQ path."""
+    k2_launches, k2_err = k2_ivf
     from faiss_tpu_torch.models import flat as flat_mod
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
 
@@ -301,7 +758,6 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev):
     print(f"IndexFlatL2 add + stage {time.time() - t0:.2f} s "
           f"(screen store {tuple(yT_hi.shape)} x 2 bf16 planes)", flush=True)
     exact = Exact(xb, dev)
-    k2_launches = 0
 
     # k=10 against the reference's ground truth (screen path)
     Dp, Ip, n = flat_search(fused_knn, "flat k=10 search",
@@ -387,7 +843,6 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev):
     xq4k = torch.from_numpy(xq[:4096]).to(dev)
     k2_args = (xq4k, yT_hi, n2s)
     k2_kw = dict(qt=256, ct=1024)
-    k2_err = 0.0
 
     def k2_check(args, lo, name):
         kk, ks, kf = fused_knn.ivf_recon_fused(*args, lo, **k2_kw)
@@ -405,9 +860,7 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev):
         return e
 
     for lo, name in ((yT_lo, "K2 hi/lo"), (None, "K2 one plane")):
-        e = k2_check(k2_args, lo, name)
-        if lo is not None:
-            k2_err = e
+        k2_err = max(k2_err, k2_check(k2_args, lo, name))
     # the striped path's shape: column slices of the stripe-grid store, with
     # row stride nbp_lk; the last stripe ends in +inf-norm pad columns
     lk_hi, lk_lo, lk_n2s, _ = flat._screen_lk_dev(nbp_lk)
@@ -468,29 +921,22 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev):
           flush=True)
     # K3 has one entry per k_lanes the path runs: it beats its plain version
     # at 128 and loses to it at 2048
+    # K2 hi/lo: an FMA per dimension, column and query; both planes, n2
+    # and the queries read once
+    S2 = yT_hi.shape[1]
+    k2_cost = (2 * 4096 * S2 * yT_hi.shape[0] / PEAK_FLOPS,
+               nbytes(yT_hi, yT_lo, n2s, xq4k) + 3 * 4096 * 512)
     return [
-        {
-            "name": "ivf_recon_fused",
-            "route": "cuda",
-            "source": "faiss_tpu_torch/csrc/ivf_recon.cu",
-            "replaces": "faiss_tpu/ops/pallas_knn.py:1362",
-            "launches": k2_launches,
-            "max_abs_err": k2_err,
-            "ms": k2_ms,
-            "plain_ms": k2_plain,
-        },
+        entry("ivf_recon_fused", "faiss_tpu_torch/csrc/ivf_recon.cu",
+              "faiss_tpu/ops/pallas_knn.py:1362", k2_launches, k2_err, k2_ms,
+              k2_plain, *k2_cost),
     ] + [
-        {
-            "name": f"knn_fused[k_lanes={k_lanes}]",
-            "route": "cuda",
-            "source": "faiss_tpu_torch/csrc/knn_fused.cu",
-            "replaces": "faiss_tpu/ops/pallas_knn.py:261",
-            "launches": k3_launches[k_lanes],
-            "max_abs_err": k3_err[k_lanes],
-            "ms": k3_times[k_lanes][0],
-            "plain_ms": k3_times[k_lanes][1],
-        }
-        for k_lanes in (128, 2048)
+        entry(f"knn_fused[k_lanes={k_lanes}]", "faiss_tpu_torch/csrc/knn_fused.cu",
+              "faiss_tpu/ops/pallas_knn.py:261", k3_launches[k_lanes],
+              k3_err[k_lanes], k3_times[k_lanes][0], k3_times[k_lanes][1],
+              2 * nq * NB * D / PEAK_FLOPS,
+              nq * D * 4 + nbytes(xbT) + nq * (k_lanes * 8 + 128 * 4))
+        for k_lanes, nq in ((128, NQ), (2048, 1024))
     ]
 
 
@@ -507,7 +953,8 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, card: {card}", flush=True)
+          f"CUDA {torch.version.cuda}, card: {card}; shared-memory lookups "
+          f"{lookup_rate():.4g}/s at the max SM clock", flush=True)
 
     t0 = time.time()
     built = fused_knn.build_all()
@@ -515,6 +962,7 @@ def main():
     smem = {
         "ivf_recon_dyn": lambda lib: f"{lib.ivf_recon_dyn_smem_bytes(D)}",
         "ivf_recon": lambda lib: f"{lib.ivf_recon_smem_bytes(D)}",
+        "ivfpq_adc": lambda lib: f"{lib.ivfpq_adc_smem_bytes(M * (1 << NBITS))}",
         "knn_fused": lambda lib: ", ".join(
             f"{lib.knn_fused_smem_bytes(D, kl)} (k_lanes {kl})" for kl in (128, 2048)
         ),
@@ -532,9 +980,9 @@ def main():
     print(f"data {time.time() - t0:.2f} s", flush=True)
 
     dev = torch.device("cuda")
-    kernels = [ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)]
+    kernels, k2_ivf = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     torch.cuda.empty_cache()
-    kernels += flat_phases(ft, fused_knn, xb, xq, gt, dev)
+    kernels += flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

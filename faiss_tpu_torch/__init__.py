@@ -9,10 +9,12 @@ under ``csrc/``, built with nvcc at first use. Every index takes an explicit
 
 Ported so far:
 
-  - the IVF4096,PQ32x4fs,RFlat serving path —
-    ``IndexRefineFlat(IndexIVFPQFastScan(...), store_float16=True)`` with
-    ``train``, ``add``, ``search`` and ``search_submit``/``search_collect`` at
-    a selective nprobe with soft probing (``strict_probe = False``);
+  - IVF-PQ FastScan big-batch search — ``IndexIVFPQFastScan`` with
+    ``train``, ``add`` and the unrefined ``search`` (nq >= 128, k <= 128),
+    and ``IndexRefineFlat(IndexIVFPQFastScan(...), store_float16=True)``
+    with ``search`` and ``search_submit``/``search_collect`` at any nprobe,
+    with strict probing (the default) or soft probing, over the bf16
+    decoded store or, beyond ``recon_scan_max_bytes``, the codes;
   - exact flat search — ``IndexFlatL2`` and ``IndexFlatIP`` with ``add``,
     ``search`` and ``search_submit``/``search_collect`` for k <= 2048 through
     the bf16 hi/lo screen, the striped large-k screen and the fused exact

@@ -1,12 +1,18 @@
 // K2: the exhaustive recon scan with an exact top-128, for sm_90a.
 //
-// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_pallas in its
-// unmasked mode (no probe penalty), with one bf16 store plane or two (hi and
-// lo). For every query row r it returns the EXACT top-128 of
-//     key(s) = n2[s] - 2 * q_r . (y_hi[:, s] + y_lo[:, s])
+// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_pallas, unmasked with
+// one bf16 store plane or two (hi and lo), and masked with one plane. For
+// every query row r it returns the EXACT top-128 of
+//     key(s) = n2[s] - 2 * q_r . (y_hi[:, s] + y_lo[:, s])  (+ pen)
 // over every column s of the store, keys ascending (the query norm is not
 // added), the column of each key (-1 where the key is +inf), and an all +inf
-// eviction floor, since the select never evicts.
+// eviction floor, since the select never evicts. The masked mode (strict
+// probing over the whole store) adds pen = biasg[r, g * 128 + lid[s]] with
+// the static group g = min((s / ct) / cpg, G - 1), 0 on the query's probed
+// lists and 1e9 elsewhere, in float32 as given (the TPU kernel rounds it to
+// bf16 first, which moves only the ~1e9 keys). The penalty is read from
+// global memory per (query, column): a block's QB rows of biasg stay in L1,
+// and a list's columns are contiguous, so a warp mostly reads one word.
 //
 // Arithmetic. The query stays float32. The bf16 planes are upcast and summed
 // in float32 (exact: the lo plane holds the residual below hi's 8 mantissa
@@ -48,14 +54,16 @@ constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
 
 using Select = exact_select::Select<K, CAP, QB, THREADS, STEP>;
 
-template <bool HILO>
+template <bool HILO, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 ivf_recon_kernel(const float* __restrict__ xq,
                  const __nv_bfloat16* __restrict__ yT,
                  const __nv_bfloat16* __restrict__ yT_lo, long long ld,
-                 const float* __restrict__ n2, float* __restrict__ out_key,
-                 int* __restrict__ out_slot, float* __restrict__ out_floor,
-                 int d_pad, long long S) {
+                 const float* __restrict__ n2,
+                 const float* __restrict__ biasg, const int* __restrict__ lid,
+                 float* __restrict__ out_key, int* __restrict__ out_slot,
+                 float* __restrict__ out_floor, int d_pad, long long S,
+                 int ct, int cpg, int nbias) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [QB][d_pad]
   Select sel(smem + sizeof(float) * QB * d_pad);
@@ -108,10 +116,25 @@ ivf_recon_kernel(const float* __restrict__ xq,
         }
       }
       const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
+      // s and s + 1 lie in one chunk (s is even, ct is even)
+      const float* pen = nullptr;
+      int2 l = make_int2(0, 0);
+      if constexpr (MASKED) {
+        const long long g = min(s / ct / cpg, static_cast<long long>(
+                                                  nbias / K - 1));
+        pen = biasg + q0 * nbias + g * K;
+        l = *reinterpret_cast<const int2*>(lid + s);
+      }
 #pragma unroll
       for (int qi = 0; qi < QB; ++qi) {
-        sel.offer(qi, nn.x - 2.f * acc0[qi], static_cast<int>(s));
-        sel.offer(qi, nn.y - 2.f * acc1[qi], static_cast<int>(s + 1));
+        float k0 = nn.x - 2.f * acc0[qi];
+        float k1 = nn.y - 2.f * acc1[qi];
+        if constexpr (MASKED) {
+          k0 += pen[static_cast<long long>(qi) * nbias + l.x];
+          k1 += pen[static_cast<long long>(qi) * nbias + l.y];
+        }
+        sel.offer(qi, k0, static_cast<int>(s));
+        sel.offer(qi, k1, static_cast<int>(s + 1));
       }
     }
     __syncthreads();
@@ -127,20 +150,24 @@ ivf_recon_kernel(const float* __restrict__ xq,
   }
 }
 
-template <bool HILO>
+template <bool HILO, bool MASKED>
 int launch(const void* xq, const void* yT, const void* yT_lo, long long ld,
-           const void* n2, void* out_key, void* out_slot, void* out_floor,
-           int nq, int d_pad, long long S, long long smem, void* stream) {
+           const void* n2, const void* biasg, const void* lid, void* out_key,
+           void* out_slot, void* out_floor, int nq, int d_pad, long long S,
+           int ct, int cpg, int nbias, long long smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_recon_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ivf_recon_kernel<HILO, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ivf_recon_kernel<HILO><<<nq / QB, THREADS, static_cast<size_t>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(
+  ivf_recon_kernel<HILO, MASKED><<<nq / QB, THREADS,
+                                   static_cast<size_t>(smem),
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
       static_cast<const __nv_bfloat16*>(yT_lo), ld,
-      static_cast<const float*>(n2), static_cast<float*>(out_key),
-      static_cast<int*>(out_slot), static_cast<float*>(out_floor), d_pad, S);
+      static_cast<const float*>(n2), static_cast<const float*>(biasg),
+      static_cast<const int*>(lid), static_cast<float*>(out_key),
+      static_cast<int*>(out_slot), static_cast<float*>(out_floor), d_pad, S,
+      ct, cpg, nbias);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,26 +179,40 @@ extern "C" long long ivf_recon_smem_bytes(int d_pad) {
   return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
 }
 
-// yT_lo may be null (one plane). qt and ct are the TPU kernel's tiles: a
-// block here needs neither, and they are checked for the contract only
-// (nq a multiple of qt, itself a multiple of QB; S a multiple of ct).
+// yT_lo may be null (one plane). biasg and lid null: unmasked; both given
+// (one plane only): masked, with nbias = G * 128 the row length of biasg. qt
+// is the TPU kernel's query tile: a block here does not need it, and it is
+// checked for the contract only (nq a multiple of qt, itself a multiple of
+// QB); ct sets the chunks of the masked mode's static groups.
 extern "C" int ivf_recon_launch(const void* xq, const void* yT,
                                 const void* yT_lo, long long ld,
-                                const void* n2, void* out_key, void* out_slot,
+                                const void* n2, const void* biasg,
+                                const void* lid, void* out_key, void* out_slot,
                                 void* out_floor, int nq, int d_pad,
-                                long long S, int qt, int ct, void* stream) {
+                                long long S, int qt, int ct, int nbias,
+                                void* stream) {
+  const bool masked = biasg != nullptr;
   if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct <= 0 ||
       ct % 2 != 0 || S % ct != 0 || d_pad % 4 != 0 || ld % 2 != 0 ||
-      ld < S || S >= (1LL << 31)) {
+      ld < S || S >= (1LL << 31) || masked != (lid != nullptr) ||
+      (masked && (yT_lo != nullptr || nbias <= 0 || nbias % K != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long smem = ivf_recon_smem_bytes(d_pad);
-  if (yT_lo != nullptr) {
-    return launch<true>(xq, yT, yT_lo, ld, n2, out_key, out_slot, out_floor,
-                        nq, d_pad, S, smem, stream);
+  const int cpg = max(1, static_cast<int>(S / ct) / max(1, nbias / K));
+  if (masked) {
+    return launch<false, true>(xq, yT, yT_lo, ld, n2, biasg, lid, out_key,
+                               out_slot, out_floor, nq, d_pad, S, ct, cpg,
+                               nbias, smem, stream);
   }
-  return launch<false>(xq, yT, yT_lo, ld, n2, out_key, out_slot, out_floor,
-                       nq, d_pad, S, smem, stream);
+  if (yT_lo != nullptr) {
+    return launch<true, false>(xq, yT, yT_lo, ld, n2, biasg, lid, out_key,
+                               out_slot, out_floor, nq, d_pad, S, ct, cpg,
+                               nbias, smem, stream);
+  }
+  return launch<false, false>(xq, yT, yT_lo, ld, n2, biasg, lid, out_key,
+                              out_slot, out_floor, nq, d_pad, S, ct, cpg,
+                              nbias, smem, stream);
 }
 
 extern "C" const char* ivf_recon_error_string(int err) {

@@ -1,12 +1,18 @@
 // K1: the dynamic-chunk recon scan with an exact top-128, for sm_90a.
 //
-// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas in its soft
-// mode (no probe penalty, one bf16 store plane). It computes what that kernel
-// computes, not how: for every query row r it returns the EXACT top-128 of
-//     key(s) = n2[s] - 2 * q_r . yT[:, s]
+// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas with one
+// bf16 store plane, in its soft and its penalized mode. It computes what that
+// kernel computes, not how: for every query row r it returns the EXACT
+// top-128 of
+//     key(s) = n2[s] - 2 * q_r . yT[:, s]  (+ pen)
 // over all slots s of the chunks cmap[r / qt, :], keys ascending, slots as
 // packed positions chunk * ct + col (-1 where the key is +inf), and an all
-// +inf eviction floor, since an exact select never evicts.
+// +inf eviction floor, since an exact select never evicts. The penalized mode
+// (strict probing) adds pen = biasg[r, cgroup[chunk] * 128 + lid[s]], 0 on the
+// query's probed lists and 1e9 elsewhere, in float32 as given (the TPU kernel
+// rounds it to bf16 first, which moves only the ~1e9 keys). The penalty is
+// read from global memory per (query, slot): a block's QB rows of biasg stay
+// in L1, and a list's slots are contiguous, so a warp mostly reads one word.
 //
 // Design. One block serves QB queries of one qt-query tile, so they share the
 // tile's worklist. The queries sit in shared memory in float32 (q is never
@@ -42,14 +48,18 @@ constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
 
 using Select = exact_select::Select<K, CAP, QB, THREADS, STEP>;
 
+template <bool PEN>
 __global__ void __launch_bounds__(THREADS)
 ivf_recon_dyn_kernel(const float* __restrict__ xq,
                      const __nv_bfloat16* __restrict__ yT,
                      const float* __restrict__ n2,
                      const int* __restrict__ cmap,
+                     const float* __restrict__ biasg,
+                     const int* __restrict__ lid,
+                     const int* __restrict__ cgroup,
                      float* __restrict__ out_key, int* __restrict__ out_slot,
                      float* __restrict__ out_floor, int d_pad, long long S,
-                     int msteps, int qt, int ct) {
+                     int msteps, int qt, int ct, int nbias) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [QB][d_pad]
   Select sel(smem + sizeof(float) * QB * d_pad);
@@ -65,7 +75,12 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
   const int* work = cmap + tile * msteps;
   const long long row2 = S / 2;  // bf16x2 stride between dimensions
   for (int step = 0; step < msteps; ++step) {
-    const long long base = static_cast<long long>(work[step]) * ct;
+    const int chunk = work[step];
+    const long long base = static_cast<long long>(chunk) * ct;
+    // the QB rows of the penalty's group block for this chunk
+    const float* pen =
+        PEN ? biasg + q0 * nbias + static_cast<long long>(cgroup[chunk]) * K
+            : nullptr;
     for (int off = 0; off < ct; off += STEP) {
       sel.make_room();
       const int col = off + 2 * tid;
@@ -100,10 +115,18 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
           }
         }
         const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
+        int2 l = make_int2(0, 0);
+        if constexpr (PEN) l = *reinterpret_cast<const int2*>(lid + s);
 #pragma unroll
         for (int qi = 0; qi < QB; ++qi) {
-          sel.offer(qi, nn.x - 2.f * acc0[qi], static_cast<int>(s));
-          sel.offer(qi, nn.y - 2.f * acc1[qi], static_cast<int>(s + 1));
+          float k0 = nn.x - 2.f * acc0[qi];
+          float k1 = nn.y - 2.f * acc1[qi];
+          if constexpr (PEN) {
+            k0 += pen[static_cast<long long>(qi) * nbias + l.x];
+            k1 += pen[static_cast<long long>(qi) * nbias + l.y];
+          }
+          sel.offer(qi, k0, static_cast<int>(s));
+          sel.offer(qi, k1, static_cast<int>(s + 1));
         }
       }
       __syncthreads();
@@ -120,6 +143,27 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
   }
 }
 
+template <bool PEN>
+int launch(const void* xq, const void* yT, const void* n2, const void* cmap,
+           const void* biasg, const void* lid, const void* cgroup,
+           void* out_key, void* out_slot, void* out_floor, int nq, int d_pad,
+           long long S, int msteps, int qt, int ct, int nbias, long long smem,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ivf_recon_dyn_kernel<PEN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ivf_recon_dyn_kernel<PEN><<<nq / QB, THREADS, static_cast<size_t>(smem),
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
+      static_cast<const float*>(n2), static_cast<const int*>(cmap),
+      static_cast<const float*>(biasg), static_cast<const int*>(lid),
+      static_cast<const int*>(cgroup), static_cast<float*>(out_key),
+      static_cast<int*>(out_slot), static_cast<float*>(out_floor), d_pad, S,
+      msteps, qt, ct, nbias);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Dynamic shared memory of one block: queries, (key, slot) buffers, counts
@@ -128,28 +172,31 @@ extern "C" long long ivf_recon_dyn_smem_bytes(int d_pad) {
   return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
 }
 
+// biasg, lid and cgroup null: the soft mode; all three given: the penalized
+// mode, with nbias = G * 128 the row length of biasg.
 extern "C" int ivf_recon_dyn_launch(const void* xq, const void* yT,
                                     const void* n2, const void* cmap,
-                                    void* out_key, void* out_slot,
-                                    void* out_floor, int nq, int d_pad,
-                                    long long S, int msteps, int qt, int ct,
-                                    void* stream) {
+                                    const void* biasg, const void* lid,
+                                    const void* cgroup, void* out_key,
+                                    void* out_slot, void* out_floor, int nq,
+                                    int d_pad, long long S, int msteps, int qt,
+                                    int ct, int nbias, void* stream) {
+  const bool pen = biasg != nullptr;
   if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct % 2 != 0 ||
-      d_pad % 4 != 0 || S % ct != 0 || msteps <= 0) {
+      d_pad % 4 != 0 || S % ct != 0 || msteps <= 0 ||
+      pen != (lid != nullptr) || pen != (cgroup != nullptr) ||
+      (pen && (nbias <= 0 || nbias % K != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long smem = ivf_recon_dyn_smem_bytes(d_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      ivf_recon_dyn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ivf_recon_dyn_kernel<<<nq / QB, THREADS, static_cast<size_t>(smem),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
-      static_cast<const float*>(n2), static_cast<const int*>(cmap),
-      static_cast<float*>(out_key), static_cast<int*>(out_slot),
-      static_cast<float*>(out_floor), d_pad, S, msteps, qt, ct);
-  return static_cast<int>(cudaGetLastError());
+  if (pen) {
+    return launch<true>(xq, yT, n2, cmap, biasg, lid, cgroup, out_key,
+                        out_slot, out_floor, nq, d_pad, S, msteps, qt, ct,
+                        nbias, smem, stream);
+  }
+  return launch<false>(xq, yT, n2, cmap, biasg, lid, cgroup, out_key, out_slot,
+                       out_floor, nq, d_pad, S, msteps, qt, ct, nbias, smem,
+                       stream);
 }
 
 extern "C" const char* ivf_recon_dyn_error_string(int err) {

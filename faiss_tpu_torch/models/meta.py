@@ -16,8 +16,9 @@ class IndexRefine(Index):
     Ported path: an IndexIVFPQ base with a flat refine store, nq at or above
     the base's big_batch_threshold, k * k_factor <= 128 and no selector. The
     base search and the exact re-rank of its top k * k_factor candidates then
-    run in one device pass per sub-batch (IndexIVFPQ._sbbr_submit). Every
-    other case raises NotImplementedError naming its ROADMAP item."""
+    run in one device pass per sub-batch (IndexIVFPQ._sbbr_submit), at any
+    nprobe, strict or soft, over the decoded store or the codes. Every other
+    case raises NotImplementedError naming its ROADMAP item."""
 
     def __init__(self, base_index: Index, refine_index: Index):
         super().__init__(

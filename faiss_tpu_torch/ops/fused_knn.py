@@ -1,9 +1,8 @@
-"""The port's scan kernels K1, K2 and K3, each with its plain PyTorch version.
+"""The port's scan kernels K1 to K5, each with its plain PyTorch version.
 
 K1 ``ivf_recon_fused_dyn`` (csrc/ivf_recon_dyn.cu): the dynamic-chunk recon
 scan, counterpart of faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas
-in its soft mode (no probe penalty, one bf16 store plane). For every query
-row r of a tile of ``qt`` rows:
+with one bf16 store plane. For every query row r of a tile of ``qt`` rows:
 
   keys  [nq, 128] f32  the 128 smallest ``n2[s] - 2 q_r . yT[:, s]`` over all
                        slots s of the chunks ``cmap[r // qt, :]``, ascending
@@ -14,11 +13,20 @@ row r of a tile of ``qt`` rows:
   floor [nq, 128] f32  all +inf: an exact select never evicts (the TPU
                        kernel reports its best evicted key here).
 
+Without ``biasg`` it is the soft mode; with ``biasg`` [nq, G*128], ``lid``
+[1, S] and ``cgroup`` [S // ct] the penalized (strict) mode adds
+``biasg[r, cgroup[chunk(s)] * 128 + lid[s]]`` (0 on probed lists, 1e9
+elsewhere) to every key. The TPU kernel rounds that penalty to bf16 first;
+here it is added in float32 as given, which moves only the ~1e9 keys.
+
 K2 ``ivf_recon_fused`` (csrc/ivf_recon.cu): the exhaustive recon scan,
-counterpart of ivf_recon_fused_pallas unmasked. The same triple over every
-column of ``yT`` (one bf16 plane) or of ``yT + yT_lo`` (the hi/lo planes of
-the exact flat screen); slots are columns of the given store, which may be a
-column slice (a stripe) of a wider one.
+counterpart of ivf_recon_fused_pallas. The same triple over every column of
+``yT`` (one bf16 plane) or of ``yT + yT_lo`` (the hi/lo planes of the exact
+flat screen); slots are columns of the given store, which may be a column
+slice (a stripe) of a wider one. Its masked mode takes the whole store only
+and adds ``biasg[r, min(chunk(s) // cpg, G - 1) * 128 + lid[s]]``, with
+``cpg = max(1, nchunks // G)``: the group of a chunk is static, and the
+trailing PAD chunk clamps to the last group.
 
 K3 ``knn_fused`` (csrc/knn_fused.cu): exact float32 brute-force k-NN,
 counterpart of knn_fused_pallas. Top-``k_lanes`` values best-first WITH the
@@ -26,12 +34,25 @@ query norm (L2: ``max(||q||^2 + ||y||^2 - 2 q.y, 0)``; IP: ``q.y``, largest
 first), int32 ids (-1 with +inf / -inf where none) and the floor [nq, 128]
 (+inf for L2, -inf for IP).
 
-The kernels compute the products in float32 on the CUDA cores (the bf16
-planes upcast); the plain versions use float32 matrix products with TF32 off
-and chunk over columns, so neither builds a full [nq, nb] score matrix. A
-wrapper launches its kernel for CUDA tensors and runs its plain version for
-CPU tensors only; any other device raises. Each kernel is compiled with nvcc
-at first use into ``_build/<source hash>/`` (a plain C interface loaded with
+K4 ``ivfpq_fused`` and K5 ``ivfpq_fused_dyn`` (csrc/ivfpq_adc.cu): the
+code-streaming IVF-PQ ADC scans, counterparts of ivfpq_fused_pallas and
+ivfpq_fused_dyn_pallas. The triple of K1 and K2 for the key
+
+  n2[s] + biasg[r, group * 128 + lid[s]] + sum_m luts[r, m * ksub + code[m, s]]
+
+over every chunk (K4, group ``min(chunk // cpg, G - 1)`` as in K2's masked
+mode) or over the tile's worklist ``cmap[r // qt, :]`` (K5, group
+``cgroup[chunk]``). ``luts`` are bf16 (the flattened ``-2 q . codeword``
+tables), ``codesT`` [M, S] uint8 holds one code per byte, and ``biasg`` is
+the coarse term ``-2 q . c`` per grouped list column, 1e9 on unprobed lists.
+
+The kernels compute in float32 on the CUDA cores (bf16 inputs upcast); the
+plain versions use float32 matrix products with TF32 off (the ADC sum as a
+product with a one-hot of the codes, exact but summed in another order) and
+chunk over columns, so neither builds a full [nq, S] score matrix. A wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors only; any other device raises. Each kernel is compiled with nvcc at
+first use into ``_build/<source hash>/`` (a plain C interface loaded with
 ctypes); nothing is built at import."""
 
 from __future__ import annotations
@@ -53,6 +74,7 @@ LANES = 128  # top-K width of the K1/K2 contract; floor width of K3
 QUERIES_PER_BLOCK = 8  # QB in the kernels: qt must be a multiple
 MAX_K_LANES = 2048  # K3's widest select (faiss's BlockSelect range)
 REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
+MAX_LUT_ROW = 2048  # K4/K5 hold M * ksub float32 LUT entries per query
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -67,15 +89,18 @@ _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # <name>_launch, <name>_smem_bytes and <name>_error_string
 KERNELS = {
     "ivf_recon_dyn": (
-        [_vp] * 7 + [_ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci],
+        [_vp] * 10 + [_ci, _ci, _ll, _ci, _ci, _ci, _ci, _vp], [_ci],
     ),
     "ivf_recon": (
-        [_vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _ci, _ci, _ll, _ci, _ci, _vp],
+        [_vp, _vp, _vp, _ll] + [_vp] * 6 + [_ci, _ci, _ll, _ci, _ci, _ci, _vp],
         [_ci],
     ),
     "knn_fused": (
         [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp],
         [_ci, _ci],
+    ),
+    "ivfpq_adc": (
+        [_vp] * 10 + [_ci, _ci, _ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci],
     ),
 }
 
@@ -178,10 +203,64 @@ def _check_columns(S, ct, d_pad):
 
 
 def _check_aligned(what, t, nbytes):
-    """The kernels load two adjacent columns as one vector (bf16x2 or
-    float2), so a store or norm row must start on an even column."""
+    """The kernels load two adjacent columns as one vector (bf16x2, float2,
+    int2 or two code bytes), so a store, code, norm or list-id row must
+    start on an even column."""
     if t.data_ptr() % nbytes:
         raise ValueError(f"{what} must start on a {nbytes}-byte boundary")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_bias(biasg, lid, nq, S):
+    """The per-(query, grouped list column) term of the masked, penalized
+    and ADC scans: ``biasg`` [nq, G * 128] float32 and ``lid`` [1, S] int32,
+    both contiguous. Returns G."""
+    if biasg.dtype != torch.float32 or lid.dtype != torch.int32:
+        raise ValueError(
+            f"expected biasg float32 and lid int32, got {biasg.dtype}, {lid.dtype}"
+        )
+    if biasg.dim() != 2 or biasg.shape[0] != nq or biasg.shape[1] % LANES or (
+        biasg.shape[1] == 0
+    ):
+        raise ValueError(
+            f"biasg must be [{nq}, G * {LANES}], got {tuple(biasg.shape)}"
+        )
+    if tuple(lid.shape) != (1, S):
+        raise ValueError(f"lid must be [1, {S}], got {tuple(lid.shape)}")
+    if not (biasg.is_contiguous() and lid.is_contiguous()):
+        raise ValueError("biasg and lid must be contiguous")
+    _check_aligned("lid", lid, 8)
+    return biasg.shape[1] // LANES
+
+
+def _static_cpg(nchunks, G):
+    """Chunks per group of the static chunk -> group map (every group spans
+    cpg chunks, plus at most one trailing PAD chunk)."""
+    cpg = max(1, nchunks // G)
+    if nchunks - cpg * G not in (0, 1):
+        raise ValueError(
+            f"{nchunks} chunks do not split into {G} groups (+1 PAD chunk)"
+        )
+    return cpg
+
+
+def _check_cgroup(cgroup, nchunks):
+    if cgroup.dtype != torch.int32 or tuple(cgroup.shape) != (nchunks,) or (
+        not cgroup.is_contiguous()
+    ):
+        raise ValueError(
+            f"cgroup must be a contiguous int32 [{nchunks}], got "
+            f"{cgroup.dtype} {tuple(cgroup.shape)}"
+        )
+
+
+def _bias_terms(biasg, rows, groups, lid_cols):
+    """biasg[r, groups * 128 + lid] for the rows ``rows`` (a slice) and the
+    columns whose groups and list ids are given: [len(rows), C]."""
+    return biasg[rows][:, groups.long() * LANES + lid_cols.long()]
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -211,30 +290,52 @@ def _check_dyn(xq, yT, n2, cmap, qt, ct):
     _check_aligned("n2", n2, 8)
 
 
-def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int):
+def _check_penalty(biasg, lid, cgroup, nq, S, ct):
+    """K1's penalized mode takes biasg, lid and cgroup together. Returns
+    the tensors of the mode (empty in soft mode)."""
+    given = [t is not None for t in (biasg, lid, cgroup)]
+    if not any(given):
+        return ()
+    if not all(given):
+        raise ValueError("the penalized mode takes biasg, lid and cgroup together")
+    _check_bias(biasg, lid, nq, S)
+    _check_cgroup(cgroup, S // ct)
+    return biasg, lid, cgroup
+
+
+def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
+                        lid=None, cgroup=None):
     """K1 (see the module docstring). ``xq`` [nq, d_pad] float32 (queries
     sorted by home group, dims zero-padded), ``yT`` [d_pad, S] bfloat16
     transposed decoded store whose last chunk is the all-+inf PAD chunk,
     ``n2`` [1, S] float32 (+inf on pads), ``cmap`` [nq // qt, msteps] int32
-    chunk worklist per tile. Returns (keys, slots, floor).
+    chunk worklist per tile; for the penalized mode ``biasg`` [nq, G * 128]
+    float32 {0, 1e9}, ``lid`` [1, S] int32 and ``cgroup`` [S // ct] int32.
+    Returns (keys, slots, floor).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
     _check_dyn(xq, yT, n2, cmap, qt, ct)
-    if not _route("K1", (xq, yT, n2, cmap)):
-        return ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt, ct)
+    pen = _check_penalty(biasg, lid, cgroup, xq.shape[0], yT.shape[1], ct)
+    if not _route("K1", (xq, yT, n2, cmap) + pen):
+        return ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt, ct, biasg, lid,
+                                       cgroup)
     nq, d_pad = xq.shape
     keys, slots, floor = _lane_outputs(nq, xq.device)
     _launch(
         "ivf_recon_dyn", xq.data_ptr(), yT.data_ptr(), n2.data_ptr(),
-        cmap.data_ptr(), keys.data_ptr(), slots.data_ptr(), floor.data_ptr(),
-        nq, d_pad, yT.shape[1], cmap.shape[1], qt, ct, _stream(xq.device),
+        cmap.data_ptr(), _ptr(biasg), _ptr(lid), _ptr(cgroup),
+        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq, d_pad,
+        yT.shape[1], cmap.shape[1], qt, ct,
+        0 if biasg is None else biasg.shape[1], _stream(xq.device),
     )
     ivf_recon_fused_dyn.launches += 1
+    ivf_recon_fused_dyn.penalized_launches += bool(pen)
     return keys, slots, floor
 
 
 ivf_recon_fused_dyn.launches = 0
+ivf_recon_fused_dyn.penalized_launches = 0
 
 
 def _lane_outputs(nq, device):
@@ -245,23 +346,38 @@ def _lane_outputs(nq, device):
     )
 
 
-def ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt: int, ct: int):
-    """Plain PyTorch version of K1's contract: per tile, gather the worklist
-    chunks, score ``n2 - 2 q @ y.float()`` and take ``torch.topk``."""
-    nq = xq.shape[0]
-    cols = torch.arange(ct, device=xq.device)
-    keys = torch.full((nq, LANES), float("inf"), device=xq.device)
-    slots = torch.full((nq, LANES), -1, dtype=torch.int32, device=xq.device)
+def _tile_topk(score_tile, cmap, qt, ct, nq, device):
+    """Plain versions of the worklist scans (K1, K5): per tile, the columns
+    of its worklist chunks, ``score_tile(rows, chunks, idx)`` [qt, C] and
+    ``torch.topk``."""
+    cols = torch.arange(ct, device=device)
+    keys = torch.full((nq, LANES), float("inf"), device=device)
+    slots = torch.full((nq, LANES), -1, dtype=torch.int32, device=device)
     for t in range(cmap.shape[0]):
-        idx = (cmap[t].long()[:, None] * ct + cols[None, :]).reshape(-1)
-        sc = n2[0, idx][None, :] - 2.0 * (xq[t * qt : (t + 1) * qt] @ yT[:, idx].float())
+        chunks = cmap[t].long()
+        idx = (chunks[:, None] * ct + cols[None, :]).reshape(-1)
+        rows = slice(t * qt, (t + 1) * qt)
+        sc = score_tile(rows, chunks.repeat_interleave(ct), idx)
         kk = min(LANES, sc.shape[1])
         v, pos = torch.topk(sc, kk, dim=1, largest=False, sorted=True)
-        keys[t * qt : (t + 1) * qt, :kk] = v
-        slots[t * qt : (t + 1) * qt, :kk] = torch.where(
-            torch.isinf(v), -1, idx[pos]
-        ).int()
+        keys[rows, :kk] = v
+        slots[rows, :kk] = torch.where(torch.isinf(v), -1, idx[pos]).int()
     return keys, slots, torch.full_like(keys, float("inf"))
+
+
+def ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
+                            lid=None, cgroup=None):
+    """Plain PyTorch version of K1's contract: per tile, gather the worklist
+    chunks, score ``n2 - 2 q @ y.float()`` (plus the penalty of the
+    penalized mode) and take ``torch.topk``."""
+
+    def score(rows, chunks, idx):
+        sc = n2[0, idx][None, :] - 2.0 * (xq[rows] @ yT[:, idx].float())
+        if biasg is not None:
+            sc = sc + _bias_terms(biasg, rows, cgroup[chunks], lid[0, idx])
+        return sc
+
+    return _tile_topk(score, cmap, qt, ct, xq.shape[0], xq.device)
 
 
 # -- K2 ----------------------------------------------------------------------
@@ -307,46 +423,96 @@ def _check_recon(xq, yT, n2, yT_lo, qt, ct):
     return ld
 
 
-def ivf_recon_fused(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024):
+def _check_mask(biasg, lid, yT, yT_lo, nq, S, ct):
+    """K2's masked mode: biasg and lid together, over a whole one-plane
+    store (not a column slice). Returns the tensors of the mode."""
+    if biasg is None and lid is None:
+        return ()
+    if biasg is None or lid is None:
+        raise ValueError("the masked mode takes biasg and lid together")
+    if yT_lo is not None or yT.stride(0) != S:
+        raise ValueError(
+            "the masked mode takes one whole store plane, not a column slice "
+            "or hi/lo planes"
+        )
+    _static_cpg(S // ct, _check_bias(biasg, lid, nq, S))
+    return biasg, lid
+
+
+def ivf_recon_fused(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,
+                    biasg=None, lid=None):
     """K2 (see the module docstring). ``xq`` [nq, d_pad] float32 (dims
     zero-padded), ``yT`` [d_pad, S] bfloat16 transposed store and optionally
     ``yT_lo`` its lo residual plane (same shape and row stride; both may be
-    column slices of a wider store), ``n2`` [1, S] float32 (+inf on pads).
-    Returns (keys, slots, floor), slots being columns of the given store.
+    column slices of a wider store), ``n2`` [1, S] float32 (+inf on pads);
+    for the masked mode ``biasg`` [nq, G * 128] float32 {0, 1e9} and ``lid``
+    [1, S] int32 over a whole one-plane store. Returns (keys, slots, floor),
+    slots being columns of the given store.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
     ld = _check_recon(xq, yT, n2, yT_lo, qt, ct)
-    planes = (xq, yT, n2) + (() if yT_lo is None else (yT_lo,))
+    mask = _check_mask(biasg, lid, yT, yT_lo, xq.shape[0], yT.shape[1], ct)
+    planes = (xq, yT, n2) + (() if yT_lo is None else (yT_lo,)) + mask
     if not _route("K2", planes):
-        return ivf_recon_fused_ref(xq, yT, n2, yT_lo, qt=qt, ct=ct)
+        return ivf_recon_fused_ref(xq, yT, n2, yT_lo, qt=qt, ct=ct,
+                                   biasg=biasg, lid=lid)
     nq, d_pad = xq.shape
     keys, slots, floor = _lane_outputs(nq, xq.device)
     _launch(
-        "ivf_recon", xq.data_ptr(), yT.data_ptr(),
-        None if yT_lo is None else yT_lo.data_ptr(), ld, n2.data_ptr(),
-        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq, d_pad,
-        yT.shape[1], qt, ct, _stream(xq.device),
+        "ivf_recon", xq.data_ptr(), yT.data_ptr(), _ptr(yT_lo), ld,
+        n2.data_ptr(), _ptr(biasg), _ptr(lid), keys.data_ptr(),
+        slots.data_ptr(), floor.data_ptr(), nq, d_pad, yT.shape[1], qt, ct,
+        0 if biasg is None else biasg.shape[1], _stream(xq.device),
     )
     ivf_recon_fused.launches += 1
+    ivf_recon_fused.masked_launches += bool(mask)
     return keys, slots, floor
 
 
 ivf_recon_fused.launches = 0
+ivf_recon_fused.masked_launches = 0
 
 
-def ivf_recon_fused_ref(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024):
+def ivf_recon_fused_ref(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,
+                        biasg=None, lid=None):
     """Plain PyTorch version of K2's contract: per column chunk, score
-    ``n2 - 2 q @ (hi + lo).float()``, take ``torch.topk`` and merge."""
-    del qt, ct  # tiles of the TPU kernel; the result does not depend on them
-    nq, S = xq.shape[0], yT.shape[1]
-    keys = torch.full((nq, LANES), float("inf"), device=xq.device)
-    slots = torch.full((nq, LANES), -1, dtype=torch.int64, device=xq.device)
-    for c0 in range(0, S, REF_CHUNK):
-        y = yT[:, c0 : c0 + REF_CHUNK].float()
+    ``n2 - 2 q @ (hi + lo).float()`` (plus the mask of the masked mode),
+    take ``torch.topk`` and merge."""
+    del qt  # a tile of the TPU kernel; the result does not depend on it
+    S = yT.shape[1]
+
+    def score(c0, c1):
+        y = yT[:, c0:c1].float()
         if yT_lo is not None:
-            y = y + yT_lo[:, c0 : c0 + REF_CHUNK].float()
-        sc = n2[:, c0 : c0 + REF_CHUNK] - 2.0 * (xq @ y)
+            y = y + yT_lo[:, c0:c1].float()
+        sc = n2[:, c0:c1] - 2.0 * (xq @ y)
+        if biasg is not None:
+            groups = _static_groups(c0, c1, S, ct, biasg)
+            sc = sc + _bias_terms(biasg, slice(None), groups, lid[0, c0:c1])
+        return sc
+
+    return _chunked_topk(score, xq.shape[0], S, xq.device)
+
+
+def _static_groups(c0, c1, S, ct, biasg):
+    """Group of columns c0..c1 of a store of S columns in chunks of ct
+    under the static map of K2's masked mode and K4:
+    ``min(chunk // cpg, G - 1)``, G the bias column groups."""
+    G = biasg.shape[1] // LANES
+    cpg = max(1, (S // ct) // G)
+    cols = torch.arange(c0, c1, device=biasg.device)
+    return (cols // ct // cpg).clamp_max(G - 1)
+
+
+def _chunked_topk(score, nq, S, device):
+    """Plain versions of the exhaustive scans (K2, K4): ``score(c0, c1)``
+    [nq, c1 - c0] per chunk of REF_CHUNK columns, ``torch.topk`` and merge;
+    slots -1 where the key is +inf."""
+    keys = torch.full((nq, LANES), float("inf"), device=device)
+    slots = torch.full((nq, LANES), -1, dtype=torch.int64, device=device)
+    for c0 in range(0, S, REF_CHUNK):
+        sc = score(c0, min(c0 + REF_CHUNK, S))
         v, pos = torch.topk(sc, min(LANES, sc.shape[1]), dim=1, largest=False)
         keys, slots = merge_topk(keys, slots, v, pos + c0, LANES, largest=False)
     slots = torch.where(torch.isinf(keys), -1, slots)
@@ -432,3 +598,148 @@ def knn_fused_ref(x, yT, nb: int, *, metric_l2: bool = True, qt: int = 512,
         vals = torch.where(missing, float("-inf"), -keys)
         floor = torch.full((nq, LANES), float("-inf"), device=x.device)
     return vals, ids, floor
+
+
+# -- K4 and K5 ---------------------------------------------------------------
+
+
+def _check_adc(biasg, luts, codesT, n2, lid, qt, ct):
+    """The ADC scans' inputs. Returns (M, ksub, G)."""
+    if (luts.dtype, codesT.dtype, n2.dtype) != (
+        torch.bfloat16, torch.uint8, torch.float32
+    ):
+        raise ValueError(
+            "expected luts bfloat16, codesT uint8, n2 float32; got "
+            f"{luts.dtype}, {codesT.dtype}, {n2.dtype}"
+        )
+    if luts.dim() != 2 or codesT.dim() != 2:
+        raise ValueError("luts and codesT must be 2-D")
+    nq = luts.shape[0]
+    M, S = codesT.shape
+    ksub = luts.shape[1] // max(M, 1)
+    if M == 0 or M * ksub != luts.shape[1] or not 1 <= ksub <= 256:
+        raise ValueError(
+            f"luts {tuple(luts.shape)} must be [nq, M * ksub] for the M={M} "
+            "rows of codesT, with ksub <= 256 (one code per byte)"
+        )
+    if M * ksub > MAX_LUT_ROW:
+        raise ValueError(f"M * ksub = {M * ksub} exceeds {MAX_LUT_ROW}")
+    if tuple(n2.shape) != (1, S):
+        raise ValueError(f"n2 must be [1, {S}], got {tuple(n2.shape)}")
+    _check_tiles(nq, qt)
+    if ct <= 0 or ct % 2 or S % ct or S >= 1 << 31:
+        raise ValueError(
+            f"need ct even and S={S} a multiple of ct={ct} below 2^31"
+        )
+    if not all(t.is_contiguous() for t in (luts, codesT, n2)):
+        raise ValueError("luts, codesT and n2 must be contiguous")
+    _check_aligned("codesT", codesT, 2)
+    _check_aligned("n2", n2, 8)
+    G = _check_bias(biasg, lid, nq, S)
+    return M, ksub, G
+
+
+def _adc_keys(biasg, lf, codes, n2c, lidc, groups, rows):
+    """Plain ADC keys ``n2 + bias + sum_m lut[m * ksub + code_m]`` for the
+    queries ``rows`` and columns with codes [M, C]: the LUT sum as a float32
+    product with a one-hot of the codes (every term is exact; the order of
+    the M additions differs from the kernel's)."""
+    M, C = codes.shape
+    ksub = lf.shape[1] // M
+    onehot = torch.zeros(C, M * ksub, device=lf.device)
+    offs = torch.arange(M, device=lf.device)[:, None] * ksub
+    onehot.scatter_(1, (codes.long() + offs).T, 1.0)
+    return n2c[None, :] + _bias_terms(biasg, rows, groups, lidc) + lf[rows] @ onehot.T
+
+
+def ivfpq_fused(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
+    """K4 (see the module docstring). ``biasg`` [nq, G * 128] float32 coarse
+    term per grouped list column (1e9 on unprobed lists), ``luts`` [nq,
+    M * ksub] bfloat16, ``codesT`` [M, S] uint8 group-packed codes, ``n2``
+    [1, S] float32 (+inf on pads), ``lid`` [1, S] int32 local list ids.
+    Returns (keys, slots, floor); the keys lack ||q||^2.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising; any other device raises."""
+    M, ksub, G = _check_adc(biasg, luts, codesT, n2, lid, qt, ct)
+    _static_cpg(codesT.shape[1] // ct, G)
+    if not _route("K4", (biasg, luts, codesT, n2, lid)):
+        return ivfpq_fused_ref(biasg, luts, codesT, n2, lid, qt=qt, ct=ct)
+    nq = luts.shape[0]
+    keys, slots, floor = _lane_outputs(nq, luts.device)
+    _launch(
+        "ivfpq_adc", biasg.data_ptr(), luts.data_ptr(), codesT.data_ptr(),
+        n2.data_ptr(), lid.data_ptr(), None, None, keys.data_ptr(),
+        slots.data_ptr(), floor.data_ptr(), nq, biasg.shape[1], M, ksub,
+        codesT.shape[1], 0, qt, ct, _stream(luts.device),
+    )
+    ivfpq_fused.launches += 1
+    return keys, slots, floor
+
+
+ivfpq_fused.launches = 0
+
+
+def ivfpq_fused_ref(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
+    """Plain PyTorch version of K4's contract: per column chunk, the ADC
+    keys of every query, ``torch.topk`` and merge."""
+    del qt  # a tile of the TPU kernel; the result does not depend on it
+    S = codesT.shape[1]
+    lf = luts.float()
+
+    def score(c0, c1):
+        return _adc_keys(biasg, lf, codesT[:, c0:c1], n2[0, c0:c1],
+                         lid[0, c0:c1], _static_groups(c0, c1, S, ct, biasg),
+                         slice(None))
+
+    return _chunked_topk(score, luts.shape[0], S, luts.device)
+
+
+def ivfpq_fused_dyn(biasg, luts, codesT, n2, lid, cmap, cgroup, *, qt: int = 256,
+                    ct: int = 1024):
+    """K5 (see the module docstring): K4's inputs for queries sorted by home
+    group, plus ``cmap`` [nq // qt, msteps] int32 chunk worklist per tile
+    and ``cgroup`` [S // ct] int32 group of each chunk. Returns (keys,
+    slots, floor).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising; any other device raises."""
+    M, ksub, _ = _check_adc(biasg, luts, codesT, n2, lid, qt, ct)
+    nq = luts.shape[0]
+    if cmap.dtype != torch.int32 or cmap.dim() != 2 or (
+        cmap.shape[0] != nq // qt or cmap.shape[1] < 1 or not cmap.is_contiguous()
+    ):
+        raise ValueError(
+            f"cmap must be a contiguous int32 [{nq // qt}, msteps], got "
+            f"{cmap.dtype} {tuple(cmap.shape)}"
+        )
+    _check_cgroup(cgroup, codesT.shape[1] // ct)
+    if not _route("K5", (biasg, luts, codesT, n2, lid, cmap, cgroup)):
+        return ivfpq_fused_dyn_ref(biasg, luts, codesT, n2, lid, cmap, cgroup,
+                                   qt=qt, ct=ct)
+    keys, slots, floor = _lane_outputs(nq, luts.device)
+    _launch(
+        "ivfpq_adc", biasg.data_ptr(), luts.data_ptr(), codesT.data_ptr(),
+        n2.data_ptr(), lid.data_ptr(), cmap.data_ptr(), cgroup.data_ptr(),
+        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq,
+        biasg.shape[1], M, ksub, codesT.shape[1], cmap.shape[1], qt, ct,
+        _stream(luts.device),
+    )
+    ivfpq_fused_dyn.launches += 1
+    return keys, slots, floor
+
+
+ivfpq_fused_dyn.launches = 0
+
+
+def ivfpq_fused_dyn_ref(biasg, luts, codesT, n2, lid, cmap, cgroup, *,
+                        qt: int = 256, ct: int = 1024):
+    """Plain PyTorch version of K5's contract: per tile, the ADC keys over
+    its worklist chunks and ``torch.topk``."""
+    lf = luts.float()
+
+    def score(rows, chunks, idx):
+        return _adc_keys(biasg, lf, codesT[:, idx], n2[0, idx], lid[0, idx],
+                         cgroup[chunks], rows)
+
+    return _tile_topk(score, cmap, qt, ct, luts.shape[0], luts.device)

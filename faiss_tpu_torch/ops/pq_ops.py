@@ -33,3 +33,21 @@ def pq_decode(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     M, ksub, dsub = codebooks.shape
     m = torch.arange(M, device=codes.device)
     return codebooks[m[None, :], codes.long()].reshape(codes.shape[0], M * dsub)
+
+
+def pq_ip_tables(xq: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Inner-product ADC tables [nq, M, ksub] (faiss_tpu/ops/pq_ops.py:100,
+    compute_inner_prod_tables)."""
+    nq = xq.shape[0]
+    M, ksub, dsub = codebooks.shape
+    return torch.einsum(
+        "qmd,mkd->qmk", xq.float().reshape(nq, M, dsub), codebooks
+    )
+
+
+def pq_blockdiag_codebook(codebooks: torch.Tensor) -> torch.Tensor:
+    """[M, ksub, dsub] codebooks -> the [d, M*ksub] block-diagonal matrix
+    whose product with the queries is the flattened IP tables,
+    ``xq @ cbt == pq_ip_tables(xq, codebooks).reshape(nq, -1)``, in one
+    matrix product (faiss_tpu/ops/pq_ops.py:114)."""
+    return torch.block_diag(*(cb.T for cb in codebooks.float()))

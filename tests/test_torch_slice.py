@@ -15,8 +15,7 @@ from faiss_tpu.models.ivf_pq import (
     _fused_search_rerank_recon_dyn as jax_recon_dyn,
     _unpack_results,
 )
-from faiss_tpu_torch.convert import refine_flat_from_arrays
-from faiss_tpu_torch.models import ivf_pq as port_ivf_pq
+from faiss_tpu_torch.convert import ivfpq_from_arrays, refine_flat_from_arrays
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 
 D, NLIST, NB, NQ, M, CT, K, KF, MSTEPS = 16, 256, 3000, 512, 4, 256, 10, 4, 4
@@ -112,29 +111,25 @@ def test_slice_matches_reference(built, nprobe, api):
 
 
 @pytest.mark.parametrize(
-    "case",
-    ["strict_probe", "small_batch", "exhaustive", "long_worklist",
-     "no_decoded_store", "too_many_candidates"],
+    "case", ["small_batch", "too_many_candidates", "pq8_unrefined"]
 )
-def test_unported_branches_raise(built, case, monkeypatch):
+def test_unported_branches_raise(built, case):
     _, arrays, xq, _ = built
-    port = make_port(arrays)
-    base = port.base_index
-    base.nprobe = 1
-    if case == "strict_probe":
-        base.strict_probe = True
-    elif case == "small_batch":
-        xq = xq[: base.big_batch_threshold - 1]
-    elif case == "exhaustive":
-        base.nprobe = 0
-    elif case == "long_worklist":
-        base.dyn_msteps = 1 << 20
-    elif case == "no_decoded_store":
-        monkeypatch.setattr(port_ivf_pq, "RECON_SCAN_MAX_BYTES", 0)
-    else:
-        port.k_factor = 13
+    index = make_port(arrays)
+    index.base_index.nprobe = 1
+    if case == "small_batch":
+        xq = xq[: index.base_index.big_batch_threshold - 1]
+    elif case == "too_many_candidates":
+        index.k_factor = 13
+    else:  # 8-bit PQ: faiss_tpu's unrefined search takes its XLA ADC path
+        cent, pq_cent, codes, listnos, ids, _ = arrays
+        rs = np.random.RandomState(0)
+        index = ivfpq_from_arrays(
+            cent, rs.rand(M, 256, D // M), rs.randint(256, size=codes.shape),
+            listnos, ids, device="cpu",
+        )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search(xq, K)
+        index.search(xq, K)
 
 
 def test_port_alone_adaptive_worklist_and_streaming():
