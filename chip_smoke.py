@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ported paths once on one CUDA card and check
 them: IVF4096,PQ32x4fs search, refined and unrefined (kernels K1, K2, K4,
-K5, with the penalized mode of K1 and the masked mode of K2), and exact flat
-search (K2 and K3).
+K5, with the penalized mode of K1 and the masked mode of K2), exact flat
+search (K2 and K3), and IVF4096,Flat search (K1 and K2 over hi/lo planes).
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -77,11 +77,38 @@ just before it and read just after, and must launch its path's kernel:
      with CUDA events (plain, kernel, kernel, plain), and ``search`` of the
      8192 queries at k=100 and k=1024 by host clock, median of 5, with QPS;
      peak device memory.
+The flat index is then freed, and IVF-Flat search (BASELINE config 3)
+follows on the same data. Every search below runs with all launch counts
+set to 0 just before it and read just after, prints the branch it took
+(the kernel modes it launched, or the per-probe scan), its host-clock
+median of 5, QPS and recall@10 against bench_gt_cache.npz:
+ 23. train (faiss_tpu's default k-means parameters), add and stage
+     IndexIVFFlat(d=128, nlist=4096): hi/lo bf16 store planes, chunks of
+     1024 slots;
+ 24. strict probing (the default) at nprobe 1, 4, 16 and 64 on the 8192
+     queries; recall@10 must not fall as nprobe grows (by more than 0.002);
+ 25. soft probing at nprobe 1 and 16: on the rows of undropped sub-batches
+     whose probed lists hold kc slots, the distances per rank must be no
+     worse than strict's, within 1e-5 * (|q|^2 + max |y|^2);
+ 26. strict at nprobe=1 with dyn_engage_frac = 0.7 (K1 penalized);
+ 27. nprobe = nlist on 2048 queries (K2 unmasked): the ids must agree with
+     bench_gt_cache.npz up to ties at 1e-6 * (|q|^2 + max |y|^2);
+ 28-29. the per-probe scan (no kernel): 64 queries at nprobe=16, and 1024
+     queries at k=100.
+     After each strict search of 24 and 26 and each of 28-29, the first 64
+     rows (those whose probed lists hold kc slots, for 24 and 26) must equal
+     a float64 exact search over the row's probed lists: distances within
+     1e-5 * (|q|^2 + max |y|^2), ids up to ties at it;
+ 30. K1 soft + hi/lo, K1 penalized + hi/lo and K2 masked + hi/lo on the
+     first 4096-query sub-batch of their paths at nprobe=1 against their
+     plain versions (keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|, ids
+     tie-aware), timed by CUDA events in turns; each mode must have
+     launched on the path; peak device memory of the IVF-Flat phases.
 The last two lines are the card's name and power limit, then the result
 line {"ok": true, "device": {...}}; the kernels' JSON line comes before. Each
 kernel's entry there carries its bound, counted from this run's inputs: the
 larger of the time of its operations and the time of its bytes (inputs read
-once, outputs written once) over 3.35 TB/s. The recon kernels' operations
+once, both store planes with hi/lo, outputs written once) over 3.35 TB/s. The recon kernels' operations
 are float32 FMAs over 67 TFLOP/s; the ADC kernels' are, whichever takes
 longer, their float32 adds over 33.5 T/s or their shared-memory LUT lookups
 at 32 a clock per SM at the card's max SM clock. Rates are an H100 SXM's
@@ -90,6 +117,7 @@ peaks at 700 W; only the slots that hold a vector are counted.
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -165,6 +193,8 @@ def reset_counts(fused_knn):
         f.launches = 0
     fused_knn.ivf_recon_fused_dyn.penalized_launches = 0
     fused_knn.ivf_recon_fused.masked_launches = 0
+    fused_knn.ivf_recon_fused_dyn.hilo_launches = 0
+    fused_knn.ivf_recon_fused.hilo_launches = 0
 
 
 # H100 SXM at 700 W, datasheet peaks: float32 outside the tensor
@@ -331,30 +361,31 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     return [k1] + out, k2_ivf
 
 
-def dyn_cost(br, cmap, qt, store, per_query, lid):
+def dyn_cost(br, cmap, qt, store, per_query, lid, planes=1):
     """(operations' seconds, bytes) of a worklist scan (K1, K5) in this run:
     every query scores the vector-holding slots of its tile's non-PAD
     worklist chunks (ops_s); the store columns of the worklists' union are
-    read once with their n2 (and lid), the per-query inputs and the
-    worklists once; three [nq, 128] outputs."""
+    read once (``planes`` of them: 2 for hi/lo) with their n2 (and lid),
+    the per-query inputs and the worklists once; three [nq, 128] outputs."""
     nch = br["nchunks"]
     ct = store.shape[1] // (nch + 1)
     held = torch.isfinite(br["n2s"][0]).reshape(nch + 1, ct).sum(1)
     real = cmap != nch
     keys = int(held[cmap.long()][real].sum()) * qt
     union = int(torch.unique(cmap[real]).numel()) * ct
-    per_col = store.shape[0] * store.element_size() + 4 + 4 * lid
+    per_col = planes * store.shape[0] * store.element_size() + 4 + 4 * lid
     nq = cmap.shape[0] * qt
     return (ops_s(store, keys),
             union * per_col + nbytes(cmap, *per_query) + 3 * nq * 512)
 
 
-def scan_cost(store, n2s, nq, per_query, lid):
-    """(operations' seconds, bytes) of an exhaustive scan (K2 one plane, K4):
-    every query scores every vector-holding slot (ops_s); every column of
-    the store is read once with n2 (and lid)."""
+def scan_cost(store, n2s, nq, per_query, lid, planes=1):
+    """(operations' seconds, bytes) of an exhaustive scan (K2, K4): every
+    query scores every vector-holding slot (ops_s); every column of the
+    store (``planes`` of them: 2 for hi/lo) is read once with n2 (and
+    lid)."""
     S = store.shape[1]
-    per_col = store.shape[0] * store.element_size() + 4 + 4 * lid
+    per_col = planes * store.shape[0] * store.element_size() + 4 + 4 * lid
     keys = nq * int(torch.isfinite(n2s).sum())
     return (ops_s(store, keys),
             S * per_col + nbytes(*per_query) + 3 * nq * 512)
@@ -401,10 +432,10 @@ def time_search(what, fn, n):
           flush=True)
 
 
-def refined(index, x):
+def refined(index, x, k=K):
     """index.search through search_submit / search_collect, with each
     sub-batch's dropped probed chunks: (D, I, [(start, real, ndropped)])."""
-    handle = index.search_submit(x, K)
+    handle = index.search_submit(x, k)
     drops = [(st, real, int(out[2])) for st, real, out, _ in handle[1]["pending"]]
     D, I = index.search_collect(handle)
     return D, I, drops
@@ -940,6 +971,253 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
     ]
 
 
+def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+    """Phases 23-30: IndexIVFFlat(d=128, nlist=4096) on the same data
+    (BASELINE config 3). Returns the entries of K1 soft + hi/lo, K1
+    penalized + hi/lo and K2 masked + hi/lo in the kernels' JSON line, and
+    K2's unmasked hi/lo launches at nprobe = nlist."""
+    from faiss_tpu_torch.models import ivf_pq as P
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+
+    torch.cuda.reset_peak_memory_stats()
+    index = ft.IndexIVFFlat(None, D, NLIST, device=dev)
+    took = []
+    for step in (lambda: index.train(xt), lambda: index.add(xb), index._build_brute):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        took.append(time.time() - t0)
+    br = index._brute
+    check(br["yT_lo"] is not None, "IVF-Flat staged no lo plane")
+    ct, G, qt = index.FUSED_CT, br["cn2g"].shape[0] // 128, 256
+    print(f"23. IndexIVFFlat(d={D}, nlist={NLIST}): train {took[0]:.2f} s "
+          f"({index.cp.niter} k-means iterations), add {took[1]:.2f} s, stage "
+          f"{took[2]:.2f} s; {br['nchunks']} chunks of {ct} slots in {G} groups, "
+          f"hi/lo planes {tuple(br['yT'].shape)} bf16", flush=True)
+
+    # each grouped list column's list, and each list's slots (ids = slots)
+    sm = br["slot_map"]
+    valid = sm >= 0
+    col_of = (np.minimum(np.arange(len(sm)) // ct // br["cpg"], G - 1) * 128
+              + br["lid"][0].cpu().numpy())
+    listnos = index._listnos_host
+    list_of_col = np.full(G * 128, -1, np.int64)
+    list_of_col[col_of[valid]] = listnos[sm[valid]]
+    sizes = np.bincount(listnos, minlength=NLIST)
+    col_size = torch.from_numpy(
+        np.where(list_of_col >= 0, sizes[np.maximum(list_of_col, 0)], 0)
+    ).to(dev)
+    order = np.argsort(listnos, kind="stable")
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    check((index._ids_host == np.arange(NB)).all(), "ids are not the add order")
+    xq_all = torch.from_numpy(xq).to(dev)
+    qn2 = (xq.astype(np.float64) ** 2).sum(1)
+    ymax = float((xb.astype(np.float64) ** 2).sum(1).max())
+    tol = 1e-5 * (qn2 + ymax)
+    kc = min(128, max(2 * K, K + 32))
+
+    def probed_cols(nprobe):
+        """[NQ, G * 128] bool: each query's probed list columns as the big
+        batches compute them, per 4096-query sub-batch."""
+        return torch.cat([
+            P._probed(xq_all[s : s + 4096], br["centroids_g"], br["cn2g"],
+                      nprobe)[1] for s in range(0, NQ, 4096)
+        ])
+
+    def exact_in_lists(Dx, Ix, lists, need, what):
+        """Rows 0..EXACT_ROWS-1 whose lists hold >= need slots: ids equal a
+        float64 exact search over the row's probed lists up to ties at tol,
+        distances within tol. Returns the rows checked."""
+        k, n, err = Dx.shape[1], 0, 0.0
+        for q in range(EXACT_ROWS):
+            ls = np.asarray(lists[q])
+            slots = np.concatenate(
+                [order[offs[li] : offs[li + 1]] for li in ls[ls >= 0]])
+            if len(slots) < need:
+                continue
+            d = ((xb[slots].astype(np.float64) - xq[q].astype(np.float64)) ** 2).sum(1)
+            o = np.argsort(d, kind="stable")[:k]
+            want_d = np.full(k, np.inf)
+            want_i = np.full(k, -1, np.int64)
+            want_d[: len(o)], want_i[: len(o)] = d[o], slots[o]
+            fin = np.isfinite(want_d)
+            check((np.isfinite(Dx[q]) == fin).all() and ((Ix[q] >= 0) == fin).all(),
+                  f"{what}: row {q} returns {int((Ix[q] >= 0).sum())} results, its "
+                  f"lists hold {len(slots)}")
+            e = np.abs(Dx[q][fin] - want_d[fin])
+            check((e <= tol[q]).all(), f"{what}: row {q} distances differ from "
+                                       f"float64 by {e.max():.3e}")
+            agree = ids_agree_tie_aware(
+                np.where(fin, want_d, 1e30)[None], want_i[None],
+                np.where(fin, Dx[q], 1e30)[None], Ix[q][None], tol[q])
+            check(agree.all(), f"{what}: row {q} ids differ from the float64 "
+                               "search over its probed lists beyond ties")
+            n, err = n + 1, max(err, float(e.max()) if e.size else 0.0)
+        print(f"{what}: {n} of {EXACT_ROWS} rows exact within the probed lists "
+              f"vs float64 (max err {err:.3e})", flush=True)
+        return n
+
+    def big_lists(nprobe):
+        cols = probed_cols(nprobe)[:EXACT_ROWS].cpu().numpy()
+        return [list_of_col[np.where(c)[0]] for c in cols]
+
+    launches = dict(k1=0, k1p=0, k2m=0, k2=0)
+
+    def run(what, x, k, big=True):
+        """One search with every count set to 0 just before and read just
+        after; the branch, launches, host-clock median of 5, QPS and
+        recall@10. Returns (D, I, drops, recall)."""
+        k1, k2 = fused_knn.ivf_recon_fused_dyn, fused_knn.ivf_recon_fused
+        reset_counts(fused_knn)
+        t0 = time.time()
+        if big:
+            Dx, Ix, drops = refined(index, x, k)
+        else:
+            (Dx, Ix), drops = index.search(x, k), []
+        torch.cuda.synchronize()
+        first = time.time() - t0
+        n = dict(k1=k1.launches - k1.penalized_launches, k1p=k1.penalized_launches,
+                 k2m=k2.masked_launches, k2=k2.launches - k2.masked_launches)
+        check(k1.hilo_launches == k1.launches and k2.hilo_launches == k2.launches,
+              f"{what}: a scan ran over one plane")
+        names = dict(k1="K1 soft + hi/lo", k1p="K1 penalized + hi/lo",
+                     k2m="K2 masked + hi/lo", k2="K2 hi/lo")
+        desc = ", ".join(f"{names[key]} x{v}" for key, v in n.items() if v)
+        check(big == bool(desc), f"{what}: took {desc or 'the per-probe scan'}")
+        for key, v in n.items():
+            launches[key] += v
+        check(Dx.shape == Ix.shape == (len(x), k), f"{what}: result shape {Dx.shape}")
+        check(((Ix >= -1) & (Ix < NB)).all() and np.isfinite(Dx[Ix >= 0]).all(),
+              f"{what}: invalid ids or distances")
+        med, times = host_median(lambda: index.search(x, k))
+        rec = recall_at_k(Ix, gt[: len(x)], K)
+        print(f"{what}: {desc or 'per-probe scan, no kernel'}; first call "
+              f"{first:.3f} s; median {med * 1e3:.1f} ms over 5 "
+              f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> "
+              f"{len(x) / med:.0f} QPS; recall@10 {rec:.4f}; dropped chunks per "
+              f"sub-batch {[nd for _, _, nd in drops]}", flush=True)
+        return Dx, Ix, drops, rec
+
+    # 24. strict probing, the default: the nprobe sweep, exact within the
+    # probed lists on the rows whose lists hold kc slots
+    strict = {}
+    for nprobe in (1, 4, 16, 64):
+        index.nprobe = nprobe
+        strict[nprobe] = run(f"24. strict nprobe={nprobe}", xq, K)
+        Dx, Ix, drops, _ = strict[nprobe]
+        check(drops[0][2] == 0, "the first sub-batch dropped probed chunks")
+        exact_in_lists(Dx, Ix, big_lists(nprobe), kc, f"strict nprobe={nprobe}")
+    recalls = [strict[n][3] for n in strict]
+    check(all(b >= a - 0.002 for a, b in zip(recalls, recalls[1:])),
+          f"recall@10 falls as nprobe grows: {recalls}")
+
+    # 25. soft probing at nprobe 1 and 16: per rank no worse than strict
+    index.strict_probe = False
+    for nprobe in (1, 16):
+        index.nprobe = nprobe
+        Dx, Ix, drops, _ = run(f"25. soft nprobe={nprobe}", xq, K)
+        full = ((probed_cols(nprobe) * col_size).sum(1) >= kc).cpu().numpy()
+        rows = undropped(drops, NQ) & full
+        worse = Dx[rows] > strict[nprobe][0][rows] + tol[rows, None]
+        check(not worse.any(), f"soft nprobe={nprobe}: {int(worse.any(1).sum())} "
+                               "rows rank worse than strict")
+        print(f"soft nprobe={nprobe}: distances per rank no worse than strict on "
+              f"all {int(rows.sum())} rows of undropped sub-batches whose lists "
+              f"hold >= {kc} slots", flush=True)
+    index.strict_probe = True
+
+    # 26. strict at nprobe=1 with dyn_engage_frac = 0.7: K1 penalized
+    index.nprobe = 1
+    index.dyn_engage_frac = 0.7
+    Dx, Ix, drops, _ = run("26. strict nprobe=1, dyn_engage_frac=0.7", xq, K)
+    check(drops[0][2] == 0, "the first sub-batch dropped probed chunks")
+    exact_in_lists(Dx, Ix, big_lists(1), kc, "strict nprobe=1, frac 0.7")
+    index.dyn_engage_frac = 0.08
+
+    # 27. nprobe = nlist on 2048 queries (K2 unmasked): the ids equal the
+    # ground truth up to ties at 1e-6 (|q|^2 + max |y|^2)
+    index.nprobe = NLIST
+    nq0 = 2048
+    Dx, Ix, _, _ = run(f"27. nprobe=nlist, {nq0} queries", xq[:nq0], K)
+    y64 = torch.from_numpy(xb).to(dev, torch.float64)
+    q64 = xq_all[:nq0].double()
+
+    def sorted_d64(ids):
+        i = torch.from_numpy(ids).to(dev)
+        d, o = torch.sort((q64[:, None, :] - y64[i]).square().sum(-1), 1)
+        return d.cpu().numpy(), torch.gather(i, 1, o).cpu().numpy()
+
+    d_gt, i_gt = sorted_d64(gt[:nq0])
+    d_pt, i_pt = sorted_d64(Ix)
+    agree = ids_agree_tie_aware(d_gt, i_gt, d_pt, i_pt, 1e-6 * (qn2[:nq0] + ymax))
+    differ = int((np.sort(i_gt, 1) != np.sort(i_pt, 1)).any(1).sum())
+    check(agree.all(), f"nprobe=nlist: ids disagree with the ground truth beyond "
+                       f"ties on {int((~agree).sum())} rows")
+    print(f"nprobe=nlist: id sets differ from bench_gt_cache.npz on {differ} rows, "
+          "all within ties", flush=True)
+    del y64, q64
+
+    # 28-29. the per-probe scan: 64 queries at nprobe=16, 1024 at k=100
+    index.nprobe = 16
+    Dx, Ix, _, _ = run("28. by probe: 64 queries, nprobe=16", xq[:64], K, big=False)
+    x128 = torch.zeros(128, D, device=dev)
+    x128[:64] = xq_all[:64]
+    lists = index._coarse_search(x128, 16)[1][:EXACT_ROWS].cpu().numpy()
+    exact_in_lists(Dx, Ix, lists, 0, "by probe, 64 queries")
+    Dx, Ix, _, _ = run("29. by probe: 1024 queries, k=100, nprobe=16", xq[:1024],
+                       100, big=False)
+    lists = index._coarse_search(xq_all[:1024], 16)[1][:EXACT_ROWS].cpu().numpy()
+    exact_in_lists(Dx, Ix, lists, 0, "by probe, k=100")
+    check(launches["k1"] and launches["k1p"] and launches["k2m"] and launches["k2"],
+          f"a kernel mode of the IVF-Flat path launched no time: {launches}")
+
+    # 30. the new kernel modes against their plain versions on the first
+    # 4096-query sub-batch of their paths (nprobe=1), timed in turns
+    xq4 = xq_all[:4096]
+    n2 = br["n2s"][0].cpu().numpy()
+    msteps = index._dyn_bucket[1]
+    perm, pcols_s, cm2, cmap, _ = P._dyn_inputs(xq4, br, 1, qt, msteps)
+    xs = xq4[perm]
+    a1 = (P._pad_dims(xs, br), br["yT"], br["n2s"], cmap, qt, ct)
+    lo = dict(yT_lo=br["yT_lo"])
+    qn_s = xs.square().sum(1).cpu().numpy()
+    k1 = kernel_check(
+        fused_knn, f"K1 soft + hi/lo [4096 q, {msteps} steps]",
+        lambda: fused_knn.ivf_recon_fused_dyn(*a1, **lo),
+        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **lo), qn_s, n2, 10)
+    pen = torch.where(P._probe_mask(cm2, pcols_s), 0.0, 1e9)
+    kw1 = dict(lo, biasg=pen, lid=br["lid"], cgroup=br["cgroup"])
+    k1p = kernel_check(
+        fused_knn, f"K1 penalized + hi/lo [4096 q, {msteps} steps]",
+        lambda: fused_knn.ivf_recon_fused_dyn(*a1, **kw1),
+        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1), qn_s, n2, 10)
+    mask = torch.where(P._probed(xq4, br["centroids_g"], br["cn2g"], 1)[1], 0.0, 1e9)
+    a2 = (P._pad_dims(xq4, br), br["yT"], br["n2s"], br["yT_lo"])
+    kw2 = dict(qt=qt, ct=ct, biasg=mask, lid=br["lid"])
+    k2m = kernel_check(
+        fused_knn, f"K2 masked + hi/lo [4096 q x {br['yT'].shape[1]} slots]",
+        lambda: fused_knn.ivf_recon_fused(*a2, **kw2),
+        lambda: fused_knn.ivf_recon_fused_ref(*a2, **kw2),
+        xq4.square().sum(1).cpu().numpy(), n2, 3)
+    print(f"IVF-Flat peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    dyn = "faiss_tpu_torch/csrc/ivf_recon_dyn.cu"
+    full = "faiss_tpu_torch/csrc/ivf_recon.cu"
+    return [
+        entry("ivf_recon_dyn[hilo]", dyn, "faiss_tpu/ops/pallas_knn.py:1249",
+              launches["k1"], *k1,
+              *dyn_cost(br, cmap, qt, br["yT"], (a1[0],), False, planes=2)),
+        entry("ivf_recon_dyn[hilo,penalized]", dyn, "faiss_tpu/ops/pallas_knn.py:1249",
+              launches["k1p"], *k1p,
+              *dyn_cost(br, cmap, qt, br["yT"], (a1[0], pen), True, planes=2)),
+        entry("ivf_recon[masked,hilo]", full, "faiss_tpu/ops/pallas_knn.py:1362",
+              launches["k2m"], *k2m,
+              *scan_cost(br["yT"], br["n2s"], len(xq4), (a2[0], mask), True,
+                         planes=2)),
+    ], launches["k2"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -969,8 +1247,12 @@ def main():
     }
     for name, (lib, report) in built.items():
         print(f"{name}: ptxas " + "; ".join(
-            line.split(":", 1)[-1].strip()
-            for line in report.splitlines() if "registers" in line
+            # each instance's template arguments (Lb1E = true), then its
+            # stack, spills and registers
+            m.group(1) if m else line.split(":", 1)[-1].strip()
+            for line in report.splitlines()
+            for m in [re.search(r"entry function '\w*?(I(?:L[bi]\d+E)+E)", line)]
+            if m or "registers" in line or "spill" in line
         ) + f"; dynamic smem {smem[name](lib)} B/block", flush=True)
 
     t0 = time.time()
@@ -983,6 +1265,10 @@ def main():
     kernels, k2_ivf = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     torch.cuda.empty_cache()
     kernels += flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf)
+    torch.cuda.empty_cache()
+    ivfflat, k2_hilo = ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+    next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_hilo
+    kernels += ivfflat
 
     print(json.dumps({"kernels": kernels}))
     print(card)

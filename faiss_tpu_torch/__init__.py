@@ -18,7 +18,13 @@ Ported so far:
   - exact flat search — ``IndexFlatL2`` and ``IndexFlatIP`` with ``add``,
     ``search`` and ``search_submit``/``search_collect`` for k <= 2048 through
     the bf16 hi/lo screen, the striped large-k screen and the fused exact
-    kernel.
+    kernel;
+  - IVF-Flat search — ``IndexIVFFlat`` (L2) with ``train``, ``add``,
+    ``search``, ``search_submit``/``search_collect``, ``search_preassigned``
+    and ``reconstruct*``: big batches through the dynamic-chunk and the
+    exhaustive scans over bf16 hi/lo store planes with an exact re-rank,
+    strict (exact within the probed lists, the default) or soft probing;
+    everything else through the exact scan by probe.
 """
 
 import torch
@@ -33,7 +39,8 @@ from .clustering import Clustering, ClusteringParameters  # noqa: E402,F401
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
 from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
 from .models.flat import IndexFlat, IndexFlatIP, IndexFlatL2  # noqa: E402,F401
-from .models.ivf import IndexIVF  # noqa: E402,F401
+from .models.ivf import IndexIVF, SearchParametersIVF  # noqa: E402,F401
+from .models.ivf_flat import IndexIVFFlat  # noqa: E402,F401
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan  # noqa: E402,F401
 from .models.meta import IndexRefine, IndexRefineFlat  # noqa: E402,F401
 from .utils.evaluation import recall_at_k  # noqa: E402,F401

@@ -11,6 +11,11 @@ the state is ``flat.vectors()`` and its metric; for a faiss_tpu
         base.quantizer.vectors(), base.pq.centroids, base._codes_host,
         base._listnos_host, base._ids_host, ref.refine_index.vectors(),
         device=..., store_float16=True)
+
+and for a faiss_tpu ``IndexIVFFlat`` named ``ivf``::
+
+    ivfflat_from_arrays(ivf.quantizer.vectors(), ivf._codes_host,
+                        ivf._listnos_host, ivf._ids_host, device=...)
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 
 from .metric import MetricType
 from .models.flat import IndexFlat, IndexFlatL2
+from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan
 from .models.meta import IndexRefineFlat
 
@@ -35,23 +41,46 @@ def flat_from_arrays(xb, metric=MetricType.L2, *, device) -> IndexFlat:
     return index
 
 
+def _ivf_arrays(centroids, listnos, ids, n):
+    """The coarse state of an IVF index as the port holds it; raises where
+    the arrays disagree."""
+    centroids = np.ascontiguousarray(centroids, np.float32)
+    listnos = np.ascontiguousarray(listnos, np.int32).ravel()
+    ids = np.ascontiguousarray(ids, np.int64).ravel()
+    if len(listnos) != n or len(ids) != n:
+        raise ValueError("codes, listnos and ids disagree in length")
+    if n and not (0 <= listnos.min() and listnos.max() < len(centroids)):
+        raise ValueError("list numbers out of range")
+    return centroids, listnos, ids
+
+
+def ivfflat_from_arrays(centroids, xb, listnos, ids, *, device) -> IndexIVFFlat:
+    """IndexIVFFlat from coarse centroids [nlist, d] and the lists' entries
+    in add order: vectors ``xb`` [n, d], list numbers [n] and ids [n]."""
+    xb = np.ascontiguousarray(xb, np.float32)
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(xb))
+    nlist, d = centroids.shape
+    if xb.ndim != 2 or xb.shape[1] != d:
+        raise ValueError(f"xb must be [n, {d}], got shape {xb.shape}")
+    quantizer = IndexFlatL2(d, device=device)
+    quantizer.add(centroids)
+    index = IndexIVFFlat(quantizer, d, nlist, device=device)
+    index.add_encoded(xb, listnos, ids)
+    return index
+
+
 def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device
                       ) -> IndexIVFPQ:
     """IndexIVFPQ (IndexIVFPQFastScan when nbits = 4) from coarse centroids
     [nlist, d], PQ codebooks [M, ksub, dsub], unpacked codes [n, M] uint8,
     coarse list numbers [n] and ids [n]."""
-    centroids = np.ascontiguousarray(centroids, np.float32)
     pq_centroids = np.ascontiguousarray(pq_centroids, np.float32)
     codes = np.ascontiguousarray(codes, np.uint8)
-    listnos = np.ascontiguousarray(listnos, np.int32).ravel()
-    ids = np.ascontiguousarray(ids, np.int64).ravel()
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
     nlist, d = centroids.shape
     M, ksub, _ = pq_centroids.shape
-    n = len(codes)
-    if codes.shape != (n, M) or len(listnos) != n or len(ids) != n:
-        raise ValueError("codes, listnos and ids disagree in length or M")
-    if n and not (0 <= listnos.min() and listnos.max() < nlist):
-        raise ValueError("list numbers out of range")
+    if codes.shape != (len(codes), M):
+        raise ValueError(f"codes must be [n, M={M}], got shape {codes.shape}")
     nbits = ksub.bit_length() - 1
     quantizer = IndexFlatL2(d, device=device)
     quantizer.add(centroids)

@@ -1,34 +1,35 @@
 // K2: the exhaustive recon scan with an exact top-128, for sm_90a.
 //
-// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_pallas, unmasked with
-// one bf16 store plane or two (hi and lo), and masked with one plane. For
-// every query row r it returns the EXACT top-128 of
+// Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_pallas with one bf16
+// store plane or two (hi and lo), unmasked or masked. For every query row r
+// it returns the EXACT top-128 of
 //     key(s) = n2[s] - 2 * q_r . (y_hi[:, s] + y_lo[:, s])  (+ pen)
 // over every column s of the store, keys ascending (the query norm is not
 // added), the column of each key (-1 where the key is +inf), and an all +inf
 // eviction floor, since the select never evicts. The masked mode (strict
-// probing over the whole store) adds pen = biasg[r, g * 128 + lid[s]] with
+// probing over the whole store: IVF-PQ's decoded store, one plane, and
+// IVF-Flat's vectors, hi and lo) adds pen = biasg[r, g * 128 + lid[s]] with
 // the static group g = min((s / ct) / cpg, G - 1), 0 on the query's probed
 // lists and 1e9 elsewhere, in float32 as given (the TPU kernel rounds it to
 // bf16 first, which moves only the ~1e9 keys). The penalty is read from
 // global memory per (query, column): a block's QB rows of biasg stay in L1,
 // and a list's columns are contiguous, so a warp mostly reads one word.
 //
-// Arithmetic. The query stays float32. The bf16 planes are upcast and summed
-// in float32 (exact: the lo plane holds the residual below hi's 8 mantissa
-// bits), and the sum is multiplied by the query in float32 FMAs on the CUDA
-// cores, with no TF32. The TPU kernel splits the query into bf16 hi and lo
-// and drops the ql * yl term, so this product is closer to the float32 value
-// than the one the exact-flat certificate's delta (faiss_tpu/models/flat.py:
-// 84-93) was sized for, and that delta stays sound here unchanged.
+// Arithmetic (recon_step.cuh). The query stays float32. The bf16 planes are
+// upcast and summed in float32, and the sum is multiplied by the query in
+// float32 FMAs on the CUDA cores, with no TF32. The TPU kernel splits the
+// query into bf16 hi and lo and drops the ql * yl term, so this product is
+// closer to the float32 value than the one the exact-flat certificate's
+// delta (faiss_tpu/models/flat.py:84-93) was sized for, and that delta stays
+// sound here unchanged.
 //
 // Design. One block serves QB queries and walks all S columns in order, two
-// adjacent columns per thread and step: one bf16x2 load of each plane per
-// dimension, coalesced along s. Blocks walk the columns in the same order,
-// so blocks resident at the same time share the store's lines through L2.
-// The keys go through the exact select of exact_select.cuh. The store may be
-// a column slice of a wider one (a stripe of the striped large-k flat path):
-// ``ld`` is the row stride of both planes, so no stripe is copied.
+// adjacent columns per thread and step (recon_step::dot_pair). Blocks walk
+// the columns in the same order, so blocks resident at the same time share
+// the store's lines through L2. The keys go through the exact select of
+// exact_select.cuh. The store may be a column slice of a wider one (a stripe
+// of the striped large-k flat path): ``ld`` is the row stride of both
+// planes, so no stripe is copied.
 //
 // What bounds it: with 8 queries per block every block streams the whole
 // store (2 * 2 * d_pad bytes per column with two planes, about 2 FMAs per
@@ -43,6 +44,7 @@
 #include <math_constants.h>
 
 #include "exact_select.cuh"
+#include "recon_step.cuh"
 
 namespace {
 
@@ -75,46 +77,12 @@ ivf_recon_kernel(const float* __restrict__ xq,
   sel.init();
   __syncthreads();
 
-  const long long row2 = ld / 2;  // bf16x2 stride between dimensions
   for (long long off = 0; off < S; off += STEP) {
     sel.make_room();
     const long long s = off + 2 * tid;
     if (s < S) {  // S is even, so s + 1 < S too
       float acc0[QB], acc1[QB];
-#pragma unroll
-      for (int qi = 0; qi < QB; ++qi) {
-        acc0[qi] = 0.f;
-        acc1[qi] = 0.f;
-      }
-      const __nv_bfloat162* hp =
-          reinterpret_cast<const __nv_bfloat162*>(yT + s);
-      const __nv_bfloat162* lp =
-          HILO ? reinterpret_cast<const __nv_bfloat162*>(yT_lo + s) : nullptr;
-      for (int k = 0; k < d_pad; k += 4) {
-        float2 y[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          y[u] = __bfloat1622float2(hp[(k + u) * row2]);
-          if constexpr (HILO) {
-            const float2 lo = __bfloat1622float2(lp[(k + u) * row2]);
-            y[u].x += lo.x;
-            y[u].y += lo.y;
-          }
-        }
-#pragma unroll
-        for (int qi = 0; qi < QB; ++qi) {
-          const float4 q =
-              *reinterpret_cast<const float4*>(qs + qi * d_pad + k);
-          acc0[qi] = fmaf(q.x, y[0].x, acc0[qi]);
-          acc1[qi] = fmaf(q.x, y[0].y, acc1[qi]);
-          acc0[qi] = fmaf(q.y, y[1].x, acc0[qi]);
-          acc1[qi] = fmaf(q.y, y[1].y, acc1[qi]);
-          acc0[qi] = fmaf(q.z, y[2].x, acc0[qi]);
-          acc1[qi] = fmaf(q.z, y[2].y, acc1[qi]);
-          acc0[qi] = fmaf(q.w, y[3].x, acc0[qi]);
-          acc1[qi] = fmaf(q.w, y[3].y, acc1[qi]);
-        }
-      }
+      recon_step::dot_pair<QB, HILO>(qs, d_pad, yT, yT_lo, ld, s, acc0, acc1);
       const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
       // s and s + 1 lie in one chunk (s is even, ct is even)
       const float* pen = nullptr;
@@ -179,11 +147,11 @@ extern "C" long long ivf_recon_smem_bytes(int d_pad) {
   return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
 }
 
-// yT_lo may be null (one plane). biasg and lid null: unmasked; both given
-// (one plane only): masked, with nbias = G * 128 the row length of biasg. qt
-// is the TPU kernel's query tile: a block here does not need it, and it is
-// checked for the contract only (nq a multiple of qt, itself a multiple of
-// QB); ct sets the chunks of the masked mode's static groups.
+// yT_lo may be null (one plane). biasg and lid null: unmasked; both given:
+// masked, with nbias = G * 128 the row length of biasg. qt is the TPU
+// kernel's query tile: a block here does not need it, and it is checked for
+// the contract only (nq a multiple of qt, itself a multiple of QB); ct sets
+// the chunks of the masked mode's static groups.
 extern "C" int ivf_recon_launch(const void* xq, const void* yT,
                                 const void* yT_lo, long long ld,
                                 const void* n2, const void* biasg,
@@ -195,11 +163,16 @@ extern "C" int ivf_recon_launch(const void* xq, const void* yT,
   if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct <= 0 ||
       ct % 2 != 0 || S % ct != 0 || d_pad % 4 != 0 || ld % 2 != 0 ||
       ld < S || S >= (1LL << 31) || masked != (lid != nullptr) ||
-      (masked && (yT_lo != nullptr || nbias <= 0 || nbias % K != 0))) {
+      (masked && (nbias <= 0 || nbias % K != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long smem = ivf_recon_smem_bytes(d_pad);
   const int cpg = max(1, static_cast<int>(S / ct) / max(1, nbias / K));
+  if (masked && yT_lo != nullptr) {
+    return launch<true, true>(xq, yT, yT_lo, ld, n2, biasg, lid, out_key,
+                              out_slot, out_floor, nq, d_pad, S, ct, cpg,
+                              nbias, smem, stream);
+  }
   if (masked) {
     return launch<false, true>(xq, yT, yT_lo, ld, n2, biasg, lid, out_key,
                                out_slot, out_floor, nq, d_pad, S, ct, cpg,

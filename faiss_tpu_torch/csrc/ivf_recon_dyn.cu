@@ -1,10 +1,10 @@
 // K1: the dynamic-chunk recon scan with an exact top-128, for sm_90a.
 //
 // Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas with one
-// bf16 store plane, in its soft and its penalized mode. It computes what that
-// kernel computes, not how: for every query row r it returns the EXACT
-// top-128 of
-//     key(s) = n2[s] - 2 * q_r . yT[:, s]  (+ pen)
+// bf16 store plane (IVF-PQ's decoded store) or two (IVF-Flat's vectors as hi
+// and lo), in its soft and its penalized mode. It computes what that kernel
+// computes, not how: for every query row r it returns the EXACT top-128 of
+//     key(s) = n2[s] - 2 * q_r . (yT[:, s] + yT_lo[:, s])  (+ pen)
 // over all slots s of the chunks cmap[r / qt, :], keys ascending, slots as
 // packed positions chunk * ct + col (-1 where the key is +inf), and an all
 // +inf eviction floor, since an exact select never evicts. The penalized mode
@@ -16,27 +16,31 @@
 //
 // Design. One block serves QB queries of one qt-query tile, so they share the
 // tile's worklist. The queries sit in shared memory in float32 (q is never
-// rounded to bf16: the TPU kernel's hi/lo split exists only to keep it f32).
-// Each thread scores two adjacent slots per step for all QB queries: one
-// bf16x2 load of yT[k, s:s+2] per dimension, coalesced along s, upcast to
-// float32 and accumulated with FMAs on the CUDA cores. The keys go through
-// the exact select of exact_select.cuh (a shared-memory buffer per query,
-// appends below the running K-th key, a block-wide bitonic sort before a
-// step could overflow it).
+// rounded to bf16: the TPU kernel's hi/lo query split exists only to keep it
+// f32 on the matrix unit). Each thread scores two adjacent slots per step for
+// all QB queries (recon_step::dot_pair): one bf16x2 load of each plane per
+// dimension, coalesced along s, summed in float32 and accumulated with FMAs
+// on the CUDA cores. With the lo plane the product is the float32 query times
+// the float32-faithful hi + lo, where the TPU kernel's three bf16 passes drop
+// the ql * yl term. The keys go through the exact select of exact_select.cuh
+// (a shared-memory buffer per query, appends below the running K-th key, a
+// block-wide bitonic sort before a step could overflow it).
 //
-// What bounds it: every block re-reads the worklist's columns of yT (the
-// qt / QB blocks of a tile read the same chunks, mostly from L2), and the
-// float32 FMA rate of the CUDA cores (d FMAs per query and slot). wgmma on
-// bf16 tiles with the query split into bf16 hi + lo, TMA loads of the chunks
-// and the tile sizes are later work.
+// What bounds it: every block re-reads the worklist's columns of the planes
+// (the qt / QB blocks of a tile read the same chunks, mostly from L2), and
+// the float32 FMA rate of the CUDA cores (d FMAs per query and slot). wgmma
+// on bf16 tiles with the query split into bf16 hi + lo, TMA loads of the
+// chunks and the tile sizes are later work.
 //
-// Offsets into yT and n2 are 64-bit: d_pad * S passes 2^31 at 10M slots.
+// Offsets into the planes and n2 are 64-bit: d_pad * S passes 2^31 at 10M
+// slots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "exact_select.cuh"
+#include "recon_step.cuh"
 
 namespace {
 
@@ -48,10 +52,11 @@ constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
 
 using Select = exact_select::Select<K, CAP, QB, THREADS, STEP>;
 
-template <bool PEN>
+template <bool PEN, bool HILO>
 __global__ void __launch_bounds__(THREADS)
 ivf_recon_dyn_kernel(const float* __restrict__ xq,
                      const __nv_bfloat16* __restrict__ yT,
+                     const __nv_bfloat16* __restrict__ yT_lo,
                      const float* __restrict__ n2,
                      const int* __restrict__ cmap,
                      const float* __restrict__ biasg,
@@ -73,7 +78,6 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
   __syncthreads();
 
   const int* work = cmap + tile * msteps;
-  const long long row2 = S / 2;  // bf16x2 stride between dimensions
   for (int step = 0; step < msteps; ++step) {
     const int chunk = work[step];
     const long long base = static_cast<long long>(chunk) * ct;
@@ -87,33 +91,8 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
       if (col < ct) {
         const long long s = base + col;
         float acc0[QB], acc1[QB];
-#pragma unroll
-        for (int qi = 0; qi < QB; ++qi) {
-          acc0[qi] = 0.f;
-          acc1[qi] = 0.f;
-        }
-        const __nv_bfloat162* yp =
-            reinterpret_cast<const __nv_bfloat162*>(yT + s);
-        for (int k = 0; k < d_pad; k += 4) {
-          float2 y[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            y[u] = __bfloat1622float2(yp[(k + u) * row2]);
-          }
-#pragma unroll
-          for (int qi = 0; qi < QB; ++qi) {
-            const float4 q =
-                *reinterpret_cast<const float4*>(qs + qi * d_pad + k);
-            acc0[qi] = fmaf(q.x, y[0].x, acc0[qi]);
-            acc1[qi] = fmaf(q.x, y[0].y, acc1[qi]);
-            acc0[qi] = fmaf(q.y, y[1].x, acc0[qi]);
-            acc1[qi] = fmaf(q.y, y[1].y, acc1[qi]);
-            acc0[qi] = fmaf(q.z, y[2].x, acc0[qi]);
-            acc1[qi] = fmaf(q.z, y[2].y, acc1[qi]);
-            acc0[qi] = fmaf(q.w, y[3].x, acc0[qi]);
-            acc1[qi] = fmaf(q.w, y[3].y, acc1[qi]);
-          }
-        }
+        recon_step::dot_pair<QB, HILO>(qs, d_pad, yT, yT_lo, S, s, acc0,
+                                       acc1);
         const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
         int2 l = make_int2(0, 0);
         if constexpr (PEN) l = *reinterpret_cast<const int2*>(lid + s);
@@ -143,19 +122,21 @@ ivf_recon_dyn_kernel(const float* __restrict__ xq,
   }
 }
 
-template <bool PEN>
-int launch(const void* xq, const void* yT, const void* n2, const void* cmap,
-           const void* biasg, const void* lid, const void* cgroup,
-           void* out_key, void* out_slot, void* out_floor, int nq, int d_pad,
-           long long S, int msteps, int qt, int ct, int nbias, long long smem,
-           void* stream) {
+template <bool PEN, bool HILO>
+int launch(const void* xq, const void* yT, const void* yT_lo, const void* n2,
+           const void* cmap, const void* biasg, const void* lid,
+           const void* cgroup, void* out_key, void* out_slot, void* out_floor,
+           int nq, int d_pad, long long S, int msteps, int qt, int ct,
+           int nbias, long long smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_recon_dyn_kernel<PEN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ivf_recon_dyn_kernel<PEN, HILO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ivf_recon_dyn_kernel<PEN><<<nq / QB, THREADS, static_cast<size_t>(smem),
-                              static_cast<cudaStream_t>(stream)>>>(
+  ivf_recon_dyn_kernel<PEN, HILO><<<nq / QB, THREADS,
+                                    static_cast<size_t>(smem),
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
+      static_cast<const __nv_bfloat16*>(yT_lo),
       static_cast<const float*>(n2), static_cast<const int*>(cmap),
       static_cast<const float*>(biasg), static_cast<const int*>(lid),
       static_cast<const int*>(cgroup), static_cast<float*>(out_key),
@@ -172,15 +153,17 @@ extern "C" long long ivf_recon_dyn_smem_bytes(int d_pad) {
   return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
 }
 
-// biasg, lid and cgroup null: the soft mode; all three given: the penalized
-// mode, with nbias = G * 128 the row length of biasg.
+// yT_lo may be null (one plane); given, it has yT's shape and layout. biasg,
+// lid and cgroup null: the soft mode; all three given: the penalized mode,
+// with nbias = G * 128 the row length of biasg.
 extern "C" int ivf_recon_dyn_launch(const void* xq, const void* yT,
-                                    const void* n2, const void* cmap,
-                                    const void* biasg, const void* lid,
-                                    const void* cgroup, void* out_key,
-                                    void* out_slot, void* out_floor, int nq,
-                                    int d_pad, long long S, int msteps, int qt,
-                                    int ct, int nbias, void* stream) {
+                                    const void* yT_lo, const void* n2,
+                                    const void* cmap, const void* biasg,
+                                    const void* lid, const void* cgroup,
+                                    void* out_key, void* out_slot,
+                                    void* out_floor, int nq, int d_pad,
+                                    long long S, int msteps, int qt, int ct,
+                                    int nbias, void* stream) {
   const bool pen = biasg != nullptr;
   if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct % 2 != 0 ||
       d_pad % 4 != 0 || S % ct != 0 || msteps <= 0 ||
@@ -189,14 +172,24 @@ extern "C" int ivf_recon_dyn_launch(const void* xq, const void* yT,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long smem = ivf_recon_dyn_smem_bytes(d_pad);
-  if (pen) {
-    return launch<true>(xq, yT, n2, cmap, biasg, lid, cgroup, out_key,
-                        out_slot, out_floor, nq, d_pad, S, msteps, qt, ct,
-                        nbias, smem, stream);
+  if (pen && yT_lo != nullptr) {
+    return launch<true, true>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
+                              out_key, out_slot, out_floor, nq, d_pad, S,
+                              msteps, qt, ct, nbias, smem, stream);
   }
-  return launch<false>(xq, yT, n2, cmap, biasg, lid, cgroup, out_key, out_slot,
-                       out_floor, nq, d_pad, S, msteps, qt, ct, nbias, smem,
-                       stream);
+  if (pen) {
+    return launch<true, false>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
+                               out_key, out_slot, out_floor, nq, d_pad, S,
+                               msteps, qt, ct, nbias, smem, stream);
+  }
+  if (yT_lo != nullptr) {
+    return launch<false, true>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
+                               out_key, out_slot, out_floor, nq, d_pad, S,
+                               msteps, qt, ct, nbias, smem, stream);
+  }
+  return launch<false, false>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
+                              out_key, out_slot, out_floor, nq, d_pad, S,
+                              msteps, qt, ct, nbias, smem, stream);
 }
 
 extern "C" const char* ivf_recon_dyn_error_string(int err) {

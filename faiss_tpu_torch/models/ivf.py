@@ -1,11 +1,22 @@
-"""IVF base index (counterpart of faiss_tpu/models/ivf.py:60-203).
+"""IVF base index (counterpart of faiss_tpu/models/ivf.py:60-480).
 
 The inverted lists are a host-side flat entry store (codes / listnos / ids
 per slot; the ArrayInvertedLists + DirectMap analogue), from which the
-search layout of a subclass is built. Training is k-means of the coarse
+search layouts of a subclass are built. Training is k-means of the coarse
 quantizer on the device; adds are paged, assigned on the device against the
-flat quantizer and encoded by the subclass. The per-probe scan of faiss_tpu
-(ops/ivf_ops.py) is ROADMAP queue 1 item 5."""
+flat quantizer and encoded by the subclass.
+
+Search by probe (``search``, ``search_preassigned``): the flat quantizer's
+exact k-NN on the device gives each query its nprobe nearest lists, and
+ops/ivf_ops.ivf_flat_scan scans them over a padded ``[nlist, max_len, d]``
+copy of the vectors, built at first use and dropped by ``add``/``reset``.
+That scan reads raw vectors: it serves IndexIVFFlat. IndexIVFPQ overrides
+``search`` (its per-probe ADC scan is ROADMAP queue 1 item 5).
+
+Left out (ROADMAP queue 1 item 7): the inner-product metric, ``remove_ids``,
+``merge_from``, ``update_vectors`` and ``range_search``; ID selectors are
+queue 1 item 1. Each raises NotImplementedError where a caller can reach
+it."""
 
 from __future__ import annotations
 
@@ -14,11 +25,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..base import Index, add_page_rows
+from ..base import Index, SearchParameters, add_page_rows, query_buckets
 from ..clustering import Clustering, ClusteringParameters
 from ..metric import MetricType
 from ..ops import distances as dops
+from ..ops.ivf_ops import ivf_flat_scan
 from .flat import IndexFlat
+
+
+class SearchParametersIVF(SearchParameters):
+    """reference: IndexIVF.h:68 (``sel``: ID selectors, queue 1 item 1)."""
+
+    def __init__(self, nprobe: int = 0, max_codes: int = 0, sel=None):
+        super().__init__(sel=sel)
+        self.nprobe = int(nprobe)
+        self.max_codes = int(max_codes)
 
 
 class Level1Quantizer:
@@ -44,30 +65,43 @@ class Level1Quantizer:
         self.quantizer.add(clus.centroids)
 
 
+def _unported(what: str):
+    raise NotImplementedError(f"IndexIVF.{what} is ROADMAP queue 1 item 7")
+
+
 class IndexIVF(Index, Level1Quantizer):
     """Base IVF index (reference: IndexIVF.h:194). Subclasses implement
-    the codec (encode_vectors)."""
+    the codec (encode_vectors, decode_vectors)."""
 
     def __init__(self, quantizer: Optional[Index], d: int, nlist: int,
                  metric=MetricType.L2, *, device):
         Index.__init__(self, d, metric, device=device)
         if self.metric_type != MetricType.L2:
-            raise NotImplementedError("IndexIVF: only METRIC_L2 is ported")
+            raise NotImplementedError(
+                "IndexIVF: only METRIC_L2 is ported (the inner-product metric "
+                "is ROADMAP queue 1 item 7)"
+            )
         Level1Quantizer.__init__(
             self, quantizer, nlist, d, self.metric_type, device=device
         )
         if not isinstance(self.quantizer, IndexFlat):
             raise NotImplementedError("only a flat coarse quantizer is ported")
         self.nprobe = 1
+        self.max_codes = 0
         self.is_trained = self.quantizer.ntotal == self.nlist
         self._codes_host: Optional[np.ndarray] = None  # [ntotal, code width]
         self._listnos_host = np.empty(0, np.int32)
         self._ids_host = np.empty(0, np.int64)
+        self._device = None  # the padded per-probe layout
+        self._brute = None  # the group-packed big-batch layout (subclasses)
 
     def train_encoder(self, x: torch.Tensor, assign: torch.Tensor) -> None:
         del x, assign
 
     def encode_vectors(self, x: torch.Tensor, listnos: torch.Tensor) -> np.ndarray:
+        raise NotImplementedError
+
+    def decode_vectors(self, codes: np.ndarray, listnos: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
     def _assign(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +137,8 @@ class IndexIVF(Index, Level1Quantizer):
         self.add_encoded(codes, listnos.to(torch.int32).cpu().numpy(), ids)
 
     def add_encoded(self, codes: np.ndarray, listnos: np.ndarray, ids=None) -> None:
-        """Append already-encoded entries to the host lists."""
+        """Append already-encoded entries to the host lists; the device
+        layouts are rebuilt at the next search."""
         n = len(codes)
         listnos = np.asarray(listnos, np.int32).ravel()
         if ids is None:
@@ -118,9 +153,187 @@ class IndexIVF(Index, Level1Quantizer):
         self._listnos_host = np.concatenate([self._listnos_host, listnos])
         self._ids_host = np.concatenate([self._ids_host, ids])
         self.ntotal += n
+        self._device = self._brute = None
 
     def reset(self) -> None:
         self._codes_host = None
         self._listnos_host = np.empty(0, np.int32)
         self._ids_host = np.empty(0, np.int64)
         self.ntotal = 0
+        self._device = self._brute = None
+
+    def remove_ids(self, sel) -> int:
+        _unported("remove_ids")
+
+    def merge_from(self, other, add_id: int = 0) -> None:
+        _unported("merge_from")
+
+    def update_vectors(self, ids, x) -> None:
+        _unported("update_vectors")
+
+    def range_search(self, x, radius, *, params=None):
+        _unported("range_search")
+
+    # -- the padded per-probe layout (faiss_tpu :281-319) ---------------------
+    def _pad_to(self, n: int) -> int:
+        return max(128, -(-n // 128) * 128)
+
+    def _build_device(self):
+        """The padded layout, built at first use: for every list its slots
+        (input positions, -1 on pads) in add order, padded to a common
+        max_len (a multiple of 128)."""
+        if self._device is not None:
+            return self._device
+        nlist, n = self.nlist, self.ntotal
+        lengths = np.bincount(self._listnos_host, minlength=nlist).astype(np.int64)
+        max_len = self._pad_to(int(lengths.max()) if n else 1)
+        order = np.argsort(self._listnos_host, kind="stable")
+        sorted_ln = self._listnos_host[order].astype(np.int64)
+        offsets = np.zeros(nlist, np.int64)
+        np.cumsum(lengths[:-1], out=offsets[1:])
+        ranks = np.arange(n, dtype=np.int64) - offsets[sorted_ln]
+        slot_ids = np.full((nlist, max_len), -1, np.int32)
+        slot_ids[sorted_ln, ranks] = order
+        self._device = self._stage_codes(slot_ids, lengths, max_len)
+        return self._device
+
+    def _stage_codes(self, slot_ids, lengths, max_len):
+        """Device tensors of the per-probe scan; the IVF-Flat default: the
+        padded raw vectors [nlist, max_len, d] float32 (zeros on pads),
+        gathered on the device through ``slot_ids``, and their norms."""
+        dev = self.device
+        sid = torch.from_numpy(slot_ids).to(dev)
+        xb = torch.from_numpy(
+            np.ascontiguousarray(self._codes_host, np.float32)
+        ).to(dev) if self.ntotal else torch.zeros(1, self.d, device=dev)
+        codes = torch.where(
+            (sid >= 0)[..., None], xb[sid.clamp_min(0).long()], 0.0
+        )
+        return {
+            "codes": codes,
+            "slot_ids": sid,
+            "lengths": torch.from_numpy(lengths).to(dev),
+            "code_norms": codes.square().sum(-1),
+        }
+
+    # -- search by probe (faiss_tpu :322-444) ---------------------------------
+    def _coarse_search(self, xq: torch.Tensor, nprobe: int):
+        """The nprobe nearest lists on the device (the flat quantizer's exact
+        k-NN): (distances [nq, nprobe], list numbers int64)."""
+        q = self.quantizer
+        return dops.knn(xq, q._consolidate(), nprobe, y_norms=q._norms)
+
+    def _scan(self, xq, probes, k, dev):
+        """The codec's list scan: (dists, slots). IVF-Flat's default."""
+        return ivf_flat_scan(
+            xq, probes, dev["codes"], dev["slot_ids"], dev["lengths"], k,
+            metric=self.metric_type, code_norms=dev["code_norms"],
+        )
+
+    def _search_params(self, params):
+        """(nprobe, max_codes) of a search: the index's, overridden by
+        non-zero ``params`` fields; ID selectors raise."""
+        nprobe, max_codes = self.nprobe, self.max_codes
+        if params is not None:
+            if params.sel is not None:
+                raise NotImplementedError("ID selectors are ROADMAP queue 1 item 1")
+            nprobe = getattr(params, "nprobe", 0) or nprobe
+            max_codes = getattr(params, "max_codes", 0) or max_codes
+        return nprobe, max_codes
+
+    def _results(self, nq, k):
+        return (np.full((nq, k), np.inf, np.float32),
+                np.full((nq, k), -1, np.int64))
+
+    def _ids_of(self, slots: np.ndarray) -> np.ndarray:
+        return np.where(slots >= 0, self._ids_host[np.maximum(slots, 0)], -1)
+
+    def search(self, x, k: int, *, params=None):
+        """Exact scan of each query's nprobe nearest lists; ``max_codes``
+        stops probing once the lists probed so far hold that many codes
+        (SearchParametersIVF::max_codes, IndexIVF.h:68)."""
+        x = self._check_input(x)
+        self._check_trained()
+        nprobe, max_codes = self._search_params(params)
+        nprobe = min(max(1, nprobe), self.nlist)
+        nq = len(x)
+        D, I = self._results(nq, k)
+        if self.ntotal == 0 or nq == 0:
+            return D, I
+        dev = self._build_device()
+        lengths = dev["lengths"]
+        x_dev = torch.from_numpy(x).to(self.device)
+        for start, padded, real in query_buckets(nq):
+            xq = torch.zeros(padded, self.d, device=self.device)
+            xq[:real] = x_dev[start : start + real]
+            probes = self._coarse_search(xq, nprobe)[1]
+            if max_codes:
+                cum = torch.cumsum(
+                    torch.where(probes >= 0, lengths[probes.clamp_min(0)], 0),
+                    dim=1,
+                )
+                keep = torch.cat([
+                    torch.ones_like(cum[:, :1], dtype=torch.bool),
+                    cum[:, :-1] < max_codes,
+                ], dim=1)
+                probes = torch.where(keep, probes, -1)
+            dists, slots = self._scan(xq, probes, k, dev)
+            D[start : start + real] = dists[:real].cpu().numpy()
+            I[start : start + real] = self._ids_of(slots[:real].cpu().numpy())
+        return D, I
+
+    def search_preassigned(self, x, k: int, assign, centroid_dis, *,
+                           params=None):
+        """Search with an externally computed coarse assignment
+        (IndexIVF.h:301): ``assign`` [nq, nprobe] list numbers (-1 = none);
+        ``centroid_dis`` is accepted for the API and unused by the flat
+        scan."""
+        del centroid_dis
+        x = self._check_input(x)
+        self._search_params(params)  # raises on a selector
+        nq = len(x)
+        D, I = self._results(nq, k)
+        if self.ntotal == 0 or nq == 0:
+            return D, I
+        dev = self._build_device()
+        assign = torch.from_numpy(np.asarray(assign, np.int64)).to(self.device)
+        x_dev = torch.from_numpy(x).to(self.device)
+        for start, padded, real in query_buckets(nq):
+            xq = torch.zeros(padded, self.d, device=self.device)
+            xq[:real] = x_dev[start : start + real]
+            pr = torch.full((padded, assign.shape[1]), -1, dtype=torch.int64,
+                            device=self.device)
+            pr[:real] = assign[start : start + real]
+            dists, slots = self._scan(xq, pr, k, dev)
+            D[start : start + real] = dists[:real].cpu().numpy()
+            I[start : start + real] = self._ids_of(slots[:real].cpu().numpy())
+        return D, I
+
+    # -- reconstruction and list introspection (faiss_tpu :450-480) -----------
+    def _slots_of_ids(self, keys: np.ndarray) -> np.ndarray:
+        """Vectorized id -> slot lookup (DirectMap analogue); raises on any
+        missing id."""
+        order = np.argsort(self._ids_host, kind="stable")
+        pos = np.searchsorted(self._ids_host, keys, sorter=order)
+        slots = order[np.clip(pos, 0, len(order) - 1)]
+        bad = self._ids_host[slots] != keys
+        if bad.any():
+            raise KeyError(f"id {keys[bad][0]} not found")
+        return slots
+
+    def reconstruct(self, key: int) -> np.ndarray:
+        return self.reconstruct_batch(np.array([key], np.int64))[0]
+
+    def reconstruct_batch(self, keys) -> np.ndarray:
+        slots = self._slots_of_ids(np.asarray(keys, np.int64).ravel())
+        return self.decode_vectors(self._codes_host[slots],
+                                   self._listnos_host[slots])
+
+    def reconstruct_n(self, n0: int, ni: int) -> np.ndarray:
+        return self.reconstruct_batch(np.arange(n0, n0 + ni, dtype=np.int64))
+
+    def get_list_size(self, list_no: int) -> int:
+        return int((self._listnos_host == list_no).sum())
+
+    def invlists_ids(self, list_no: int) -> np.ndarray:
+        return self._ids_host[self._listnos_host == list_no]

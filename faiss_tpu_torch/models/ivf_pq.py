@@ -415,15 +415,17 @@ def _fused_search_rerank_dyn(xq, br, xb, k, kc, qt, ct, nprobe, msteps):
 
 def _fused_search_rerank_recon(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe):
     """Exhaustive recon scan + exact re-rank for one padded sub-batch
-    (faiss_tpu :572): K2 over the decoded store, masked by the strict
-    {0, 1e9} penalty (faiss_tpu :641) when ``nprobe > 0``, then the re-rank.
-    Returns (D, slots, ndropped 0), on the device."""
+    (faiss_tpu :572): K2 over the store (IVF-PQ's decoded store, or
+    IVF-Flat's vectors as the hi/lo planes ``yT``, ``yT_lo``), masked by the
+    strict {0, 1e9} penalty (faiss_tpu :641) when ``nprobe > 0``, then the
+    re-rank. Returns (D, slots, ndropped 0), on the device."""
     mask = {}
     if nprobe:
         probed = _probed(xq, br["centroids_g"], br["cn2g"], nprobe)[1]
         mask = dict(biasg=torch.where(probed, 0.0, 1e9), lid=br["lid"])
     _, slots_raw, _ = ivf_recon_fused(
-        _pad_dims(xq, br), br["yT"], br["n2s"], qt=qt, ct=ct, **mask
+        _pad_dims(xq, br), br["yT"], br["n2s"], br.get("yT_lo"), qt=qt, ct=ct,
+        **mask
     )
     D, I = rerank_exact(xq, xb, _slots_of(slots_raw, br, kc), k, xb_n2=xb_n2)
     return D, I, 0
@@ -432,7 +434,8 @@ def _fused_search_rerank_recon(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe):
 def _fused_search_rerank_recon_dyn(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe,
                                    msteps, strict_probe):
     """nprobe-sparse recon scan + exact re-rank for one padded sub-batch
-    (faiss_tpu :662): K1 over the tile worklists, penalized by {0, 1e9} off
+    (faiss_tpu :662): K1 over the tile worklists of the store (one plane, or
+    hi/lo where ``br`` holds ``yT_lo``), penalized by {0, 1e9} off
     each query's probed lists when ``strict_probe``, soft otherwise; its
     candidates mapped through ``slot_map`` to input slots, the top ``kc``
     re-ranked exactly against the refine store, rows returned in the
@@ -446,11 +449,104 @@ def _fused_search_rerank_recon_dyn(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe,
             lid=br["lid"], cgroup=br["cgroup"],
         )
     _, slots_raw, _ = ivf_recon_fused_dyn(
-        _pad_dims(xq_s, br), br["yT"], br["n2s"], cmap, qt, ct, **pen
+        _pad_dims(xq_s, br), br["yT"], br["n2s"], cmap, qt, ct,
+        yT_lo=br.get("yT_lo"), **pen
     )
     D, I = rerank_exact(xq_s, xb, _slots_of(slots_raw, br, kc), k, xb_n2=xb_n2)
     inv = torch.argsort(perm, stable=True)
     return D[inv], I[inv], ndropped
+
+
+def grouped_layout(listnos, centroids, nlist, ct, device):
+    """The group-packed layout that IVF-PQ and IVF-Flat build alike
+    (faiss_tpu ivf_pq.py:1069, ivf.py:655): ``pack_invlists_grouped`` with
+    one trailing all-+inf PAD chunk that backs the worklists' unused steps,
+    the grouped coarse centroids and their norms (+inf on unused columns),
+    each grouped column's chunk span (empty and unused columns point at the
+    PAD chunk) and each chunk's group. Returns (the part of ``_brute`` both
+    hold, ``local_of`` [nlist] int32 on the device: each list's column
+    within its group)."""
+    g = pack_invlists_grouped(listnos, nlist, ct, centroids=centroids)
+    nchunks, G = g["S"] // ct, g["ngroups"]
+    lp = g["list_perm"]
+    used = lp >= 0
+    local_of = np.zeros(nlist, np.int32)
+    local_of[lp[used]] = np.arange(len(lp), dtype=np.int32)[used] % 128
+    slot_map = np.concatenate([g["slot_map"], np.full(ct, -1, np.int64)])
+    cent_g = np.zeros((len(lp), centroids.shape[1]), np.float32)
+    cent_g[used] = centroids[lp[used]]
+    cn2g = np.full(len(lp), np.inf, np.float32)
+    cn2g[used] = (cent_g[used] ** 2).sum(1)
+    cs, cl = g["col_start"], g["col_len"]
+    chunk_first = np.where(cl > 0, cs // ct, nchunks)
+    chunk_last = np.where(cl > 0, (cs + np.maximum(cl, 1) - 1) // ct, nchunks)
+    cgroup = np.concatenate(
+        [np.repeat(np.arange(G), g["cpg"]), np.zeros(1, np.int64)]
+    ).astype(np.int32)
+    # K2 and K4 group a chunk statically (fused_knn._static_groups over the
+    # nchunks + 1 chunks of the store): that map must be this one
+    static = np.minimum(np.arange(nchunks) // max(1, (nchunks + 1) // G), G - 1)
+    assert np.array_equal(cgroup[:nchunks], static), "static chunk groups differ"
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return {
+        "slot_map": slot_map,
+        "slot_map_dev": dev(slot_map),
+        "centroids_g": dev(cent_g),
+        "cn2g": dev(cn2g),
+        "chunk_first": dev(chunk_first),
+        "chunk_last": dev(chunk_last),
+        "cgroup": dev(cgroup),
+        "nchunks": nchunks,
+        "cpg": g["cpg"],
+    }, dev(local_of)
+
+
+def dyn_bucket_for(index, xq_dev, br, nprobe, qt):
+    """Worklist length of the dynamic-chunk scans of ``index`` (IndexIVFPQ
+    or IndexIVFFlat; faiss_tpu ivf_pq.py:1245, ivf.py:777): its
+    ``dyn_msteps`` where set, else the largest per-tile probed-chunk union
+    of the first batch of this nprobe, rounded up to a multiple of 64 and
+    cached per nprobe (``index._dyn_bucket``; _sbbr_collect and
+    _sbbf_collect widen it when a batch drops probed chunks)."""
+    if index.dyn_msteps:
+        return min(index.dyn_msteps, br["nchunks"])
+    if index._dyn_bucket is None:
+        index._dyn_bucket = {}
+    if nprobe not in index._dyn_bucket:
+        bitmap = _dyn_probe_bitmap(
+            xq_dev, br["centroids_g"], br["cn2g"], br["chunk_first"],
+            br["chunk_last"], nprobe, qt, br["nchunks"],
+        )[3]
+        m = int(bitmap.sum(dim=1).max())  # one host sync per nprobe
+        index._dyn_bucket[nprobe] = min(br["nchunks"], -(-m // 64) * 64)
+    return index._dyn_bucket[nprobe]
+
+
+def collect_sub_batches(index, st):
+    """Read phase of the big-batch searches of ``index`` (IndexIVFPQ's
+    refined search, faiss_tpu ivf_pq.py:1497, and IndexIVFFlat's, ivf.py:
+    942): copy each sub-batch home, map slots to ids, and widen the adaptive
+    worklist bucket when a dynamic-chunk batch dropped probed chunks (its
+    recall impact is bounded to that batch). The port's selects are exact,
+    so no row needs faiss_tpu's lossy-row replay."""
+    nq, k, nprobe = st["nq"], st["k"], st["nprobe"]
+    D = np.full((nq, k), np.inf, np.float32)
+    I = np.full((nq, k), -1, np.int64)
+    for start, real, (d, slots, ndropped), was_dyn in st["pending"]:
+        if was_dyn and int(ndropped) > 0 and not index.dyn_msteps:
+            index._dyn_bucket[nprobe] = min(
+                st["nchunks"], index._dyn_bucket[nprobe] + 64
+            )
+        d = d[:real].cpu().numpy()
+        slots = slots[:real].cpu().numpy()
+        D[start : start + real, : d.shape[1]] = d
+        I[start : start + real, : d.shape[1]] = np.where(
+            slots >= 0, index._ids_host[np.maximum(slots, 0)], -1
+        )
+    return D, I
 
 
 class IVFFastScanStats:
@@ -513,11 +609,10 @@ class IndexIVFPQ(IndexIVF):
     strict_probe = True
     # refined-path sub-batch size
     pipeline_batch = 4096
-    # IndexIVFPQ options of the per-probe scan (ROADMAP queue 1 item 5):
-    # search raises while any is changed
+    # IndexIVFPQ options of the per-probe scan (ROADMAP queue 1 item 5), as
+    # is max_codes: search raises while any is changed
     by_residual = True
     polysemous_ht = 0
-    max_codes = 0
 
     def __init__(self, quantizer, d: int, nlist: int, M: int, nbits: int = 8,
                  metric=MetricType.L2, *, device):
@@ -525,7 +620,6 @@ class IndexIVFPQ(IndexIVF):
         self.pq = ProductQuantizer(d, M, nbits, device=device)
         # nq at or above this goes to the fused big-batch path
         self.big_batch_threshold = 128
-        self._brute = None
         self.is_trained = False
 
     def train_encoder(self, x: torch.Tensor, assign: torch.Tensor) -> None:
@@ -539,13 +633,11 @@ class IndexIVFPQ(IndexIVF):
         codes = pq_ops.pq_encode(resid, self.pq._dev())
         return codes.to(torch.uint8).cpu().numpy()
 
-    def add_encoded(self, codes, listnos, ids=None) -> None:
-        super().add_encoded(codes, listnos, ids)
-        self._brute = None
-
-    def reset(self) -> None:
-        super().reset()
-        self._brute = None
+    def _stage_codes(self, slot_ids, lengths, max_len):
+        raise NotImplementedError(
+            "IVF-PQ's per-probe ADC scan (search_preassigned, small batches) "
+            "is ROADMAP queue 1 item 5"
+        )
 
     def search(self, x, k: int, *, params=None):
         """Unrefined search (faiss_tpu :1683) through the big-batch ADC scan;
@@ -631,74 +723,28 @@ class IndexIVFPQ(IndexIVF):
         cmk = centroids.reshape(self.nlist, pq.M, pq.dsub)
         cdoty = 2.0 * np.einsum("cmd,mkd->cmk", cmk, cb)
         term2 = (y_norms[None] + cdoty).astype(np.float32)
-        g = pack_invlists_grouped(listnos, self.nlist, ct, centroids=centroids)
-        S = g["S"]
-        nchunks = S // ct
-        lp = g["list_perm"]
-        local_of = np.zeros(self.nlist, np.int32)
-        local_of[lp[lp >= 0]] = np.arange(len(lp), dtype=np.int32)[lp >= 0] % 128
-        # one trailing all-+inf PAD chunk backs the worklists' unused steps
-        slot_map = np.concatenate([g["slot_map"], np.full(ct, -1, np.int64)])
+        lay, local_of = grouped_layout(listnos, centroids, self.nlist, ct, dev)
+        sm_d = lay["slot_map_dev"]
         codes_d = torch.from_numpy(codes).to(dev)
         ln_d = torch.from_numpy(listnos.astype(np.int64)).to(dev)
-        sm_d = torch.from_numpy(slot_map).to(dev)
         cn2 = torch.from_numpy((centroids**2).sum(1).astype(np.float32)).to(dev)
         codesT, n2s, lid = _stage_brute_device(
-            codes_d, ln_d, torch.from_numpy(term2).to(dev), cn2, sm_d,
-            torch.from_numpy(local_of).to(dev),
+            codes_d, ln_d, torch.from_numpy(term2).to(dev), cn2, sm_d, local_of,
         )
-        cent_g = np.zeros((len(lp), centroids.shape[1]), np.float32)
-        cent_g[lp >= 0] = centroids[lp[lp >= 0]]
-        cn2g = np.full(len(lp), np.inf, np.float32)
-        cn2g[lp >= 0] = (cent_g[lp >= 0] ** 2).sum(1)
-        # chunk span of each grouped column (+ chunk -> group map); empty
-        # and unused columns point at the PAD chunk
-        cs, cl = g["col_start"], g["col_len"]
-        chunk_first = np.where(cl > 0, cs // ct, nchunks)
-        chunk_last = np.where(cl > 0, (cs + np.maximum(cl, 1) - 1) // ct, nchunks)
-        cgroup = np.concatenate(
-            [np.repeat(np.arange(g["ngroups"]), g["cpg"]), np.zeros(1, np.int64)]
-        ).astype(np.int32)
         d_pad = -(-self.d // 128) * 128
         yT = None
-        if (S + ct) * d_pad * 2 <= self.recon_scan_max_bytes:
+        if len(lay["slot_map"]) * d_pad * 2 <= self.recon_scan_max_bytes:
             yT = _stage_recon_device(
                 codes_d, ln_d, torch.from_numpy(centroids).to(dev), pq._dev(),
                 sm_d, d_pad,
             )
-        self._brute = {
-            "yT": yT,
-            "d_pad": d_pad,
-            "codesT": codesT,
-            "n2s": n2s,
-            "lid": lid,
-            "cbt": pq_ops.pq_blockdiag_codebook(pq._dev()),
-            "centroids_g": torch.from_numpy(cent_g).to(dev),
-            "cn2g": torch.from_numpy(cn2g).to(dev),
-            "slot_map": slot_map,
-            "slot_map_dev": sm_d,
-            "chunk_first": torch.from_numpy(chunk_first).to(dev),
-            "chunk_last": torch.from_numpy(chunk_last).to(dev),
-            "cgroup": torch.from_numpy(cgroup).to(dev),
-            "nchunks": nchunks,
-            "cpg": g["cpg"],
-        }
+        self._brute = dict(
+            lay, yT=yT, d_pad=d_pad, codesT=codesT, n2s=n2s, lid=lid,
+            cbt=pq_ops.pq_blockdiag_codebook(pq._dev()),
+        )
         return self._brute
 
-    def _dyn_bucket_for(self, xq_dev, br, nprobe, qt):
-        """Worklist length for this nprobe (faiss_tpu :1245)."""
-        if self.dyn_msteps:
-            return min(self.dyn_msteps, br["nchunks"])
-        if self._dyn_bucket is None:
-            self._dyn_bucket = {}
-        if nprobe not in self._dyn_bucket:
-            bitmap = _dyn_probe_bitmap(
-                xq_dev, br["centroids_g"], br["cn2g"], br["chunk_first"],
-                br["chunk_last"], nprobe, qt, br["nchunks"],
-            )[3]
-            m = int(bitmap.sum(dim=1).max())  # one host sync per nprobe
-            self._dyn_bucket[nprobe] = min(br["nchunks"], -(-m // 64) * 64)
-        return self._dyn_bucket[nprobe]
+    _dyn_bucket_for = dyn_bucket_for
 
     def _search_big_batch_refined(self, x, k, kc, refine_xb, nprobe,
                                   refine_n2):
@@ -764,26 +810,7 @@ class IndexIVFPQ(IndexIVF):
         return {"pending": pending, "nq": nq, "k": k, "nprobe": nprobe,
                 "nchunks": nch}
 
-    def _sbbr_collect(self, st):
-        """Read phase (faiss_tpu :1497): copy each sub-batch home, map slots
-        to ids, and widen the adaptive worklist bucket
-        when a dynamic-chunk batch dropped probed chunks (its recall impact
-        is bounded to that batch)."""
-        nq, k, nprobe = st["nq"], st["k"], st["nprobe"]
-        D = np.full((nq, k), np.inf, np.float32)
-        I = np.full((nq, k), -1, np.int64)
-        for start, real, (d, slots, ndropped), was_dyn in st["pending"]:
-            if was_dyn and int(ndropped) > 0 and not self.dyn_msteps:
-                self._dyn_bucket[nprobe] = min(
-                    st["nchunks"], self._dyn_bucket[nprobe] + 64
-                )
-            d = d[:real].cpu().numpy()
-            slots = slots[:real].cpu().numpy()
-            D[start : start + real, : d.shape[1]] = d
-            I[start : start + real, : d.shape[1]] = np.where(
-                slots >= 0, self._ids_host[np.maximum(slots, 0)], -1
-            )
-        return D, I
+    _sbbr_collect = collect_sub_batches
 
 
 class IndexIVFPQFastScan(IndexIVFPQ):

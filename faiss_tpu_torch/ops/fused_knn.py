@@ -2,9 +2,11 @@
 
 K1 ``ivf_recon_fused_dyn`` (csrc/ivf_recon_dyn.cu): the dynamic-chunk recon
 scan, counterpart of faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas
-with one bf16 store plane. For every query row r of a tile of ``qt`` rows:
+over one bf16 store plane ``yT`` (IVF-PQ's decoded store) or two, ``yT`` and
+its lo residual ``yT_lo`` (IVF-Flat's vectors). For every query row r of a
+tile of ``qt`` rows, with y = yT (+ yT_lo) summed in float32:
 
-  keys  [nq, 128] f32  the 128 smallest ``n2[s] - 2 q_r . yT[:, s]`` over all
+  keys  [nq, 128] f32  the 128 smallest ``n2[s] - 2 q_r . y[:, s]`` over all
                        slots s of the chunks ``cmap[r // qt, :]``, ascending
                        (the query norm is not added);
   slots [nq, 128] i32  the packed position ``chunk * ct + col`` of each key,
@@ -23,8 +25,9 @@ K2 ``ivf_recon_fused`` (csrc/ivf_recon.cu): the exhaustive recon scan,
 counterpart of ivf_recon_fused_pallas. The same triple over every column of
 ``yT`` (one bf16 plane) or of ``yT + yT_lo`` (the hi/lo planes of the exact
 flat screen); slots are columns of the given store, which may be a column
-slice (a stripe) of a wider one. Its masked mode takes the whole store only
-and adds ``biasg[r, min(chunk(s) // cpg, G - 1) * 128 + lid[s]]``, with
+slice (a stripe) of a wider one. Its masked mode takes the whole store
+only (one plane or both) and adds
+``biasg[r, min(chunk(s) // cpg, G - 1) * 128 + lid[s]]``, with
 ``cpg = max(1, nchunks // G)``: the group of a chunk is static, and the
 trailing PAD chunk clamps to the last group.
 
@@ -89,7 +92,7 @@ _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # <name>_launch, <name>_smem_bytes and <name>_error_string
 KERNELS = {
     "ivf_recon_dyn": (
-        [_vp] * 10 + [_ci, _ci, _ll, _ci, _ci, _ci, _ci, _vp], [_ci],
+        [_vp] * 11 + [_ci, _ci, _ll, _ci, _ci, _ci, _ci, _vp], [_ci],
     ),
     "ivf_recon": (
         [_vp, _vp, _vp, _ll] + [_vp] * 6 + [_ci, _ci, _ll, _ci, _ci, _ci, _vp],
@@ -266,7 +269,7 @@ def _bias_terms(biasg, rows, groups, lid_cols):
 # -- K1 ----------------------------------------------------------------------
 
 
-def _check_dyn(xq, yT, n2, cmap, qt, ct):
+def _check_dyn(xq, yT, n2, cmap, qt, ct, yT_lo):
     nq, d_pad = xq.shape if xq.dim() == 2 else (None, None)
     if (xq.dtype, yT.dtype, n2.dtype, cmap.dtype) != (
         torch.float32, torch.bfloat16, torch.float32, torch.int32
@@ -277,6 +280,14 @@ def _check_dyn(xq, yT, n2, cmap, qt, ct):
         )
     if xq.dim() != 2 or yT.dim() != 2 or yT.shape[0] != d_pad:
         raise ValueError(f"xq {tuple(xq.shape)} and yT {tuple(yT.shape)} differ in d")
+    if yT_lo is not None and (
+        yT_lo.dtype != torch.bfloat16 or yT_lo.shape != yT.shape
+        or yT_lo.stride() != yT.stride()
+    ):
+        raise ValueError(
+            f"yT_lo must be a bfloat16 plane of yT's shape {tuple(yT.shape)} and "
+            f"strides, got {yT_lo.dtype} {tuple(yT_lo.shape)} {yT_lo.stride()}"
+        )
     S = yT.shape[1]
     if tuple(n2.shape) != (1, S):
         raise ValueError(f"n2 must be [1, {S}], got {tuple(n2.shape)}")
@@ -287,6 +298,8 @@ def _check_dyn(xq, yT, n2, cmap, qt, ct):
     if not all(t.is_contiguous() for t in (xq, yT, n2, cmap)):
         raise ValueError("xq, yT, n2 and cmap must be contiguous")
     _check_aligned("yT", yT, 4)
+    if yT_lo is not None:
+        _check_aligned("yT_lo", yT_lo, 4)
     _check_aligned("n2", n2, 8)
 
 
@@ -304,38 +317,42 @@ def _check_penalty(biasg, lid, cgroup, nq, S, ct):
 
 
 def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
-                        lid=None, cgroup=None):
+                        lid=None, cgroup=None, yT_lo=None):
     """K1 (see the module docstring). ``xq`` [nq, d_pad] float32 (queries
     sorted by home group, dims zero-padded), ``yT`` [d_pad, S] bfloat16
-    transposed decoded store whose last chunk is the all-+inf PAD chunk,
-    ``n2`` [1, S] float32 (+inf on pads), ``cmap`` [nq // qt, msteps] int32
-    chunk worklist per tile; for the penalized mode ``biasg`` [nq, G * 128]
-    float32 {0, 1e9}, ``lid`` [1, S] int32 and ``cgroup`` [S // ct] int32.
-    Returns (keys, slots, floor).
+    transposed store whose last chunk is the all-+inf PAD chunk, optionally
+    ``yT_lo`` its lo residual plane (same shape, contiguous), ``n2`` [1, S]
+    float32 (+inf on pads), ``cmap`` [nq // qt, msteps] int32 chunk worklist
+    per tile; for the penalized mode ``biasg`` [nq, G * 128] float32 {0,
+    1e9}, ``lid`` [1, S] int32 and ``cgroup`` [S // ct] int32. Returns
+    (keys, slots, floor).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
-    _check_dyn(xq, yT, n2, cmap, qt, ct)
+    _check_dyn(xq, yT, n2, cmap, qt, ct, yT_lo)
     pen = _check_penalty(biasg, lid, cgroup, xq.shape[0], yT.shape[1], ct)
-    if not _route("K1", (xq, yT, n2, cmap) + pen):
+    lo = () if yT_lo is None else (yT_lo,)
+    if not _route("K1", (xq, yT, n2, cmap) + lo + pen):
         return ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt, ct, biasg, lid,
-                                       cgroup)
+                                       cgroup, yT_lo)
     nq, d_pad = xq.shape
     keys, slots, floor = _lane_outputs(nq, xq.device)
     _launch(
-        "ivf_recon_dyn", xq.data_ptr(), yT.data_ptr(), n2.data_ptr(),
-        cmap.data_ptr(), _ptr(biasg), _ptr(lid), _ptr(cgroup),
+        "ivf_recon_dyn", xq.data_ptr(), yT.data_ptr(), _ptr(yT_lo),
+        n2.data_ptr(), cmap.data_ptr(), _ptr(biasg), _ptr(lid), _ptr(cgroup),
         keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq, d_pad,
         yT.shape[1], cmap.shape[1], qt, ct,
         0 if biasg is None else biasg.shape[1], _stream(xq.device),
     )
     ivf_recon_fused_dyn.launches += 1
     ivf_recon_fused_dyn.penalized_launches += bool(pen)
+    ivf_recon_fused_dyn.hilo_launches += bool(lo)
     return keys, slots, floor
 
 
 ivf_recon_fused_dyn.launches = 0
 ivf_recon_fused_dyn.penalized_launches = 0
+ivf_recon_fused_dyn.hilo_launches = 0
 
 
 def _lane_outputs(nq, device):
@@ -366,13 +383,16 @@ def _tile_topk(score_tile, cmap, qt, ct, nq, device):
 
 
 def ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
-                            lid=None, cgroup=None):
+                            lid=None, cgroup=None, yT_lo=None):
     """Plain PyTorch version of K1's contract: per tile, gather the worklist
-    chunks, score ``n2 - 2 q @ y.float()`` (plus the penalty of the
+    chunks, score ``n2 - 2 q @ (hi + lo).float()`` (plus the penalty of the
     penalized mode) and take ``torch.topk``."""
 
     def score(rows, chunks, idx):
-        sc = n2[0, idx][None, :] - 2.0 * (xq[rows] @ yT[:, idx].float())
+        y = yT[:, idx].float()
+        if yT_lo is not None:
+            y = y + yT_lo[:, idx].float()
+        sc = n2[0, idx][None, :] - 2.0 * (xq[rows] @ y)
         if biasg is not None:
             sc = sc + _bias_terms(biasg, rows, cgroup[chunks], lid[0, idx])
         return sc
@@ -423,17 +443,17 @@ def _check_recon(xq, yT, n2, yT_lo, qt, ct):
     return ld
 
 
-def _check_mask(biasg, lid, yT, yT_lo, nq, S, ct):
-    """K2's masked mode: biasg and lid together, over a whole one-plane
-    store (not a column slice). Returns the tensors of the mode."""
+def _check_mask(biasg, lid, yT, nq, S, ct):
+    """K2's masked mode: biasg and lid together, over a whole store (one
+    plane or hi/lo, not a column slice: ``_check_recon`` gives both planes
+    one row stride). Returns the tensors of the mode."""
     if biasg is None and lid is None:
         return ()
     if biasg is None or lid is None:
         raise ValueError("the masked mode takes biasg and lid together")
-    if yT_lo is not None or yT.stride(0) != S:
+    if yT.stride(0) != S:
         raise ValueError(
-            "the masked mode takes one whole store plane, not a column slice "
-            "or hi/lo planes"
+            "the masked mode takes the whole store, not a column slice"
         )
     _static_cpg(S // ct, _check_bias(biasg, lid, nq, S))
     return biasg, lid
@@ -446,13 +466,13 @@ def ivf_recon_fused(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,
     ``yT_lo`` its lo residual plane (same shape and row stride; both may be
     column slices of a wider store), ``n2`` [1, S] float32 (+inf on pads);
     for the masked mode ``biasg`` [nq, G * 128] float32 {0, 1e9} and ``lid``
-    [1, S] int32 over a whole one-plane store. Returns (keys, slots, floor),
+    [1, S] int32 over a whole store. Returns (keys, slots, floor),
     slots being columns of the given store.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
     ld = _check_recon(xq, yT, n2, yT_lo, qt, ct)
-    mask = _check_mask(biasg, lid, yT, yT_lo, xq.shape[0], yT.shape[1], ct)
+    mask = _check_mask(biasg, lid, yT, xq.shape[0], yT.shape[1], ct)
     planes = (xq, yT, n2) + (() if yT_lo is None else (yT_lo,)) + mask
     if not _route("K2", planes):
         return ivf_recon_fused_ref(xq, yT, n2, yT_lo, qt=qt, ct=ct,
@@ -467,11 +487,13 @@ def ivf_recon_fused(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,
     )
     ivf_recon_fused.launches += 1
     ivf_recon_fused.masked_launches += bool(mask)
+    ivf_recon_fused.hilo_launches += yT_lo is not None
     return keys, slots, floor
 
 
 ivf_recon_fused.launches = 0
 ivf_recon_fused.masked_launches = 0
+ivf_recon_fused.hilo_launches = 0
 
 
 def ivf_recon_fused_ref(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,

@@ -279,7 +279,7 @@ def test_wrappers_check_inputs_and_device():
         ivfpq_fused(*(x.to("meta") for x in (biasg, luts, codesT, n2, lid)),
                     qt=16, ct=ct)
     # the modes of K1 and K2 take their tensors together, K2's on a whole
-    # one-plane store only
+    # store only (one plane, or hi/lo as IVF-Flat stages it)
     xq = torch.zeros(nq, 8)
     yT = torch.zeros(8, S, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="together"):
@@ -289,8 +289,7 @@ def test_wrappers_check_inputs_and_device():
     with pytest.raises(ValueError, match="column slice"):
         ivf_recon_fused(xq, torch.zeros(8, 2 * S, dtype=torch.bfloat16)[:, :S],
                         n2, qt=16, ct=ct, biasg=biasg, lid=lid)
-    with pytest.raises(ValueError, match="column slice"):
-        ivf_recon_fused(xq, yT, n2, yT, qt=16, ct=ct, biasg=biasg, lid=lid)
+    ivf_recon_fused(xq, yT, n2, yT, qt=16, ct=ct, biasg=biasg, lid=lid)
     ivf_recon_fused(xq, yT, n2, qt=16, ct=ct, biasg=biasg, lid=lid)
     ivf_recon_fused_dyn(xq, yT, n2, cmap, 16, ct, biasg=biasg, lid=lid,
                         cgroup=cgroup)

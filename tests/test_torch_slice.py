@@ -15,7 +15,11 @@ from faiss_tpu.models.ivf_pq import (
     _fused_search_rerank_recon_dyn as jax_recon_dyn,
     _unpack_results,
 )
-from faiss_tpu_torch.convert import ivfpq_from_arrays, refine_flat_from_arrays
+from faiss_tpu_torch.convert import (
+    ivfflat_from_arrays,
+    ivfpq_from_arrays,
+    refine_flat_from_arrays,
+)
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 
 D, NLIST, NB, NQ, M, CT, K, KF, MSTEPS = 16, 256, 3000, 512, 4, 256, 10, 4, 4
@@ -110,8 +114,23 @@ def test_slice_matches_reference(built, nprobe, api):
         ).mean()
 
 
+def ivfflat_unported(case, arrays, xq):
+    """Call IVF-Flat's unported option ``case`` on a port index built from
+    the slice's lists and vectors."""
+    cent, _, _, listnos, ids, rows = arrays
+    flat = ivfflat_from_arrays(cent, rows, listnos, ids, device="cpu")
+    if case == "ivfflat_selector":
+        flat.search(xq, K, params=ftt.SearchParametersIVF(sel=object()))
+    elif case == "ivfflat_remove_ids":
+        flat.remove_ids(object())
+    else:
+        ftt.IndexIVFFlat(None, D, NLIST, ftt.METRIC_INNER_PRODUCT, device="cpu")
+
+
 @pytest.mark.parametrize(
-    "case", ["small_batch", "too_many_candidates", "pq8_unrefined"]
+    "case", ["small_batch", "too_many_candidates", "pq8_unrefined",
+             "pq_preassigned", "ivfflat_selector", "ivfflat_remove_ids",
+             "ivfflat_ip_metric"]
 )
 def test_unported_branches_raise(built, case):
     _, arrays, xq, _ = built
@@ -121,7 +140,7 @@ def test_unported_branches_raise(built, case):
         xq = xq[: index.base_index.big_batch_threshold - 1]
     elif case == "too_many_candidates":
         index.k_factor = 13
-    else:  # 8-bit PQ: faiss_tpu's unrefined search takes its XLA ADC path
+    elif case == "pq8_unrefined":  # faiss_tpu's unrefined XLA ADC path
         cent, pq_cent, codes, listnos, ids, _ = arrays
         rs = np.random.RandomState(0)
         index = ivfpq_from_arrays(
@@ -129,7 +148,13 @@ def test_unported_branches_raise(built, case):
             listnos, ids, device="cpu",
         )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.search(xq, K)
+        if case.startswith("ivfflat"):
+            ivfflat_unported(case, arrays, xq)
+        elif case == "pq_preassigned":  # IVF-PQ's per-probe ADC scan
+            index.base_index.search_preassigned(
+                xq, K, np.zeros((len(xq), 1), np.int64), None)
+        else:
+            index.search(xq, K)
 
 
 def test_port_alone_adaptive_worklist_and_streaming():
