@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ported paths once on one CUDA card and check
 them: IVF4096,PQ32x4fs search, refined and unrefined (kernels K1, K2, K4,
-K5, with the penalized mode of K1 and the masked mode of K2), exact flat
-search (K2 and K3), and IVF4096,Flat search (K1 and K2 over hi/lo planes).
+K5, with the penalized mode of K1 and the masked mode of K2), the ADC scan
+over its one-hot layout (K6, bf16 and int8 LUTs), the score-only floor of its
+decoded store (K7), its per-probe and XLA ADC scans, exact flat search (K2
+and K3), IVF4096,Flat search (K1 and K2 over hi/lo planes) and
+IndexIVFPQR IVF4096,PQ8+16: all seven kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. a CUDA card is present; print its name and power limit (nvidia-smi);
-  2. build K1-K5 (faiss_tpu_torch/csrc/*.cu: ivf_recon_dyn, ivf_recon,
-     knn_fused, ivfpq_adc), one nvcc per source, all started together, and
-     print each one's ptxas register lines and dynamic shared memory;
+  2. build K1-K7 (faiss_tpu_torch/csrc/*.cu: ivf_recon_dyn, ivf_recon,
+     knn_fused, ivfpq_adc, ivfpq_v3, recon_floor), one nvcc per source, all
+     started together, and print each one's ptxas register lines and
+     dynamic shared memory;
   3. regenerate the 1M x 128 Gaussian mixture of bench.py (seeds 42, 1, 2, 3);
   4. train and add IndexRefineFlat(IndexIVFPQFastScan(d=128, nlist=4096,
      M=32, nbits=4), store_float16=True) on the card, then stage the search
@@ -42,6 +46,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      in the probed list and agree tie-aware with phase 9;
  12. refined at nprobe = 0 on 2048 queries (K2 unmasked over the decoded
      store);
+ 12a. K6 over the staged layout's data chunks (its trailing PAD chunk
+     breaks K6's nchunks % G == 0): stage the one-hot in bf16 and int8
+     (seconds, GiB); every 2048-query sub-batch through K6 bf16, K6 int8
+     (int8 LUTs with their (a, c) from the float32 LUTs) and K4 on the
+     unmasked coarse term, printing profile_v3's candidate recall (the
+     top-120 slots hold the ground-truth top-10); on the first sub-batch
+     each mode against its plain version, bf16 against K4 (the same
+     function), keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key| and ids
+     tie-aware, int8 on 64 rows against a float64 a * acc + c + bias + n2
+     of its slots; times in turns, K4 too;
+ 12b. K7 over the decoded store on the 8192 queries in 2048-query
+     sub-batches; on the first, against its plain version and the minimum
+     over its lanes against K2's first key (one plane, unmasked), within
+     1e-4 * (|q|^2 + max n2); K7 and K2 timed in turns, and the exact
+     select's share of K2 printed as 1 - K7/K2;
+ 12c. IndexIVFPQ.search by probe (64 queries, nprobe=16, then with
+     max_codes=2000) and through the XLA ADC scan (k=200 on 1024 queries),
+     none launching a kernel: on 64 rows the distances within
+     1e-5 * (|q|^2 + max n2) of float64 (the exact distance to the
+     reconstruction by probe; the XLA scan's own bf16 LUTs, coarse products
+     and norms) and ids tie-aware with float64 over the probed lists;
+     recall@10 of the XLA search; host-clock medians; the XLA scan's two
+     ways to sum the LUT entries (the one-hot product it takes at
+     ksub <= 16, the table gathers above) timed on its inputs;
  13-14. re-staged with recon_scan_max_bytes = 0 (no decoded store): refined
      soft (K5) and refined strict (K4); both mask unprobed lists, so their
      ids agree tie-aware on the rows of phase 11's kind where K5's sub-batch
@@ -104,15 +132,29 @@ median of 5, QPS and recall@10 against bench_gt_cache.npz:
      plain versions (keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|, ids
      tie-aware), timed by CUDA events in turns; each mode must have
      launched on the path; peak device memory of the IVF-Flat phases.
+ 31. IndexIVFPQR "IVF4096,PQ8+16" (PQ8 and a refine PQ16, both 8-bit)
+     trained (20 k-means iterations) and added on the card; the 8192
+     queries at nprobe=16, k_factor=4 (the XLA ADC scan: ksub = 256; no
+     kernel), with train and add seconds, host-clock median of 5, QPS and
+     recall@10 (no limit); 64 rows of the re-rank against float64 distances
+     to the refined reconstruction of their 40 candidates (within
+     1e-5 * (|q|^2 + max |x|^2), ids tie-aware).
 The last two lines are the card's name and power limit, then the result
 line {"ok": true, "device": {...}}; the kernels' JSON line comes before. Each
 kernel's entry there carries its bound, counted from this run's inputs: the
 larger of the time of its operations and the time of its bytes (inputs read
-once, both store planes with hi/lo, outputs written once) over 3.35 TB/s. The recon kernels' operations
-are float32 FMAs over 67 TFLOP/s; the ADC kernels' are, whichever takes
-longer, their float32 adds over 33.5 T/s or their shared-memory LUT lookups
-at 32 a clock per SM at the card's max SM clock. Rates are an H100 SXM's
-peaks at 700 W; only the slots that hold a vector are counted.
+once, both store planes with hi/lo, outputs written once) over 3.35 TB/s.
+The operations are those of the tensor-core product that computes the same
+keys: for the recon kernels over a bf16 store (K1, K2, K7) the float32
+query as bf16 hi + lo against each plane at 989 TFLOP/s; for the ADC
+kernels (K4-K6) the contraction of the LUTs with the one-hot of the codes
+(M * 16 rows in the LUTs' type, bf16 at 989 TFLOP/s or int8 at 1979 TOP/s)
+and of the coarse term, as bf16 hi + lo, with the 128 local-list rows. K3
+scores a float32 store exactly: float32 FMAs at 67 TFLOP/s. Rates are an
+H100 SXM's dense peaks at 700 W; only the slots that hold a vector are
+counted (K6's bytes count its one-hot). Phase 12a also prints the bound of
+K4's and K6's own design, M + 1 shared-memory LUT lookups per key at 32 a
+clock per SM, as a note.
 """
 
 import functools
@@ -189,18 +231,20 @@ def host_median(fn, n=5):
 def reset_counts(fused_knn):
     for f in (fused_knn.ivf_recon_fused_dyn, fused_knn.ivf_recon_fused,
               fused_knn.knn_fused, fused_knn.ivfpq_fused,
-              fused_knn.ivfpq_fused_dyn):
+              fused_knn.ivfpq_fused_dyn, fused_knn.ivfpq_fused_v3,
+              fused_knn.recon_floor):
         f.launches = 0
+    fused_knn.ivfpq_fused_v3.int8_launches = 0
     fused_knn.ivf_recon_fused_dyn.penalized_launches = 0
     fused_knn.ivf_recon_fused.masked_launches = 0
     fused_knn.ivf_recon_fused_dyn.hilo_launches = 0
     fused_knn.ivf_recon_fused.hilo_launches = 0
 
 
-# H100 SXM at 700 W, datasheet peaks: float32 outside the tensor
-# cores, an FMA counted as 2 operations (so PEAK_FLOPS / 2 float32 adds a
-# second); HBM bytes per second
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM at 700 W, datasheet dense peaks: float32 outside the tensor
+# cores, bf16 and int8 on them, an FMA counted as 2 operations; HBM bytes
+# per second
+PEAK_FLOPS, PEAK_BF16, PEAK_INT8, PEAK_BYTES = 67e12, 989e12, 1979e12, 3.35e12
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,16 +263,25 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def ops_s(store, keys):
-    """Seconds of a scan's operations over ``keys`` (query, slot) pairs. A
-    recon store (bf16 [d_pad, S]): an FMA per dimension. A code store
-    (uint8 [M, S]): M + 1 shared-memory lookups (the LUT entries and the
-    bias) at lookup_rate() and M + 2 float32 adds at PEAK_FLOPS / 2, the
-    larger."""
+def ops_s(store, keys, planes=1, int8=False):
+    """Seconds of a scan's operations over ``keys`` (query, slot) pairs, as
+    the tensor-core product that computes the same keys. A recon store
+    (bf16 [d_pad, S], ``planes`` of it: 2 with hi/lo): the float32 query as
+    bf16 hi + lo against each plane, 2 * planes bf16 products of d_pad. A
+    code store (uint8 [M, S] of 4-bit codes): K6's contraction, the LUTs
+    (bf16, or int8 with ``int8``) against the M * 16 one-hot rows, plus the
+    coarse term as bf16 hi + lo against the 128 local-list rows."""
     if store.dtype != torch.uint8:
-        return keys * 2 * store.shape[0] / PEAK_FLOPS
-    M = store.shape[0]
-    return max(keys * (M + 1) / lookup_rate(), keys * (M + 2) / (PEAK_FLOPS / 2))
+        return keys * 2 * store.shape[0] * 2 * planes / PEAK_BF16
+    pq = keys * 2 * store.shape[0] * 16 / (PEAK_INT8 if int8 else PEAK_BF16)
+    return pq + keys * 2 * 2 * 128 / PEAK_BF16
+
+
+def lookup_s(codes, keys):
+    """Seconds of K4's and K6's own design over ``keys`` pairs: M + 1
+    shared-memory lookups per key (the LUT entries and the bias) at
+    lookup_rate(). A note beside the bound, not the bound."""
+    return keys * (codes.shape[0] + 1) / lookup_rate()
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, t_ops, nbyt):
@@ -375,7 +428,7 @@ def dyn_cost(br, cmap, qt, store, per_query, lid, planes=1):
     union = int(torch.unique(cmap[real]).numel()) * ct
     per_col = planes * store.shape[0] * store.element_size() + 4 + 4 * lid
     nq = cmap.shape[0] * qt
-    return (ops_s(store, keys),
+    return (ops_s(store, keys, planes),
             union * per_col + nbytes(cmap, *per_query) + 3 * nq * 512)
 
 
@@ -387,7 +440,7 @@ def scan_cost(store, n2s, nq, per_query, lid, planes=1):
     S = store.shape[1]
     per_col = planes * store.shape[0] * store.element_size() + 4 + 4 * lid
     keys = nq * int(torch.isfinite(n2s).sum())
-    return (ops_s(store, keys),
+    return (ops_s(store, keys, planes),
             S * per_col + nbytes(*per_query) + 3 * nq * 512)
 
 
@@ -686,6 +739,12 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
     time_search("refined nprobe=0 (K2)", lambda: index.search(xq[:nq0], K), nq0)
     base.nprobe = NPROBE
 
+    # 12a-12c. K6 and K7 on the staged layout, then the per-probe and XLA
+    # ADC scans of the same index
+    out += onehot_adc_phases(fused_knn, base, br, xq, gt, dev)
+    out.append(floor_phase(fused_knn, base, br, xq_all, dev))
+    probe_and_xla_phases(fused_knn, base, br, xq, gt, dev)
+
     # 13-14. without the decoded store: soft (K5) and strict (K4)
     base.recon_scan_max_bytes = 0
     base._brute = None
@@ -722,6 +781,395 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
 
     # K2's entry (flat_phases) adds phase 12's unmasked launches and error
     return out, (k2_ivf_launches, k2_err)
+
+
+def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
+    """Phase 12a: K6 over the staged layout's data chunks (the trailing PAD
+    chunk, which holds no vector, breaks K6's nchunks % G == 0), bf16 and
+    int8 LUTs, on the unmasked coarse term. Returns the entries of its two
+    modes in the kernels' JSON line."""
+    from faiss_tpu_torch.models import ivf_pq as P
+    from faiss_tpu_torch.ops import quantize_lut as Q
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    ct, nch, ksub = base.FUSED_CT, br["nchunks"], base.pq.ksub
+    G = br["cn2g"].shape[0] // 128
+    check(nch % G == 0 and (nch + 1) % G,
+          f"expected {nch} data chunks in {G} groups, + 1 PAD chunk that breaks them")
+    Sd = nch * ct
+    codesT = br["codesT"][:, :Sd].contiguous()
+    n2 = br["n2s"][:, :Sd].contiguous()
+    lid = br["lid"][:, :Sd].contiguous()
+    oh = {}
+    for int8 in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        oh[int8] = Q.expand_onehot(codesT, lid, ksub, int8)
+        torch.cuda.synchronize()
+        print(f"12a. ohT ({'int8' if int8 else 'bf16'}) {tuple(oh[int8].shape)} "
+              f"staged in {(time.time() - t0) * 1e3:.1f} ms, "
+              f"{nbytes(oh[int8]) / 2**30:.2f} GiB", flush=True)
+    xq_all = torch.from_numpy(xq).to(dev)
+    zero_meta = torch.zeros(BATCH, 256, device=dev)
+    kw = dict(qt=256, ct=ct, ksub=ksub)
+
+    def args(x, int8):
+        """K6's inputs for the queries x: the unmasked coarse term, and the
+        bf16 LUTs, or the int8 LUTs quantized from the float32 ones with
+        their (a, c) meta."""
+        biasg = P._masked_coarse_bias(x, br["centroids_g"], br["cn2g"], 0)
+        if not int8:
+            return biasg, P._adc_luts(x, br["cbt"]), zero_meta, oh[False], n2
+        lf = -2.0 * (x @ br["cbt"])
+        q8, meta = Q.quantize_luts_int8(lf.view(len(x), -1, ksub))
+        return biasg, q8, meta, oh[True], n2
+
+    # the path: every 2048-query sub-batch through both modes, and K4 over
+    # the same codes, with profile_v3's candidate recall
+    reset_counts(fused_knn)
+    cand = {"K4": [], "K6 bf16": [], "K6 int8": []}
+    for s0 in range(0, NQ, BATCH):
+        x = xq_all[s0 : s0 + BATCH]
+        for int8 in (False, True):
+            cand[f"K6 {'int8' if int8 else 'bf16'}"].append(
+                fused_knn.ivfpq_fused_v3(*args(x, int8), **kw)[1])
+        a = args(x, False)
+        cand["K4"].append(fused_knn.ivfpq_fused(a[0], a[1], codesT, n2, lid,
+                                                qt=256, ct=ct)[1])
+    torch.cuda.synchronize()
+    v3 = fused_knn.ivfpq_fused_v3
+    launches = {False: v3.launches - v3.int8_launches, True: v3.int8_launches}
+    check(all(launches.values()), f"K6 launches by mode (int8?) {launches}")
+    sm = br["slot_map"]
+    for name, parts in cand.items():
+        sl = torch.cat(parts)[:, :120].cpu().numpy()
+        pos = np.where(sl >= 0, sm[np.maximum(sl, 0)], -1)
+        ids = np.where(pos >= 0, base._ids_host[np.maximum(pos, 0)], -1)
+        hit = np.mean([len(np.intersect1d(ids[i], gt[i, :K])) for i in range(NQ)])
+        print(f"12a. {name}: candidate recall@10 (the top-120 slots hold the "
+              f"ground-truth top-10) {hit / K:.4f} over {NQ} queries", flush=True)
+
+    # the first sub-batch: each mode against its plain version, bf16 against
+    # K4, int8 against float64
+    x = xq_all[:BATCH]
+    qn2 = x.square().sum(1).cpu().numpy()
+    n2h = n2[0].cpu().numpy()
+    res = {}
+    for int8 in (False, True):
+        a = args(x, int8)
+        res[int8] = kernel_check(
+            fused_knn, f"K6 {'int8' if int8 else 'bf16'} [{BATCH} q x {Sd} slots]",
+            lambda a=a: fused_knn.ivfpq_fused_v3(*a, **kw),
+            lambda a=a: fused_knn.ivfpq_fused_v3_ref(*a, **kw), qn2, n2h, 3)
+    a = args(x, False)
+    a4 = (a[0], a[1], codesT, n2, lid)
+    kb, sb, _ = fused_knn.ivfpq_fused_v3(*a, **kw)
+    k4, s4, _ = fused_knn.ivfpq_fused(*a4, qt=256, ct=ct)
+    torch.cuda.synchronize()
+    tol = lane_tol(qn2, n2h, k4.cpu().numpy(), s4.cpu().numpy())
+    e = compare_lanes(kb, sb, k4, s4, tol, "K6 bf16 vs K4", ids_agree_tie_aware)
+    ms4, pms4, t = turns(lambda: fused_knn.ivfpq_fused_ref(*a4, qt=256, ct=ct),
+                         lambda: fused_knn.ivfpq_fused(*a4, qt=256, ct=ct), 3)
+    print(f"K6 bf16 equals K4 on the same inputs (max_abs_err {e:.3e}, ids agree "
+          f"on all rows); K4 {t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / "
+          f"{t[3]:.2f} ms per {BATCH}-query sub-batch over the data chunks",
+          flush=True)
+    a = args(x, True)
+    k8, s8, _ = fused_knn.ivfpq_fused_v3(*a, **kw)
+    r = EXACT_ROWS
+    p = s8[:r].long().clamp_min(0)
+    valid = (s8[:r] >= 0).cpu().numpy()
+    codes = codesT.long()
+    q8 = a[1][:r].long()
+    acc = sum(q8.gather(1, codes[m][p] + m * ksub) for m in range(codes.shape[0]))
+    lane = p % 128
+    cpg = nch // G
+    bias = a[0][:r].gather(1, (p // ct // cpg) * 128 + lid[0][p].long())
+    key64 = (a[2][:r].gather(1, lane).double() * acc.double()
+             + a[2][:r].gather(1, 128 + lane).double() + bias.double()
+             + n2[0][p].double()).cpu().numpy()
+    err = np.abs(np.where(valid, k8[:r].cpu().numpy() - key64, 0))
+    tol = lane_tol(qn2[:r], n2h, key64, np.where(valid, p.cpu().numpy(), -1))
+    check((err <= tol).all(), f"K6 int8: keys differ from float64 by {err.max():.3e}")
+    print(f"K6 int8: {r} rows equal a float64 a * acc + c + bias + n2 of their "
+          f"slots (max err {err.max():.3e})", flush=True)
+    held = int(torch.isfinite(n2).sum())
+    out = []
+    for int8 in (False, True):
+        a = args(x, int8)
+        read = a[:2] + a[3:] + ((a[2],) if int8 else ())  # meta in int8 mode
+        out.append(entry(
+            f"ivfpq_fused_v3[{'int8' if int8 else 'bf16'}]",
+            "faiss_tpu_torch/csrc/ivfpq_v3.cu", "faiss_tpu/ops/pallas_knn.py:778",
+            launches[int8], *res[int8], ops_s(codesT, BATCH * held, int8=int8),
+            nbytes(*read) + 3 * BATCH * 512))
+    print(f"12a. K4's and K6's own design, M + 1 shared-memory lookups per key "
+          f"at 32 a clock per SM, takes at least "
+          f"{lookup_s(codesT, BATCH * held) * 1e3:.2f} ms per {BATCH}-query "
+          f"sub-batch (a note; the bounds are the tensor-core contraction's, "
+          f"{out[0]['bound_ms']:.2f} ms bf16, {out[1]['bound_ms']:.2f} ms int8)",
+          flush=True)
+    del oh
+    return out
+
+
+def floor_phase(fused_knn, base, br, xq_all, dev):
+    """Phase 12b: K7 over the decoded store, against its plain version and
+    K2's first key, and timed beside K2 (one plane, unmasked) on the same
+    sub-batch. Returns its entry in the kernels' JSON line."""
+    from faiss_tpu_torch.models import ivf_pq as P
+
+    yT, n2s = br["yT"], br["n2s"]
+    kw = dict(qt=256, ct=base.FUSED_CT)
+    reset_counts(fused_knn)
+    outs = [fused_knn.recon_floor(P._pad_dims(xq_all[s0 : s0 + BATCH], br), yT,
+                                  n2s, **kw) for s0 in range(0, NQ, BATCH)]
+    torch.cuda.synchronize()
+    launches = fused_knn.recon_floor.launches
+    check(launches > 0, "K7's path launched it no time")
+    fl = torch.cat(outs)
+    check(tuple(fl.shape) == (NQ, 128) and bool(torch.isfinite(fl).all()),
+          "K7: a lane without a finite key")
+    xp = P._pad_dims(xq_all[:BATCH], br)
+    got = fused_knn.recon_floor(xp, yT, n2s, **kw)
+    want = fused_knn.recon_floor_ref(xp, yT, n2s, **kw)
+    k2 = fused_knn.ivf_recon_fused(xp, yT, n2s, **kw)[0][:, 0]
+    torch.cuda.synchronize()
+    n2max = float(n2s[torch.isfinite(n2s)].max())
+    tol = 1e-4 * (xp.square().sum(1) + n2max)
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= tol[:, None]).all()),
+          f"K7 differs from its plain version by {err:.3e}")
+    e2 = float((got.min(1).values - k2).abs().max())
+    check(bool(((got.min(1).values - k2).abs() <= tol).all()),
+          f"K7: the minimum over the lanes differs from K2's first key by {e2:.3e}")
+    check(bool((got == fl[:BATCH]).all()), "K7 differs between two launches")
+    ms, plain_ms, t = turns(lambda: fused_knn.recon_floor_ref(xp, yT, n2s, **kw),
+                            lambda: fused_knn.recon_floor(xp, yT, n2s, **kw), 3)
+    print(f"12b. K7 vs plain [{BATCH} q x {yT.shape[1]} columns]: max_abs_err "
+          f"{err:.3e}; min over lanes vs K2's first key {e2:.3e}; {t[1]:.2f} / "
+          f"{t[2]:.2f} ms, plain {t[0]:.2f} / {t[3]:.2f} ms", flush=True)
+    k7f = lambda: fused_knn.recon_floor(xp, yT, n2s, **kw)  # noqa: E731
+    k2f = lambda: fused_knn.ivf_recon_fused(xp, yT, n2s, **kw)  # noqa: E731
+    tt = [cuda_ms(f, 2) for f in (k7f, k2f, k2f, k7f)]
+    k7ms, k2ms = (tt[0] + tt[3]) / 2, (tt[1] + tt[2]) / 2
+    print(f"12b. K7 {tt[0]:.2f} / {tt[3]:.2f} ms, K2 one plane {tt[1]:.2f} / "
+          f"{tt[2]:.2f} ms on the same {BATCH} queries: the exact select takes "
+          f"1 - K7/K2 = {1 - k7ms / k2ms:.3f} of K2", flush=True)
+    held = int(torch.isfinite(n2s).sum())
+    return entry("recon_floor", "faiss_tpu_torch/csrc/recon_floor.cu",
+                 "benchs/archive/exp_r3c.py:106", launches, err, ms, plain_ms,
+                 ops_s(yT, BATCH * held), nbytes(yT, n2s, xp) + BATCH * 512)
+
+
+def total_launches(fused_knn):
+    return sum(f.launches for f in (
+        fused_knn.ivf_recon_fused_dyn, fused_knn.ivf_recon_fused,
+        fused_knn.knn_fused, fused_knn.ivfpq_fused, fused_knn.ivfpq_fused_dyn,
+        fused_knn.ivfpq_fused_v3, fused_knn.recon_floor))
+
+
+def no_kernel(fused_knn, what, fn):
+    """Run fn with every count set to 0 just before and read just after: a
+    path of plain torch ops must have launched no kernel."""
+    reset_counts(fused_knn)
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    check(total_launches(fused_knn) == 0, f"{what} launched a kernel")
+    print(f"{what}: {time.time() - t0:.3f} s (first call), no kernel", flush=True)
+    return out
+
+
+def probe_and_xla_phases(fused_knn, base, br, xq, gt, dev):
+    """Phase 12c: the per-probe ADC scan (64 queries, nprobe 16, with and
+    without max_codes) and the XLA ADC scan (k = 200 on 1024 queries) of
+    the same index, each on 64 rows against float64."""
+    from faiss_tpu_torch.ops import pq_ops
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+
+    listnos = base._listnos_host
+    order = np.argsort(listnos, kind="stable")
+    sizes = np.bincount(listnos, minlength=NLIST)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    xq_all = torch.from_numpy(xq).to(dev)
+    x64 = xq_all.double()
+    cent64 = br["centroids"].double()
+    cb64 = base.pq._dev().double()
+    qn2 = x64.square().sum(1).cpu().numpy()
+    tol = 1e-5 * (qn2 + float(br["n2"].max()))
+    nprobe = 16
+
+    def slots_of(lists):
+        return np.concatenate([order[offs[li] : offs[li + 1]] for li in lists if li >= 0])
+
+    def agree(Dx, Ix, key64, lists, what):
+        """Rows 0..EXACT_ROWS-1: distances of the returned slots within tol
+        of ``key64(q, slots)``, ids up to ties with its best over the
+        row's lists."""
+        k, err = Dx.shape[1], 0.0
+        for q in range(EXACT_ROWS):
+            sl = slots_of(lists[q])
+            d = key64(q, sl)
+            o = np.argsort(d, kind="stable")[:k]
+            want_d = np.full(k, np.inf)
+            want_i = np.full(k, -1, np.int64)
+            want_d[: len(o)], want_i[: len(o)] = d[o], base._ids_host[sl[o]]
+            got = Ix[q] >= 0
+            check((got == np.isfinite(want_d)).all(),
+                  f"{what}: row {q} returns {int(got.sum())} results of {len(sl)}")
+            e = np.abs(Dx[q][got] - key64(q, base._slots_of_ids(Ix[q][got])))
+            check((e <= tol[q]).all(), f"{what}: row {q} distances differ from "
+                                       f"float64 by {e.max():.3e}")
+            check(ids_agree_tie_aware(np.where(got, want_d, 1e30)[None], want_i[None],
+                                      np.where(got, Dx[q], 1e30)[None], Ix[q][None],
+                                      tol[q]).all(),
+                  f"{what}: row {q} ids differ from float64 beyond ties")
+            err = max(err, float(e.max()) if e.size else 0.0)
+        print(f"{what}: {EXACT_ROWS} rows match float64 over the probed lists "
+              f"(max err {err:.3e})", flush=True)
+
+    def recon_key64(q, sl):
+        """||q - (c + y)||^2 in float64: the exact distance to the
+        reconstruction, which the per-probe scan's tables decompose."""
+        s = torch.from_numpy(sl).to(dev)
+        rec = cent64[br["listnos"][s]] + pq_ops.pq_decode(br["codes"][s], cb64)
+        return (rec - x64[q]).square().sum(1).cpu().numpy()
+
+    base.nprobe = nprobe
+    x128 = torch.zeros(128, D, device=dev)
+    x128[:64] = xq_all[:64]
+    lists = base._coarse_search(x128, nprobe)[1][:64].cpu().numpy()
+    D1, I1 = no_kernel(fused_knn, f"12c. by probe: 64 queries, nprobe={nprobe}",
+                       lambda: base.search(xq[:64], K))
+    agree(D1, I1, recon_key64, lists, "by probe, 64 queries")
+    time_search("12c. by probe (64 queries)", lambda: base.search(xq[:64], K), 64)
+    base.max_codes = 2000
+    D2, I2 = no_kernel(fused_knn, "12c. by probe, max_codes=2000",
+                       lambda: base.search(xq[:64], K))
+    cum = np.cumsum(sizes[lists], axis=1)
+    keep = np.concatenate([np.ones((64, 1), bool), cum[:, :-1] < 2000], axis=1)
+    print(f"max_codes=2000 keeps {keep.sum(1).mean():.2f} of {nprobe} lists per "
+          "query", flush=True)
+    agree(D2, I2, recon_key64, np.where(keep, lists, -1), "by probe, max_codes=2000")
+    time_search("12c. by probe, max_codes=2000", lambda: base.search(xq[:64], K), 64)
+    base.max_codes = 0
+
+    # unrefined k = 200: the XLA ADC scan, against a float64 ADC of its own
+    # bf16 LUTs, coarse products and slot norms
+    nq3, k3 = 1024, 200
+    x3 = xq_all[:nq3]
+    luts = (-2.0 * pq_ops.pq_ip_tables(x3, base.pq._dev())).to(torch.bfloat16)
+    lut64 = luts.double()
+    cent = br["centroids"]
+    key = cent.square().sum(-1)[None, :] - 2.0 * (x3 @ cent.T)
+    lists3 = torch.topk(key, nprobe, largest=False).indices.cpu().numpy()
+    n2d = br["n2"].double()
+    M_ = base.pq.M
+
+    def adc_key64(q, sl):
+        s = torch.from_numpy(sl).to(dev)
+        codes = br["codes"][s].long()
+        ip = sum(lut64[q, m][codes[:, m]] for m in range(M_))
+        coarse = x64[q] @ cent64[br["listnos"][s]].T
+        return (qn2[q] + n2d[s] - 2.0 * coarse + ip).cpu().numpy()
+
+    D3, I3 = no_kernel(fused_knn, f"12c. unrefined k={k3}, {nq3} queries, "
+                       f"nprobe={nprobe} (XLA ADC)", lambda: base.search(xq[:nq3], k3))
+    check(D3.shape == I3.shape == (nq3, k3), f"k={k3} result shape {D3.shape}")
+    agree(D3, I3, adc_key64, lists3, f"unrefined k={k3} (XLA ADC)")
+    print(f"unrefined k={k3}: recall@10 {recall_at_k(I3, gt[:nq3], K):.4f}",
+          flush=True)
+
+    # the XLA scan's two ways to sum 4-bit LUT entries, on these inputs: the
+    # one-hot product it takes at ksub <= 16, and the table gathers it takes
+    # above
+    lb = luts.float()
+    flat = lb.reshape(nq3, -1)
+    ch = 1 << 16
+    codes_all = br["codes"]
+
+    def by_onehot():
+        for c0 in range(0, len(codes_all), ch):
+            flat @ pq_ops.codes_onehot(codes_all[c0 : c0 + ch], lb.shape[2],
+                                       torch.float32).T
+
+    def by_gathers():
+        for c0 in range(0, len(codes_all), ch):
+            pq_ops.adc_scores_gather(lb, codes_all[c0 : c0 + ch])
+
+    c0s = codes_all[:ch]
+    e = float((flat @ pq_ops.codes_onehot(c0s, lb.shape[2], torch.float32).T
+               - pq_ops.adc_scores_gather(lb, c0s)).abs().max())
+    t = [cuda_ms(f, 1) for f in (by_onehot, by_gathers, by_gathers, by_onehot)]
+    print(f"12c. the XLA scan's LUT sums over {nq3} q x {len(codes_all)} codes "
+          f"(M={M_}, ksub={lb.shape[2]}): one-hot product {t[0]:.2f} / {t[3]:.2f} "
+          f"ms, table gathers {t[1]:.2f} / {t[2]:.2f} ms (max difference on the "
+          f"first chunk {e:.3e})", flush=True)
+    time_search(f"12c. unrefined k={k3} (XLA ADC)", lambda: base.search(xq[:nq3], k3),
+                nq3)
+    base.nprobe = NPROBE
+
+
+def ivfpqr_phase(ft, fused_knn, xb, xt, xq, gt, dev):
+    """Phase 31: IndexIVFPQR "IVF4096,PQ8+16" (faiss's factory name: PQ8 at
+    8 bits, refine PQ16 at 8 bits) trained and added on the card; the
+    search of the 8192 queries at nprobe 16 with k_factor 4 (its big batch
+    takes the XLA ADC scan, ksub = 256), and 64 rows of its re-rank against
+    float64 distances to the refined reconstruction."""
+    from faiss_tpu_torch.ops import pq_ops
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+
+    torch.cuda.reset_peak_memory_stats()
+    index = ft.IndexIVFPQR(None, D, NLIST, 8, 8, 16, 8, device=dev)
+    index.cp.niter = NITER
+    took = []
+    for step in (lambda: index.train(xt), lambda: index.add(xb)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        took.append(time.time() - t0)
+    index.nprobe, index.k_factor = 16, 4
+    Dr, Ir = no_kernel(fused_knn, "31. IndexIVFPQR IVF4096,PQ8+16 search, nprobe=16",
+                       lambda: index.search(xq, K))
+    check(Dr.shape == Ir.shape == (NQ, K) and (Ir >= 0).all()
+          and np.isfinite(Dr).all(), "IVFPQR: missing results")
+    med, times = host_median(lambda: index.search(xq, K))
+    print(f"31. IndexIVFPQR: train {took[0]:.2f} s, add {took[1]:.2f} s; search of "
+          f"{NQ} queries median {med * 1e3:.1f} ms over 5 "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> {NQ / med:.0f} QPS; "
+          f"recall@10 {recall_at_k(Ir, gt, K):.4f}", flush=True)
+    # the candidates of the same path, re-ranked in float64
+    kc = K * index.k_factor
+    _, Ic = ft.IndexIVFPQ.search(index, xq, kc)
+    cent64 = torch.from_numpy(index.quantizer.vectors()).to(dev).double()
+    cb64, rcb64 = index.pq._dev().double(), index.refine_pq._dev().double()
+    x64 = torch.from_numpy(xq[:EXACT_ROWS]).to(dev).double()
+    tol = 1e-5 * (x64.square().sum(1).cpu().numpy()
+                  + float((xb.astype(np.float64) ** 2).sum(1).max()))
+    err = 0.0
+    for q in range(EXACT_ROWS):
+        ids = Ic[q][Ic[q] >= 0]
+        sl = index._slots_of_ids(ids)
+        rec = (cent64[torch.from_numpy(index._listnos_host[sl].astype(np.int64)).to(dev)]
+               + pq_ops.pq_decode(torch.from_numpy(index._codes_host[sl]).to(dev), cb64)
+               + pq_ops.pq_decode(torch.from_numpy(index._refine_codes[sl]).to(dev),
+                                  rcb64))
+        d = (rec - x64[q]).square().sum(1).cpu().numpy()
+        o = np.argsort(d, kind="stable")[:K]
+        at = {int(i): j for j, i in enumerate(ids)}
+        check(all(int(i) in at for i in Ir[q]), f"IVFPQR: row {q} returns a non-candidate")
+        e = np.abs(Dr[q] - d[[at[int(i)] for i in Ir[q]]])
+        check((e <= tol[q]).all(), f"IVFPQR: row {q} differs from float64 by {e.max():.3e}")
+        check(ids_agree_tie_aware(d[o][None], ids[o][None], Dr[q][None], Ir[q][None],
+                                  tol[q]).all(),
+              f"IVFPQR: row {q} re-rank differs from float64 beyond ties")
+        err = max(err, float(e.max()))
+    print(f"IVFPQR: {EXACT_ROWS} rows of the re-rank match float64 distances to the "
+          f"refined reconstruction of their {kc} candidates (max err {err:.3e}); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
 
 
 class Exact:
@@ -952,10 +1400,10 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
           flush=True)
     # K3 has one entry per k_lanes the path runs: it beats its plain version
     # at 128 and loses to it at 2048
-    # K2 hi/lo: an FMA per dimension, column and query; both planes, n2
+    # K2 hi/lo: every column and query (ops_s, two planes); both planes, n2
     # and the queries read once
     S2 = yT_hi.shape[1]
-    k2_cost = (2 * 4096 * S2 * yT_hi.shape[0] / PEAK_FLOPS,
+    k2_cost = (ops_s(yT_hi, 4096 * S2, planes=2),
                nbytes(yT_hi, yT_lo, n2s, xq4k) + 3 * 4096 * 512)
     return [
         entry("ivf_recon_fused", "faiss_tpu_torch/csrc/ivf_recon.cu",
@@ -1241,6 +1689,11 @@ def main():
         "ivf_recon_dyn": lambda lib: f"{lib.ivf_recon_dyn_smem_bytes(D)}",
         "ivf_recon": lambda lib: f"{lib.ivf_recon_smem_bytes(D)}",
         "ivfpq_adc": lambda lib: f"{lib.ivfpq_adc_smem_bytes(M * (1 << NBITS))}",
+        "ivfpq_v3": lambda lib: ", ".join(
+            f"{lib.ivfpq_v3_smem_bytes(M * (1 << NBITS), i)} ({m})"
+            for i, m in ((0, "bf16"), (1, "int8"))
+        ),
+        "recon_floor": lambda lib: f"{lib.recon_floor_smem_bytes(D)}",
         "knn_fused": lambda lib: ", ".join(
             f"{lib.knn_fused_smem_bytes(D, kl)} (k_lanes {kl})" for kl in (128, 2048)
         ),
@@ -1269,6 +1722,8 @@ def main():
     ivfflat, k2_hilo = ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_hilo
     kernels += ivfflat
+    torch.cuda.empty_cache()
+    ivfpqr_phase(ft, fused_knn, xb, xt, xq, gt, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,12 +9,14 @@ under ``csrc/``, built with nvcc at first use. Every index takes an explicit
 
 Ported so far:
 
-  - IVF-PQ FastScan big-batch search — ``IndexIVFPQFastScan`` with
-    ``train``, ``add`` and the unrefined ``search`` (nq >= 128, k <= 128),
-    and ``IndexRefineFlat(IndexIVFPQFastScan(...), store_float16=True)``
-    with ``search`` and ``search_submit``/``search_collect`` at any nprobe,
+  - IVF-PQ search — ``IndexIVFPQ`` (4 or 8 bits, by residual or not) and
+    ``IndexIVFPQFastScan`` with ``train``, ``add``, ``search`` (big batches
+    through the ADC kernels or the exhaustive ADC scan, everything else by
+    probe) and ``search_preassigned``; ``IndexRefineFlat`` over them with
+    ``search`` and ``search_submit``/``search_collect`` at any nprobe,
     with strict probing (the default) or soft probing, over the bf16
-    decoded store or, beyond ``recon_scan_max_bytes``, the codes;
+    decoded store or, beyond ``recon_scan_max_bytes``, the codes; and
+    ``IndexIVFPQR``;
   - exact flat search — ``IndexFlatL2`` and ``IndexFlatIP`` with ``add``,
     ``search`` and ``search_submit``/``search_collect`` for k <= 2048 through
     the bf16 hi/lo screen, the striped large-k screen and the fused exact
@@ -41,6 +43,10 @@ from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F4
 from .models.flat import IndexFlat, IndexFlatIP, IndexFlatL2  # noqa: E402,F401
 from .models.ivf import IndexIVF, SearchParametersIVF  # noqa: E402,F401
 from .models.ivf_flat import IndexIVFFlat  # noqa: E402,F401
-from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan  # noqa: E402,F401
+from .models.ivf_pq import (  # noqa: E402,F401
+    IndexIVFPQ,
+    IndexIVFPQFastScan,
+    IndexIVFPQR,
+)
 from .models.meta import IndexRefine, IndexRefineFlat  # noqa: E402,F401
 from .utils.evaluation import recall_at_k  # noqa: E402,F401

@@ -12,10 +12,17 @@ the state is ``flat.vectors()`` and its metric; for a faiss_tpu
         base._listnos_host, base._ids_host, ref.refine_index.vectors(),
         device=..., store_float16=True)
 
-and for a faiss_tpu ``IndexIVFFlat`` named ``ivf``::
+for a faiss_tpu ``IndexIVFFlat`` named ``ivf``::
 
     ivfflat_from_arrays(ivf.quantizer.vectors(), ivf._codes_host,
                         ivf._listnos_host, ivf._ids_host, device=...)
+
+and for a faiss_tpu ``IndexIVFPQR`` named ``pqr``::
+
+    ivfpqr_from_arrays(pqr.quantizer.vectors(), pqr.pq.centroids,
+                       pqr._codes_host, pqr._listnos_host, pqr._ids_host,
+                       pqr.refine_pq.centroids, pqr._refine_codes,
+                       device=...)
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import numpy as np
 from .metric import MetricType
 from .models.flat import IndexFlat, IndexFlatL2
 from .models.ivf_flat import IndexIVFFlat
-from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan
+from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
 from .models.meta import IndexRefineFlat
 
 
@@ -69,26 +76,60 @@ def ivfflat_from_arrays(centroids, xb, listnos, ids, *, device) -> IndexIVFFlat:
     return index
 
 
-def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device
-                      ) -> IndexIVFPQ:
-    """IndexIVFPQ (IndexIVFPQFastScan when nbits = 4) from coarse centroids
-    [nlist, d], PQ codebooks [M, ksub, dsub], unpacked codes [n, M] uint8,
-    coarse list numbers [n] and ids [n]."""
+def _pq_state(pq_centroids, codes):
+    """(codebooks float32 [M, ksub, dsub], codes uint8 [n, M], nbits)."""
     pq_centroids = np.ascontiguousarray(pq_centroids, np.float32)
     codes = np.ascontiguousarray(codes, np.uint8)
+    M, ksub, _ = pq_centroids.shape
+    if codes.ndim != 2 or codes.shape[1] != M:
+        raise ValueError(f"codes must be [n, M={M}], got shape {codes.shape}")
+    return pq_centroids, codes, ksub.bit_length() - 1
+
+
+def _ivfpq(cls, centroids, pq_centroids, codes, listnos, ids, device, *extra):
+    """A trained ``cls`` holding the coarse and PQ state; returns
+    (index, codes, listnos, ids) for the caller to add."""
+    pq_centroids, codes, nbits = _pq_state(pq_centroids, codes)
     centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
     nlist, d = centroids.shape
-    M, ksub, _ = pq_centroids.shape
-    if codes.shape != (len(codes), M):
-        raise ValueError(f"codes must be [n, M={M}], got shape {codes.shape}")
-    nbits = ksub.bit_length() - 1
     quantizer = IndexFlatL2(d, device=device)
     quantizer.add(centroids)
-    cls = IndexIVFPQFastScan if nbits == 4 else IndexIVFPQ
-    index = cls(quantizer, d, nlist, M, nbits, device=device)
+    index = cls(quantizer, d, nlist, pq_centroids.shape[0], nbits, *extra,
+                device=device)
     index.pq.set_centroids(pq_centroids)
     index.is_trained = True
+    return index, codes, listnos, ids
+
+
+def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device,
+                      by_residual=True) -> IndexIVFPQ:
+    """IndexIVFPQ (IndexIVFPQFastScan when nbits = 4) from coarse centroids
+    [nlist, d], PQ codebooks [M, ksub, dsub] (ksub 16 or 256), unpacked
+    codes [n, M] uint8, coarse list numbers [n] and ids [n];
+    ``by_residual`` as the index was trained (faiss_tpu's
+    ``index.by_residual``)."""
+    ksub = np.shape(pq_centroids)[1]
+    cls = IndexIVFPQFastScan if ksub == 16 else IndexIVFPQ
+    index, codes, listnos, ids = _ivfpq(cls, centroids, pq_centroids, codes,
+                                        listnos, ids, device)
+    index.by_residual = bool(by_residual)
     index.add_encoded(codes, listnos, ids)
+    return index
+
+
+def ivfpqr_from_arrays(centroids, pq_centroids, codes, listnos, ids,
+                       refine_pq_centroids, refine_codes, *, device
+                       ) -> IndexIVFPQR:
+    """IndexIVFPQR from the arrays of :func:`ivfpq_from_arrays` (by
+    residual) and the refine PQ's codebooks [M_refine, ksub_r, dsub_r] and
+    its codes [n, M_refine] uint8."""
+    rcb, rcodes, rbits = _pq_state(refine_pq_centroids, refine_codes)
+    index, codes, listnos, ids = _ivfpq(
+        IndexIVFPQR, centroids, pq_centroids, codes, listnos, ids, device,
+        rcb.shape[0], rbits,
+    )
+    index.refine_pq.set_centroids(rcb)
+    index.add_encoded(codes, listnos, ids, refine_codes=rcodes)
     return index
 
 

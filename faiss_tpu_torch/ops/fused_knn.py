@@ -1,4 +1,4 @@
-"""The port's scan kernels K1 to K5, each with its plain PyTorch version.
+"""The port's scan kernels K1 to K7, each with its plain PyTorch version.
 
 K1 ``ivf_recon_fused_dyn`` (csrc/ivf_recon_dyn.cu): the dynamic-chunk recon
 scan, counterpart of faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas
@@ -48,6 +48,24 @@ mode) or over the tile's worklist ``cmap[r // qt, :]`` (K5, group
 ``cgroup[chunk]``). ``luts`` are bf16 (the flattened ``-2 q . codeword``
 tables), ``codesT`` [M, S] uint8 holds one code per byte, and ``biasg`` is
 the coarse term ``-2 q . c`` per grouped list column, 1e9 on unprobed lists.
+
+K6 ``ivfpq_fused_v3`` (csrc/ivfpq_v3.cu): counterpart of
+ivfpq_fused_pallas_v3, K4's keys over every chunk from a precomputed one-hot
+``ohT`` [M * ksub + 128, S] (ops/quantize_lut.expand_onehot: the PQ rows
+``m * ksub + code``, then the 128 local-list rows) instead of the codes, with
+bf16 LUTs or int8 LUTs and their per-query ``meta`` (a, c) (quantize_luts_int8):
+
+  bf16:  luts . oh_pq + biasg_g . oh_list + n2
+  int8:  (a * (q8 . oh_pq) + c) + (biasg_g . oh_list + n2)
+
+with ``biasg_g`` the 128 bias columns of the chunk's group ``chunk // cpg``
+(the chunks split evenly into the G groups) and (a, c) read at the slot's
+lane ``s % 128``. A column that is not a one-hot is refused.
+
+K7 ``recon_floor`` (csrc/recon_floor.cu): counterpart of the score-only
+kernel of benchs/archive/exp_r3c.py:floor_call, K2's score producer with no
+select: out [nq, 128] f32, per lane l the minimum of ``n2[s] - 2 q . y[:, s]``
+over the columns s with ``s % 128 == l``.
 
 The kernels compute in float32 on the CUDA cores (bf16 inputs upcast); the
 plain versions use float32 matrix products with TF32 off (the ADC sum as a
@@ -105,6 +123,10 @@ KERNELS = {
     "ivfpq_adc": (
         [_vp] * 10 + [_ci, _ci, _ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci],
     ),
+    "ivfpq_v3": (
+        [_vp] * 11 + [_ci, _ci, _ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci, _ci],
+    ),
+    "recon_floor": ([_vp] * 4 + [_ci, _ci, _ll, _ci, _ci, _vp], [_ci]),
 }
 
 
@@ -765,3 +787,202 @@ def ivfpq_fused_dyn_ref(biasg, luts, codesT, n2, lid, cmap, cgroup, *,
                          cgroup[chunks], rows)
 
     return _tile_topk(score, cmap, qt, ct, luts.shape[0], luts.device)
+
+
+# -- K6 ----------------------------------------------------------------------
+
+
+def _check_v3(biasg, luts, meta, ohT, n2, qt, ct, ksub):
+    """K6's contract. Returns (M, G, int8)."""
+    int8 = luts.dtype == torch.int8
+    want = torch.int8 if int8 else torch.bfloat16
+    if luts.dtype not in (torch.bfloat16, torch.int8) or ohT.dtype != want:
+        raise ValueError(
+            "expected luts bfloat16 with ohT bfloat16, or luts int8 with ohT "
+            f"int8; got {luts.dtype}, {ohT.dtype}"
+        )
+    if (biasg.dtype, meta.dtype, n2.dtype) != (torch.float32,) * 3:
+        raise ValueError(
+            "expected biasg, meta and n2 float32; got "
+            f"{biasg.dtype}, {meta.dtype}, {n2.dtype}"
+        )
+    if luts.dim() != 2 or ohT.dim() != 2:
+        raise ValueError("luts and ohT must be 2-D")
+    nq, Kpq = luts.shape
+    S = ohT.shape[1]
+    if ohT.shape[0] != Kpq + LANES:
+        raise ValueError(
+            f"ohT must have luts.shape[1] + {LANES} = {Kpq + LANES} rows, got "
+            f"{ohT.shape[0]}"
+        )
+    if not 1 <= ksub <= 256 or Kpq % ksub or Kpq == 0 or Kpq > MAX_LUT_ROW:
+        raise ValueError(
+            f"luts' {Kpq} columns must be M * ksub with ksub={ksub} <= 256 "
+            f"and M * ksub <= {MAX_LUT_ROW}"
+        )
+    if tuple(meta.shape) != (nq, 2 * LANES):
+        raise ValueError(f"meta must be [{nq}, {2 * LANES}], got {tuple(meta.shape)}")
+    if tuple(n2.shape) != (1, S):
+        raise ValueError(f"n2 must be [1, {S}], got {tuple(n2.shape)}")
+    if biasg.dim() != 2 or biasg.shape[0] != nq or biasg.shape[1] % LANES or (
+        biasg.shape[1] == 0
+    ):
+        raise ValueError(f"biasg must be [{nq}, G * {LANES}], got {tuple(biasg.shape)}")
+    _check_tiles(nq, qt)
+    G = biasg.shape[1] // LANES
+    if ct <= 0 or ct % 256 or S % ct or S >= 1 << 31 or (S // ct) % G:
+        raise ValueError(
+            f"need ct={ct} a multiple of 256, S={S} a multiple of ct below "
+            f"2^31 and its {S // max(ct, 1)} chunks a multiple of G={G}"
+        )
+    if not all(t.is_contiguous() for t in (biasg, luts, meta, ohT, n2)):
+        raise ValueError("biasg, luts, meta, ohT and n2 must be contiguous")
+    _check_aligned("ohT", ohT, 16)
+    _check_aligned("n2", n2, 8)
+    return Kpq // ksub, G, int8
+
+
+def ivfpq_fused_v3(biasg, luts, meta, ohT, n2, *, qt: int = 256, ct: int = 1024,
+                   ksub: int = 16):
+    """K6 (see the module docstring). ``biasg`` [nq, G * 128] float32 coarse
+    term per grouped list column, ``luts`` [nq, M * ksub] bfloat16 LUTs or
+    int8 quantized LUTs, ``meta`` [nq, 256] float32 (a in columns 0:128, c
+    in 128:256; read in int8 mode only), ``ohT`` [M * ksub + 128, S] one-hot
+    of the luts' type, ``n2`` [1, S] float32 (+inf on pads); ``ksub`` is
+    the size of the one-hot's row blocks. Returns (keys, slots, floor); the
+    keys lack ||q||^2.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and read the kernel's count of non-one-hot columns once
+    (a synchronisation) to raise on them; any other device raises."""
+    M, G, int8 = _check_v3(biasg, luts, meta, ohT, n2, qt, ct, ksub)
+    if not _route("K6", (biasg, luts, meta, ohT, n2)):
+        return ivfpq_fused_v3_ref(biasg, luts, meta, ohT, n2, qt=qt, ct=ct,
+                                  ksub=ksub)
+    nq, S, dev = luts.shape[0], ohT.shape[1], luts.device
+    codes = torch.empty(M, S, dtype=torch.uint8, device=dev)
+    lid = torch.empty(1, S, dtype=torch.int32, device=dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    keys, slots, floor = _lane_outputs(nq, dev)
+    _launch(
+        "ivfpq_v3", biasg.data_ptr(), luts.data_ptr(), meta.data_ptr(),
+        ohT.data_ptr(), n2.data_ptr(), codes.data_ptr(), lid.data_ptr(),
+        bad.data_ptr(), keys.data_ptr(), slots.data_ptr(), floor.data_ptr(),
+        nq, biasg.shape[1], M, ksub, S, qt, ct, int(int8), _stream(dev),
+    )
+    ivfpq_fused_v3.launches += 1
+    ivfpq_fused_v3.int8_launches += int8
+    nbad = int(bad.item())
+    if nbad:
+        raise ValueError(f"ohT: {nbad} columns are not a one-hot")
+    return keys, slots, floor
+
+
+ivfpq_fused_v3.launches = 0
+ivfpq_fused_v3.int8_launches = 0
+
+
+def _check_onehot(oh, Kpq, ksub):
+    """Raise unless every column of ``oh`` (float32 [Kpq + 128, C]) holds
+    only 0s and 1s, exactly one 1 in each block of ksub PQ rows and exactly
+    one in the 128 list rows."""
+    binary = ((oh == 0) | (oh == 1)).all(dim=0)
+    pq = oh[:Kpq].reshape(Kpq // ksub, ksub, -1).sum(dim=1)
+    good = binary & (pq == 1).all(dim=0) & (oh[Kpq:].sum(dim=0) == 1)
+    nbad = int((~good).sum())
+    if nbad:
+        raise ValueError(f"ohT: {nbad} columns are not a one-hot")
+
+
+def ivfpq_fused_v3_ref(biasg, luts, meta, ohT, n2, *, qt: int = 256,
+                       ct: int = 1024, ksub: int = 16):
+    """Plain PyTorch version of K6's contract: per column chunk, the literal
+    contraction of the LUTs with the PQ rows of the one-hot (a float32
+    product; in int8 mode every partial sum is an integer below 2^24, so
+    the sum is exact) and of each chunk group's bias columns with the list
+    rows, the key of the mode, ``torch.topk`` and merge. Refuses a column
+    that is not a one-hot, as the kernel does."""
+    del qt  # a tile of the TPU kernel; the result does not depend on it
+    Kpq, S = luts.shape[1], ohT.shape[1]
+    span = ct * ((S // ct) // (biasg.shape[1] // LANES))  # columns per group
+    lf = luts.float()
+
+    def score(c0, c1):
+        oh = ohT[:, c0:c1].float()
+        _check_onehot(oh, Kpq, ksub)
+        acc = lf @ oh[:Kpq]
+        bias = torch.empty_like(acc)
+        for g in range(c0 // span, (c1 - 1) // span + 1):
+            a, b = max(c0, g * span), min(c1, (g + 1) * span)
+            bias[:, a - c0 : b - c0] = (
+                biasg[:, g * LANES : (g + 1) * LANES] @ oh[Kpq:, a - c0 : b - c0]
+            )
+        rest = bias + n2[:, c0:c1]
+        if luts.dtype != torch.int8:
+            return acc + rest
+        lane = torch.arange(c0, c1, device=luts.device) % LANES
+        return (meta[:, lane] * acc + meta[:, LANES + lane]) + rest
+
+    return _chunked_topk(score, luts.shape[0], S, luts.device)
+
+
+# -- K7 ----------------------------------------------------------------------
+
+
+def _check_floor(xq, yT, n2, qt, ct):
+    if (xq.dtype, yT.dtype, n2.dtype) != (torch.float32, torch.bfloat16,
+                                          torch.float32):
+        raise ValueError(
+            "expected xq float32, yT bfloat16, n2 float32; got "
+            f"{xq.dtype}, {yT.dtype}, {n2.dtype}"
+        )
+    if xq.dim() != 2 or yT.dim() != 2 or yT.shape[0] != xq.shape[1]:
+        raise ValueError(f"xq {tuple(xq.shape)} and yT {tuple(yT.shape)} differ in d")
+    S = yT.shape[1]
+    if tuple(n2.shape) != (1, S):
+        raise ValueError(f"n2 must be [1, {S}], got {tuple(n2.shape)}")
+    _check_tiles(xq.shape[0], qt)
+    if ct <= 0 or ct % LANES or S % ct or S >= 1 << 31 or xq.shape[1] % 4:
+        raise ValueError(
+            f"need ct={ct} a multiple of {LANES}, S={S} a multiple of ct below "
+            f"2^31 and d={xq.shape[1]} a multiple of 4"
+        )
+    if not all(t.is_contiguous() for t in (xq, yT, n2)):
+        raise ValueError("xq, yT and n2 must be contiguous")
+    _check_aligned("yT", yT, 4)
+    _check_aligned("n2", n2, 8)
+
+
+def recon_floor(xq, yT, n2, *, qt: int = 256, ct: int = 1024):
+    """K7 (see the module docstring). ``xq`` [nq, d] float32, ``yT`` [d, S]
+    bfloat16 transposed store, ``n2`` [1, S] float32 (+inf on pads).
+    Returns out [nq, 128] float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising; any other device raises."""
+    _check_floor(xq, yT, n2, qt, ct)
+    if not _route("K7", (xq, yT, n2)):
+        return recon_floor_ref(xq, yT, n2, qt=qt, ct=ct)
+    nq, d = xq.shape
+    out = torch.empty(nq, LANES, dtype=torch.float32, device=xq.device)
+    _launch("recon_floor", xq.data_ptr(), yT.data_ptr(), n2.data_ptr(),
+            out.data_ptr(), nq, d, yT.shape[1], qt, ct, _stream(xq.device))
+    recon_floor.launches += 1
+    return out
+
+
+recon_floor.launches = 0
+
+
+def recon_floor_ref(xq, yT, n2, *, qt: int = 256, ct: int = 1024):
+    """Plain PyTorch version of K7's contract: per column chunk the float32
+    product ``n2 - 2 q @ y``, then the minimum of every lane over the
+    chunk's columns (``amin`` over ``view(nq, -1, 128)``)."""
+    del qt, ct  # tiles of the TPU kernel; the result does not depend on them
+    nq, S = xq.shape[0], yT.shape[1]
+    out = torch.full((nq, LANES), float("inf"), device=xq.device)
+    for c0 in range(0, S, REF_CHUNK):
+        c1 = min(c0 + REF_CHUNK, S)
+        sc = n2[:, c0:c1] - 2.0 * (xq @ yT[:, c0:c1].float())
+        out = torch.minimum(out, sc.view(nq, -1, LANES).amin(dim=1))
+    return out

@@ -133,12 +133,18 @@ def ivfflat_unported(case, arrays, xq):
              "ivfflat_ip_metric"]
 )
 def test_unported_branches_raise(built, case):
+    """What is still unported on each branch raises, naming its ROADMAP
+    item. Small batches, k * k_factor > 128, 8-bit PQ and IVF-PQ's
+    search_preassigned themselves now run (tests/test_torch_ivfpq_probe.py);
+    on those branches the polysemous filter and ID selectors still raise."""
     _, arrays, xq, _ = built
     index = make_port(arrays)
     index.base_index.nprobe = 1
-    if case == "small_batch":
+    sel = ftt.SearchParametersIVF(sel=object())
+    if case == "small_batch":  # the per-probe scan's polysemous filter
         xq = xq[: index.base_index.big_batch_threshold - 1]
-    elif case == "too_many_candidates":
+        index.base_index.polysemous_ht = 4
+    elif case == "too_many_candidates":  # the base's own search + re-rank
         index.k_factor = 13
     elif case == "pq8_unrefined":  # faiss_tpu's unrefined XLA ADC path
         cent, pq_cent, codes, listnos, ids, _ = arrays
@@ -147,12 +153,18 @@ def test_unported_branches_raise(built, case):
             cent, rs.rand(M, 256, D // M), rs.randint(256, size=codes.shape),
             listnos, ids, device="cpu",
         )
+        index.do_polysemous_training = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case.startswith("ivfflat"):
             ivfflat_unported(case, arrays, xq)
         elif case == "pq_preassigned":  # IVF-PQ's per-probe ADC scan
             index.base_index.search_preassigned(
-                xq, K, np.zeros((len(xq), 1), np.int64), None)
+                xq, K, np.zeros((len(xq), 1), np.int64),
+                np.zeros((len(xq), 1), np.float32), params=sel)
+        elif case == "pq8_unrefined":
+            index.train(xq)
+        elif case == "too_many_candidates":
+            index.search(xq, K, params=sel)
         else:
             index.search(xq, K)
 
