@@ -21,13 +21,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      layout (20 k-means iterations);
   5. search the 8192 queries at nprobe=1, soft probing, k_factor=8,
      pipeline_batch=2048 (K1); recall@10 against bench_gt_cache.npz must
-     reach 0.95, and the returned distances must be the exact squared L2 to
-     the fp16 store;
+     reach 0.95, the returned distances must be the exact squared L2 to
+     the fp16 store, and K1 must have skipped PAD steps (its count of
+     skipped steps, printed with its worklist splits, is above 0);
   6. on the first real 2048-query sub-batch with its real worklists, K1 and
      its plain PyTorch version must return the same slots (tie-aware) and
      keys within 1e-4 * (|q|^2 + n2);
   7. time K1 and the plain version with CUDA events (plain, kernel, kernel,
-     plain) and the search of all 8192 queries with a host clock;
+     plain) and the search of all 8192 queries with a host clock; as a note
+     beside K1 (not its library_ms), cuBLAS bf16 torch.mm of the same two
+     products over the mean tile's real worklist columns, with no select;
   8. the unrefined IndexIVFPQFastScan.search of the 8192 queries at
      nprobe=1, k=10 (K4): on 64 rows the distances equal a float64 ADC of
      each returned slot (the same bf16 LUTs, codes, n2 and coarse term)
@@ -59,8 +62,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
  12b. K7 over the decoded store on the 8192 queries in 2048-query
      sub-batches; on the first, against its plain version and the minimum
      over its lanes against K2's first key (one plane, unmasked), within
-     1e-4 * (|q|^2 + max n2); K7 and K2 timed in turns, and the exact
-     select's share of K2 printed as 1 - K7/K2;
+     1e-4 * (|q|^2 + max n2); K7 and K2 timed in turns, and K2's time
+     printed as a share of K7's (K7 keeps the float32 producer that K1
+     and K2 left);
  12c. IndexIVFPQ.search by probe (64 queries, nprobe=16, then with
      max_codes=2000) and through the XLA ADC scan (k=200 on 1024 queries),
      none launching a kernel: on 64 rows the distances within
@@ -131,7 +135,8 @@ median of 5, QPS and recall@10 against bench_gt_cache.npz:
      first 4096-query sub-batch of their paths at nprobe=1 against their
      plain versions (keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|, ids
      tie-aware), timed by CUDA events in turns; each mode must have
-     launched on the path; peak device memory of the IVF-Flat phases.
+     launched on the path; the note of phase 7 at K1 hi/lo's shape (three
+     products); peak device memory of the IVF-Flat phases.
  31. IndexIVFPQR "IVF4096,PQ8+16" (PQ8 and a refine PQ16, both 8-bit)
      trained (20 k-means iterations) and added on the card; the 8192
      queries at nprobe=16, k_factor=4 (the XLA ADC scan: ksub = 256; no
@@ -139,14 +144,18 @@ median of 5, QPS and recall@10 against bench_gt_cache.npz:
      recall@10 (no limit); 64 rows of the re-rank against float64 distances
      to the refined reconstruction of their 40 candidates (within
      1e-5 * (|q|^2 + max |x|^2), ids tie-aware).
+Every K1 and K2 comparison prints the launch's splits (of the worklist or
+of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
+the note of phase 7 at K2 hi/lo's shape (three products).
 The last two lines are the card's name and power limit, then the result
 line {"ok": true, "device": {...}}; the kernels' JSON line comes before. Each
 kernel's entry there carries its bound, counted from this run's inputs: the
 larger of the time of its operations and the time of its bytes (inputs read
 once, both store planes with hi/lo, outputs written once) over 3.35 TB/s.
 The operations are those of the tensor-core product that computes the same
-keys: for the recon kernels over a bf16 store (K1, K2, K7) the float32
-query as bf16 hi + lo against each plane at 989 TFLOP/s; for the ADC
+keys: for the recon kernels over a bf16 store (K1, K2, K7) the TPU
+kernels' bf16 products of the query split into hi + lo, two with one plane
+and three with hi/lo (qh.yh + ql.yh + qh.yl), at 989 TFLOP/s; for the ADC
 kernels (K4-K6) the contraction of the LUTs with the one-hot of the codes
 (M * 16 rows in the LUTs' type, bf16 at 989 TFLOP/s or int8 at 1979 TOP/s)
 and of the coarse term, as bf16 hi + lo, with the 128 local-list rows. K3
@@ -218,6 +227,34 @@ def turns(plain, kern, reps):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
+def tc_products_ms(xq, hi, lo, ncols, reps=2):
+    """A note beside K1 and K2, not their library_ms (it has no select, and
+    the port never calls it): cuBLAS bf16 ``torch.mm`` of the kernels'
+    products, qh.y + ql.y with one plane and qh.yh + ql.yh + qh.yl with
+    two, of the queries ``xq`` against ``ncols`` store columns, in slabs of
+    65,536 columns."""
+    qh = xq.to(torch.bfloat16)
+    ql = (xq - qh.float()).to(torch.bfloat16)
+    pairs = [(qh, hi), (ql, hi)] + ([] if lo is None else [(qh, lo)])
+
+    def run():
+        for c0 in range(0, ncols, 1 << 16):
+            c1 = min(ncols, c0 + (1 << 16))
+            for a, b in pairs:
+                torch.mm(a, b[:, c0:c1])
+
+    return cuda_ms(run, reps)
+
+
+def recon_note(fused_knn, kernel):
+    """The split count of K1's or K2's last launch, and K1's PAD steps
+    skipped since its counter was last reset."""
+    if kernel == "K1":
+        return (f"{fused_knn.ivf_recon_fused_dyn.splits} worklist splits, "
+                f"{fused_knn.pad_steps_skipped(reset=True)} PAD steps skipped")
+    return f"{fused_knn.ivf_recon_fused.splits} column splits"
+
+
 def host_median(fn, n=5):
     times = []
     for _ in range(n):
@@ -239,6 +276,7 @@ def reset_counts(fused_knn):
     fused_knn.ivf_recon_fused.masked_launches = 0
     fused_knn.ivf_recon_fused_dyn.hilo_launches = 0
     fused_knn.ivf_recon_fused.hilo_launches = 0
+    fused_knn.pad_steps_skipped(reset=True)
 
 
 # H100 SXM at 700 W, datasheet dense peaks: float32 outside the tensor
@@ -267,12 +305,15 @@ def ops_s(store, keys, planes=1, int8=False):
     """Seconds of a scan's operations over ``keys`` (query, slot) pairs, as
     the tensor-core product that computes the same keys. A recon store
     (bf16 [d_pad, S], ``planes`` of it: 2 with hi/lo): the float32 query as
-    bf16 hi + lo against each plane, 2 * planes bf16 products of d_pad. A
-    code store (uint8 [M, S] of 4-bit codes): K6's contraction, the LUTs
-    (bf16, or int8 with ``int8``) against the M * 16 one-hot rows, plus the
-    coarse term as bf16 hi + lo against the 128 local-list rows."""
+    bf16 hi + lo, the TPU kernels' bf16 products of d_pad, qh.y + ql.y with
+    one plane and qh.yh + ql.yh + qh.yl with two (the TPU drops the ql.yl
+    term, below 2^-16 |q| |y|). A code store (uint8 [M, S] of 4-bit
+    codes): K6's contraction, the LUTs (bf16, or int8 with ``int8``)
+    against the M * 16 one-hot rows, plus the coarse term as bf16 hi + lo
+    against the 128 local-list rows."""
     if store.dtype != torch.uint8:
-        return keys * 2 * store.shape[0] * 2 * planes / PEAK_BF16
+        products = 3 if planes == 2 else 2
+        return keys * 2 * store.shape[0] * products / PEAK_BF16
     pq = keys * 2 * store.shape[0] * 16 / (PEAK_INT8 if int8 else PEAK_BF16)
     return pq + keys * 2 * 2 * 128 / PEAK_BF16
 
@@ -364,14 +405,18 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     Dm, Im = index.search(xq, K)
     t_first = time.time() - t0
     launches = fused_knn.ivf_recon_fused_dyn.launches
+    skipped = fused_knn.pad_steps_skipped()
     msteps = base._dyn_bucket[NPROBE]
     check(launches > 0, "the main path launched K1 no time")
+    check(skipped > 0, "the main path's K1 skipped no PAD step")
     check(Dm.shape == Im.shape == (NQ, K), f"result shape {Dm.shape}")
     check(np.isfinite(Dm).all() and (Im >= 0).all() and (Im < NB).all(),
           "non-finite distances or invalid ids")
     recall = recall_at_k(Im, gt, K)
     print(f"search (first, sizes the worklist) {t_first:.3f} s; K1 launches "
-          f"{launches}; msteps {msteps}; recall@10 {recall:.4f}", flush=True)
+          f"{launches}, {fused_knn.ivf_recon_fused_dyn.splits} worklist splits, "
+          f"{skipped} PAD steps skipped of {launches * (BATCH // 256) * msteps} "
+          f"(tiles x msteps); msteps {msteps}; recall@10 {recall:.4f}", flush=True)
     check(recall >= RECALL_MIN, f"recall@10 {recall:.4f} < {RECALL_MIN}")
     xb16 = xb[Im[:256]].astype(np.float16).astype(np.float32)
     d_chk = ((xq[:256, None, :] - xb16) ** 2).sum(-1)
@@ -384,9 +429,12 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     perm, _, _, cmap, ndropped = _dyn_inputs(xq_dev, br, NPROBE, qt, msteps)
     xq_p = _pad_dims(xq_dev[perm], br)
     args = (xq_p, br["yT"], br["n2s"], cmap, qt, base.FUSED_CT)
+    fused_knn.pad_steps_skipped(reset=True)
     kk, ks, kf = fused_knn.ivf_recon_fused_dyn(*args)
     rk, rs_, _ = fused_knn.ivf_recon_fused_dyn_ref(*args)
     torch.cuda.synchronize()
+    print(f"K1 sub-batch 0: {recon_note(fused_knn, 'K1')} of {cmap.numel()}",
+          flush=True)
     check(bool(torch.isinf(kf).all()), "K1's floor is not all +inf")
     n2 = br["n2s"][0].cpu().numpy()
     tol = lane_tol((xq_p.cpu().numpy() ** 2).sum(1), n2, rk.cpu().numpy(),
@@ -401,6 +449,10 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
                             lambda: fused_knn.ivf_recon_fused_dyn(*args), 20)
     print(f"K1 {t[1]:.3f} / {t[2]:.3f} ms, plain {t[0]:.3f} / {t[3]:.3f} ms "
           f"per {BATCH}-query sub-batch", flush=True)
+    real_cols = int((cmap != br["nchunks"]).sum(1).float().mean()) * base.FUSED_CT
+    print(f"note: cuBLAS bf16 torch.mm of K1's two products over the mean "
+          f"tile's real worklist columns ({BATCH} q x {real_cols}), no select: "
+          f"{tc_products_ms(xq_p, br['yT'], None, real_cols, 20):.3f} ms", flush=True)
     t_search, times = host_median(lambda: index.search(xq, K))
     print(f"search of {NQ} queries: median {t_search * 1e3:.1f} ms over 5 "
           f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> "
@@ -444,15 +496,19 @@ def scan_cost(store, n2s, nq, per_query, lid, planes=1):
             S * per_col + nbytes(*per_query) + 3 * nq * 512)
 
 
-def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps):
+def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps, recon=None):
     """A kernel against its plain version on the same inputs (keys within
-    lane_tol, ids tie-aware, floor all +inf), then both timed in turns.
-    Returns (max_abs_err, kernel ms, plain ms)."""
+    lane_tol, ids tie-aware, floor all +inf), then both timed in turns;
+    with ``recon`` ("K1" or "K2") the launch's splits (and K1's skipped
+    PAD steps) are printed. Returns (max_abs_err, kernel ms, plain ms)."""
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 
+    fused_knn.pad_steps_skipped(reset=True)
     kk, ks, kf = kern()
     rk, rs_, _ = plain()
     torch.cuda.synchronize()
+    if recon:
+        print(f"{what}: {recon_note(fused_knn, recon)}", flush=True)
     check(bool(torch.isinf(kf).all()), f"{what}: floor is not all +inf")
     tol = lane_tol(qn2, n2, rk.cpu().numpy(), rs_.cpu().numpy())
     err = compare_lanes(kk, ks, rk, rs_, tol, what, ids_agree_tie_aware)
@@ -681,7 +737,7 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
         fused_knn, f"K1 penalized [{BATCH} q, {cmap.shape[1]} steps]",
         lambda: fused_knn.ivf_recon_fused_dyn(*a1, **kw1),
         lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1),
-        xs.square().sum(1).cpu().numpy(), n2, 10)
+        xs.square().sum(1).cpu().numpy(), n2, 10, recon="K1")
     k1p_cost = dyn_cost(br, cmap, qt, br["yT"], (a1[0], pen), True)
     # K2 masked: the first strict sub-batch
     mask = torch.where(P._probed(xq2, br["centroids_g"], br["cn2g"], NPROBE)[1],
@@ -692,7 +748,7 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
         fused_knn, f"K2 masked [{BATCH} q x {S} slots]",
         lambda: fused_knn.ivf_recon_fused(*a2, **kw2),
         lambda: fused_knn.ivf_recon_fused_ref(*a2, **kw2),
-        xq2.square().sum(1).cpu().numpy(), n2, 3)
+        xq2.square().sum(1).cpu().numpy(), n2, 3, recon="K2")
     out.append(entry("ivf_recon_fused[masked]", "faiss_tpu_torch/csrc/ivf_recon.cu",
                      "faiss_tpu/ops/pallas_knn.py:1362", k2m_launches, err, ms,
                      pms, *scan_cost(br["yT"], br["n2s"], len(xq2), (a2[0], mask),
@@ -702,7 +758,7 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
         fused_knn, f"K2 one plane [{BATCH} q x {S} slots]",
         lambda: fused_knn.ivf_recon_fused(*a2, qt=qt, ct=ct),
         lambda: fused_knn.ivf_recon_fused_ref(*a2, qt=qt, ct=ct),
-        xq2.square().sum(1).cpu().numpy(), n2, 1)[0]
+        xq2.square().sum(1).cpu().numpy(), n2, 1, recon="K2")[0]
     del a1, a2, a4, a5, kw1, kw2, pen, mask, cm2, cm2_s
 
     # 11. the same with dyn_engage_frac = 0.7: K1 penalized
@@ -954,8 +1010,9 @@ def floor_phase(fused_knn, base, br, xq_all, dev):
     tt = [cuda_ms(f, 2) for f in (k7f, k2f, k2f, k7f)]
     k7ms, k2ms = (tt[0] + tt[3]) / 2, (tt[1] + tt[2]) / 2
     print(f"12b. K7 {tt[0]:.2f} / {tt[3]:.2f} ms, K2 one plane {tt[1]:.2f} / "
-          f"{tt[2]:.2f} ms on the same {BATCH} queries: the exact select takes "
-          f"1 - K7/K2 = {1 - k7ms / k2ms:.3f} of K2", flush=True)
+          f"{tt[2]:.2f} ms on the same {BATCH} queries: K2 (tensor-core products "
+          f"and the exact select) takes K2/K7 = {k2ms / k7ms:.3f} of K7 (the "
+          f"float32 producer of recon_step.cuh, no select)", flush=True)
     held = int(torch.isfinite(n2s).sum())
     return entry("recon_floor", "faiss_tpu_torch/csrc/recon_floor.cu",
                  "benchs/archive/exp_r3c.py:106", launches, err, ms, plain_ms,
@@ -1334,8 +1391,8 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
                       + np.where(rsn >= 0, n2[np.maximum(rsn, 0)], 0))
         e = compare_lanes(kk, ks, rk, rs_, tol, name, ids_agree_tie_aware)
         print(f"{name} vs plain [4096 q x {args[1].shape[1]} columns, row stride "
-              f"{args[1].stride(0)}]: max_abs_err {e:.3e}, ids agree on all rows",
-              flush=True)
+              f"{args[1].stride(0)}]: max_abs_err {e:.3e}, ids agree on all rows; "
+              f"{recon_note(fused_knn, 'K2')}", flush=True)
         return e
 
     for lo, name in ((yT_lo, "K2 hi/lo"), (None, "K2 one plane")):
@@ -1381,6 +1438,9 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
         lambda: fused_knn.ivf_recon_fused(*k2_args, yT_lo, **k2_kw), 3)
     print(f"K2 hi/lo {t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / {t[3]:.2f} ms "
           f"per 4096-query sub-batch over {yT_hi.shape[1]} columns", flush=True)
+    print(f"note: cuBLAS bf16 torch.mm of K2's three hi/lo products at the same "
+          f"shape, no select: "
+          f"{tc_products_ms(xq4k, yT_hi, yT_lo, yT_hi.shape[1]):.2f} ms", flush=True)
     k3_times = {}
     for k_lanes, nq in ((128, NQ), (2048, 1024)):
         x = torch.from_numpy(xq[:nq]).to(dev)
@@ -1633,13 +1693,20 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     k1 = kernel_check(
         fused_knn, f"K1 soft + hi/lo [4096 q, {msteps} steps]",
         lambda: fused_knn.ivf_recon_fused_dyn(*a1, **lo),
-        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **lo), qn_s, n2, 10)
+        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **lo), qn_s, n2, 10,
+        recon="K1")
+    real_cols = int((cmap != br["nchunks"]).sum(1).float().mean()) * ct
+    print(f"note: cuBLAS bf16 torch.mm of K1's three hi/lo products over the "
+          f"mean tile's real worklist columns (4096 q x {real_cols}), no select: "
+          f"{tc_products_ms(a1[0], br['yT'], br['yT_lo'], real_cols, 10):.3f} ms",
+          flush=True)
     pen = torch.where(P._probe_mask(cm2, pcols_s), 0.0, 1e9)
     kw1 = dict(lo, biasg=pen, lid=br["lid"], cgroup=br["cgroup"])
     k1p = kernel_check(
         fused_knn, f"K1 penalized + hi/lo [4096 q, {msteps} steps]",
         lambda: fused_knn.ivf_recon_fused_dyn(*a1, **kw1),
-        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1), qn_s, n2, 10)
+        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1), qn_s, n2, 10,
+        recon="K1")
     mask = torch.where(P._probed(xq4, br["centroids_g"], br["cn2g"], 1)[1], 0.0, 1e9)
     a2 = (P._pad_dims(xq4, br), br["yT"], br["n2s"], br["yT_lo"])
     kw2 = dict(qt=qt, ct=ct, biasg=mask, lid=br["lid"])
@@ -1647,7 +1714,7 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
         fused_knn, f"K2 masked + hi/lo [4096 q x {br['yT'].shape[1]} slots]",
         lambda: fused_knn.ivf_recon_fused(*a2, **kw2),
         lambda: fused_knn.ivf_recon_fused_ref(*a2, **kw2),
-        xq4.square().sum(1).cpu().numpy(), n2, 3)
+        xq4.square().sum(1).cpu().numpy(), n2, 3, recon="K2")
     print(f"IVF-Flat peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     dyn = "faiss_tpu_torch/csrc/ivf_recon_dyn.cu"
@@ -1686,8 +1753,10 @@ def main():
     built = fused_knn.build_all()
     print(f"build of {len(built)} kernels {time.time() - t0:.2f} s", flush=True)
     smem = {
-        "ivf_recon_dyn": lambda lib: f"{lib.ivf_recon_dyn_smem_bytes(D)}",
-        "ivf_recon": lambda lib: f"{lib.ivf_recon_smem_bytes(D)}",
+        "ivf_recon_dyn": lambda lib: (f"{lib.ivf_recon_dyn_smem_bytes(1)} (hi/lo), "
+                                      f"{lib.ivf_recon_dyn_smem_bytes(0)} (one plane)"),
+        "ivf_recon": lambda lib: (f"{lib.ivf_recon_smem_bytes(1)} (hi/lo), "
+                                  f"{lib.ivf_recon_smem_bytes(0)} (one plane)"),
         "ivfpq_adc": lambda lib: f"{lib.ivfpq_adc_smem_bytes(M * (1 << NBITS))}",
         "ivfpq_v3": lambda lib: ", ".join(
             f"{lib.ivfpq_v3_smem_bytes(M * (1 << NBITS), i)} ({m})"

@@ -1,4 +1,5 @@
-// K1: the dynamic-chunk recon scan with an exact top-128, for sm_90a.
+// K1: the dynamic-chunk recon scan with an exact top-128, for sm_90a, on
+// the tensor cores.
 //
 // Replaces faiss_tpu/ops/pallas_knn.py:ivf_recon_fused_dyn_pallas with one
 // bf16 store plane (IVF-PQ's decoded store) or two (IVF-Flat's vectors as hi
@@ -10,186 +11,196 @@
 // +inf eviction floor, since an exact select never evicts. The penalized mode
 // (strict probing) adds pen = biasg[r, cgroup[chunk] * 128 + lid[s]], 0 on the
 // query's probed lists and 1e9 elsewhere, in float32 as given (the TPU kernel
-// rounds it to bf16 first, which moves only the ~1e9 keys). The penalty is
-// read from global memory per (query, slot): a block's QB rows of biasg stay
-// in L1, and a list's slots are contiguous, so a warp mostly reads one word.
+// rounds it to bf16 first, which moves only the ~1e9 keys).
 //
-// Design. One block serves QB queries of one qt-query tile, so they share the
-// tile's worklist. The queries sit in shared memory in float32 (q is never
-// rounded to bf16: the TPU kernel's hi/lo query split exists only to keep it
-// f32 on the matrix unit). Each thread scores two adjacent slots per step for
-// all QB queries (recon_step::dot_pair): one bf16x2 load of each plane per
-// dimension, coalesced along s, summed in float32 and accumulated with FMAs
-// on the CUDA cores. With the lo plane the product is the float32 query times
-// the float32-faithful hi + lo, where the TPU kernel's three bf16 passes drop
-// the ql * yl term. The keys go through the exact select of exact_select.cuh
-// (a shared-memory buffer per query, appends below the running K-th key, a
-// block-wide bitonic sort before a step could overflow it).
+// Design (recon_mma.cuh, tile_select.cuh). The products are the TPU
+// kernel's (pallas_knn.py:1155-1181): the float32 query split into bf16 hi +
+// lo in the prologue, then qh.yh + ql.yh + qh.yl with the lo plane and
+// qh.y + ql.y without, on the tensor cores (mma.sync bf16, float32
+// accumulators; recon_mma.cuh says why not wgmma). A block serves 64
+// queries of one qt-query tile (fewer when qt < 64) and walks a share of
+// that tile's worklist, chunk by chunk in tiles of 64 slots streamed by
+// TMA: the grid is tiles x 64-query blocks x worklist splits, chosen by the
+// wrapper so that the launch gives every SM a block, with the blocks that
+// read the same chunks adjacent. With more than one split a second pass
+// (tile_select::merge_splits) merges each query's per-split top-128s.
 //
-// What bounds it: every block re-reads the worklist's columns of the planes
-// (the qt / QB blocks of a tile read the same chunks, mostly from L2), and
-// the float32 FMA rate of the CUDA cores (d FMAs per query and slot). wgmma
-// on bf16 tiles with the query split into bf16 hi + lo, TMA loads of the
-// chunks and the tile sizes are later work.
+// PAD steps. A worklist lists its tile's probed chunks and fills the steps
+// after them with the PAD chunk, the store's last chunk, whose n2 is +inf:
+// its keys never pass the select's `key < threshold` test. So a block first
+// finds the tile's last step that is not the PAD chunk and splits only the
+// steps up to it (a PAD step among them, which no worklist of the port has,
+// would be scanned, with the same result). The skipped steps are counted
+// once per tile into `skipped` when it is given.
 //
-// Offsets into the planes and n2 are 64-bit: d_pad * S passes 2^31 at 10M
-// slots.
+// What bounds it (PERF.md): the mma.sync products and the epilogue
+// and select beside them; the qt / 64 blocks of a tile read the same
+// chunks, mostly from L2. The penalized mode reads each row's bias once
+// where a warp's 32 columns hold one list, and otherwise only for keys that
+// would beat the threshold with their row's smallest bias in the chunk's
+// group. Shared memory: 230,976 bytes with two planes, 198,208 with one
+// (recon_mma.cuh); one block per SM.
+//
+// TMA computes the addresses into the planes and n2; slots and column
+// coordinates are 32-bit (S < 2^31).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include "exact_select.cuh"
-#include "recon_step.cuh"
+#include "recon_mma.cuh"
 
 namespace {
 
-constexpr int K = 128;            // top-K width of the contract
-constexpr int QB = 8;             // queries per block (QUERIES_PER_BLOCK)
-constexpr int THREADS = 256;      // threads per block
-constexpr int STEP = 2 * THREADS; // slots scored per block step
-constexpr int CAP = 1024;         // per-query buffer of (key, slot) pairs
+using recon_mma::BM;
+using recon_mma::BN;
+using recon_mma::K;
+using recon_mma::THREADS;
 
-using Select = exact_select::Select<K, CAP, QB, THREADS, STEP>;
+// Tiles of steps [s0, s0 + ntiles / tpc) of one worklist, tpc tiles a chunk.
+struct Walk {
+  const int* work;
+  const int* cgroup;
+  int s0, ntiles, tpc, ct;
+  __device__ int chunk(int t) const { return __ldg(work + s0 + t / tpc); }
+  __device__ long long col(int t) const {
+    return static_cast<long long>(chunk(t)) * ct + (t % tpc) * BN;
+  }
+  __device__ int valid(int) const { return BN; }
+  __device__ int group(int t) const { return __ldg(cgroup + chunk(t)); }
+};
 
+// Block b: sub-block b % subs of query tile (b / subs) % ntq, worklist split
+// b / (subs * ntq).
 template <bool PEN, bool HILO>
-__global__ void __launch_bounds__(THREADS)
-ivf_recon_dyn_kernel(const float* __restrict__ xq,
-                     const __nv_bfloat16* __restrict__ yT,
-                     const __nv_bfloat16* __restrict__ yT_lo,
-                     const float* __restrict__ n2,
-                     const int* __restrict__ cmap,
-                     const float* __restrict__ biasg,
-                     const int* __restrict__ lid,
-                     const int* __restrict__ cgroup,
-                     float* __restrict__ out_key, int* __restrict__ out_slot,
-                     float* __restrict__ out_floor, int d_pad, long long S,
-                     int msteps, int qt, int ct, int nbias) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [QB][d_pad]
-  Select sel(smem + sizeof(float) * QB * d_pad);
-
-  const int tid = threadIdx.x;
-  const long long q0 = static_cast<long long>(blockIdx.x) * QB;
-  const long long tile = q0 / qt;
-
-  for (int i = tid; i < QB * d_pad; i += THREADS) qs[i] = xq[q0 * d_pad + i];
-  sel.init();
+__global__ void __launch_bounds__(THREADS, 1)
+ivf_recon_dyn_kernel(recon_mma::Args a, const __grid_constant__ recon_mma::Maps maps, const int* cmap, const int* cgroup,
+                     long long nq, int msteps, int qt, int ct, int pad_chunk,
+                     int subs, int ntq, float* part_key, int* part_slot,
+                     unsigned long long* skipped) {
+  // the tile's last non-PAD step, reduced in the query planes' space
+  // before the scan loads them
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* last_real = reinterpret_cast<int*>(
+      smem + recon_mma::ring_bytes(HILO) + recon_mma::STAGES * BN * 4);
+  const int sub = blockIdx.x % subs;
+  const int tile = (blockIdx.x / subs) % ntq;
+  const int p = blockIdx.x / (subs * ntq);
+  const int splits = gridDim.x / (subs * ntq);
+  const int* work = cmap + static_cast<long long>(tile) * msteps;
+  if (threadIdx.x == 0) *last_real = -1;
   __syncthreads();
-
-  const int* work = cmap + tile * msteps;
-  for (int step = 0; step < msteps; ++step) {
-    const int chunk = work[step];
-    const long long base = static_cast<long long>(chunk) * ct;
-    // the QB rows of the penalty's group block for this chunk
-    const float* pen =
-        PEN ? biasg + q0 * nbias + static_cast<long long>(cgroup[chunk]) * K
-            : nullptr;
-    for (int off = 0; off < ct; off += STEP) {
-      sel.make_room();
-      const int col = off + 2 * tid;
-      if (col < ct) {
-        const long long s = base + col;
-        float acc0[QB], acc1[QB];
-        recon_step::dot_pair<QB, HILO>(qs, d_pad, yT, yT_lo, S, s, acc0,
-                                       acc1);
-        const float2 nn = *reinterpret_cast<const float2*>(n2 + s);
-        int2 l = make_int2(0, 0);
-        if constexpr (PEN) l = *reinterpret_cast<const int2*>(lid + s);
-#pragma unroll
-        for (int qi = 0; qi < QB; ++qi) {
-          float k0 = nn.x - 2.f * acc0[qi];
-          float k1 = nn.y - 2.f * acc1[qi];
-          if constexpr (PEN) {
-            k0 += pen[static_cast<long long>(qi) * nbias + l.x];
-            k1 += pen[static_cast<long long>(qi) * nbias + l.y];
-          }
-          sel.offer(qi, k0, static_cast<int>(s));
-          sel.offer(qi, k1, static_cast<int>(s + 1));
-        }
-      }
-      __syncthreads();
-    }
+  int mine = -1;
+  for (int j = threadIdx.x; j < msteps; j += THREADS) {
+    if (__ldg(work + j) != pad_chunk) mine = j;
   }
-  sel.finish();
-  for (int i = tid; i < QB * K; i += THREADS) {
-    const int qi = i / K, j = i % K;
-    const float kv = sel.kth_key(qi, j);
-    const long long o = (q0 + qi) * K + j;
-    out_key[o] = kv;
-    out_slot[o] = isinf(kv) ? -1 : sel.kth_slot(qi, j);
-    out_floor[o] = CUDART_INF_F;
+  if (mine >= 0) atomicMax(last_real, mine);
+  __syncthreads();
+  const int real = *last_real + 1;  // steps up to the last non-PAD one
+  __syncthreads();
+  if (skipped != nullptr && p == 0 && sub == 0 && threadIdx.x == 0) {
+    atomicAdd(skipped, static_cast<unsigned long long>(msteps - real));
   }
+  const int s0 = static_cast<int>(static_cast<long long>(real) * p / splits);
+  const int s1 = static_cast<int>(static_cast<long long>(real) * (p + 1) / splits);
+  Walk w;
+  w.work = work;
+  w.cgroup = cgroup;
+  w.s0 = s0;
+  w.tpc = ct / BN;
+  w.ntiles = (s1 - s0) * w.tpc;
+  w.ct = ct;
+  const long long q0 = static_cast<long long>(tile) * qt + sub * BM;
+  const int rows = qt - sub * BM < BM ? qt - sub * BM : BM;
+  if (part_key != nullptr) {  // a split's top-128s go to the scratch
+    a.okey = part_key + p * nq * K;
+    a.oslot = part_slot + p * nq * K;
+    a.ofloor = nullptr;
+  }
+  recon_mma::scan<HILO, PEN>(a, maps, w, q0, rows);
 }
 
 template <bool PEN, bool HILO>
-int launch(const void* xq, const void* yT, const void* yT_lo, const void* n2,
-           const void* cmap, const void* biasg, const void* lid,
-           const void* cgroup, void* out_key, void* out_slot, void* out_floor,
-           int nq, int d_pad, long long S, int msteps, int qt, int ct,
-           int nbias, long long smem, void* stream) {
+int launch(const recon_mma::Args& a, const recon_mma::Maps& maps, const int* cmap, const int* cgroup,
+           long long nq, int msteps, int qt, int ct, int pad_chunk,
+           int splits, float* part_key, int* part_slot,
+           unsigned long long* skipped, cudaStream_t stream) {
+  constexpr int smem = recon_mma::smem_bytes(HILO);
   cudaError_t err = cudaFuncSetAttribute(
       ivf_recon_dyn_kernel<PEN, HILO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ivf_recon_dyn_kernel<PEN, HILO><<<nq / QB, THREADS,
-                                    static_cast<size_t>(smem),
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xq), static_cast<const __nv_bfloat16*>(yT),
-      static_cast<const __nv_bfloat16*>(yT_lo),
-      static_cast<const float*>(n2), static_cast<const int*>(cmap),
-      static_cast<const float*>(biasg), static_cast<const int*>(lid),
-      static_cast<const int*>(cgroup), static_cast<float*>(out_key),
-      static_cast<int*>(out_slot), static_cast<float*>(out_floor), d_pad, S,
-      msteps, qt, ct, nbias);
+  const int subs = (qt + BM - 1) / BM;
+  const int ntq = static_cast<int>(nq / qt);
+  ivf_recon_dyn_kernel<PEN, HILO><<<subs * ntq * splits, THREADS, smem, stream>>>(
+      a, maps, cmap, cgroup, nq, msteps, qt, ct, pad_chunk, subs, ntq, part_key,
+      part_slot, skipped);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block: queries, (key, slot) buffers, counts
-// and thresholds.
-extern "C" long long ivf_recon_dyn_smem_bytes(int d_pad) {
-  return static_cast<long long>(sizeof(float)) * QB * d_pad + Select::kBytes;
+// Dynamic shared memory of one block, with two planes (hilo != 0) or one.
+extern "C" long long ivf_recon_dyn_smem_bytes(int hilo) {
+  return recon_mma::smem_bytes(hilo != 0);
 }
 
 // yT_lo may be null (one plane); given, it has yT's shape and layout. biasg,
 // lid and cgroup null: the soft mode; all three given: the penalized mode,
-// with nbias = G * 128 the row length of biasg.
+// with nbias = G * 128 the row length of biasg. pad_chunk is the PAD chunk's
+// id (S / ct - 1). With splits > 1 each tile's steps split into that many
+// ranges and part_key / part_slot ([splits][nq][128]) hold their top-128s
+// until the merge. skipped (may be null) accumulates the PAD steps skipped.
 extern "C" int ivf_recon_dyn_launch(const void* xq, const void* yT,
                                     const void* yT_lo, const void* n2,
                                     const void* cmap, const void* biasg,
                                     const void* lid, const void* cgroup,
                                     void* out_key, void* out_slot,
-                                    void* out_floor, int nq, int d_pad,
-                                    long long S, int msteps, int qt, int ct,
-                                    int nbias, void* stream) {
+                                    void* out_floor, void* part_key,
+                                    void* part_slot, void* skipped, int nq,
+                                    int d_pad, long long S, int msteps, int qt,
+                                    int ct, int nbias, int pad_chunk,
+                                    int splits, void* stream) {
   const bool pen = biasg != nullptr;
-  if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % QB != 0 || ct % 2 != 0 ||
-      d_pad % 4 != 0 || S % ct != 0 || msteps <= 0 ||
-      pen != (lid != nullptr) || pen != (cgroup != nullptr) ||
-      (pen && (nbias <= 0 || nbias % K != 0))) {
+  if (nq <= 0 || nq >= (1 << 24) || qt <= 0 || nq % qt != 0 || qt % 8 != 0 ||
+      ct <= 0 ||
+      ct % BN != 0 || d_pad <= 0 || d_pad % recon_mma::QSEG != 0 ||
+      S % ct != 0 || S >= (1LL << 31) || msteps <= 0 ||
+      pad_chunk != S / ct - 1 || pen != (lid != nullptr) ||
+      pen != (cgroup != nullptr) || (pen && (nbias <= 0 || nbias % K != 0)) ||
+      splits < 1 || (splits > 1) != (part_key != nullptr) ||
+      (part_key != nullptr) != (part_slot != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = ivf_recon_dyn_smem_bytes(d_pad);
+  recon_mma::Args a;
+  a.xq = static_cast<const float*>(xq);
+  a.biasg = static_cast<const float*>(biasg);
+  a.lid = static_cast<const int*>(lid);
+  a.okey = static_cast<float*>(out_key);
+  a.oslot = static_cast<int*>(out_slot);
+  a.ofloor = static_cast<float*>(out_floor);
+  a.d_pad = d_pad;
+  a.nbias = nbias;
+  recon_mma::Maps maps;
+  if (const int e = recon_mma::make_maps(&maps, yT, yT_lo, S, n2, S, d_pad)) {
+    return e;
+  }
+  const int* cm = static_cast<const int*>(cmap);
+  const int* cg = static_cast<const int*>(cgroup);
+  float* pk = static_cast<float*>(part_key);
+  int* ps = static_cast<int*>(part_slot);
+  unsigned long long* sk = static_cast<unsigned long long*>(skipped);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (pen && yT_lo != nullptr) {
-    return launch<true, true>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
-                              out_key, out_slot, out_floor, nq, d_pad, S,
-                              msteps, qt, ct, nbias, smem, stream);
+    err = launch<true, true>(a, maps, cm, cg, nq, msteps, qt, ct, pad_chunk, splits, pk, ps, sk, st);
+  } else if (pen) {
+    err = launch<true, false>(a, maps, cm, cg, nq, msteps, qt, ct, pad_chunk, splits, pk, ps, sk, st);
+  } else if (yT_lo != nullptr) {
+    err = launch<false, true>(a, maps, cm, cg, nq, msteps, qt, ct, pad_chunk, splits, pk, ps, sk, st);
+  } else {
+    err = launch<false, false>(a, maps, cm, cg, nq, msteps, qt, ct, pad_chunk, splits, pk, ps, sk, st);
   }
-  if (pen) {
-    return launch<true, false>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
-                               out_key, out_slot, out_floor, nq, d_pad, S,
-                               msteps, qt, ct, nbias, smem, stream);
-  }
-  if (yT_lo != nullptr) {
-    return launch<false, true>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
-                               out_key, out_slot, out_floor, nq, d_pad, S,
-                               msteps, qt, ct, nbias, smem, stream);
-  }
-  return launch<false, false>(xq, yT, yT_lo, n2, cmap, biasg, lid, cgroup,
-                              out_key, out_slot, out_floor, nq, d_pad, S,
-                              msteps, qt, ct, nbias, smem, stream);
+  if (err != 0 || splits == 1) return err;
+  tile_select::merge_splits<<<(nq + 3) / 4, 128, 0, st>>>(
+      pk, ps, splits, nq, a.okey, a.oslot, a.ofloor);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ivf_recon_dyn_error_string(int err) {

@@ -81,9 +81,10 @@ def _screen_delta(qn, ymax):
     """The hi/lo screen's error bound per query (faiss_tpu flat.py:84-89):
     the TPU kernel's dropped ql.yl term is bounded by 2^-15 ||q|| ||y||, and
     float32 accumulation and the n2-versus-rerank provenance add ~d * 2^-24
-    of the same scale; 2^-12 carries an 8x margin over the sum. K2 multiplies
-    the float32 query by hi + lo in float32, which is closer to the float32
-    product than that, so the same bound holds."""
+    of the same scale; 2^-12 carries an 8x margin over the sum. K2 takes
+    the TPU kernel's own products (the query split into bf16 hi + lo,
+    qh.yh + ql.yh + qh.yl on the tensor cores, summed in float32): the case
+    this bound was sized for."""
     return (2.0 ** -12) * qn.sqrt() * ymax
 
 

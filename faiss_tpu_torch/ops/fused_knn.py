@@ -67,14 +67,22 @@ kernel of benchs/archive/exp_r3c.py:floor_call, K2's score producer with no
 select: out [nq, 128] f32, per lane l the minimum of ``n2[s] - 2 q . y[:, s]``
 over the columns s with ``s % 128 == l``.
 
-The kernels compute in float32 on the CUDA cores (bf16 inputs upcast); the
-plain versions use float32 matrix products with TF32 off (the ADC sum as a
-product with a one-hot of the codes, exact but summed in another order) and
-chunk over columns, so neither builds a full [nq, S] score matrix. A wrapper
-launches its kernel for CUDA tensors and runs its plain version for CPU
-tensors only; any other device raises. Each kernel is compiled with nvcc at
-first use into ``_build/<source hash>/`` (a plain C interface loaded with
-ctypes); nothing is built at import."""
+K1 and K2 take the TPU kernels' products on the tensor cores
+(csrc/recon_mma.cuh): the float32 query split into bf16 hi + lo, then
+qh.yh + ql.yh + qh.yl with the lo plane and qh.y + ql.y without, summed in
+float32 (the dropped ql.yl term is below 2^-16 |q| |y|). They serve 64
+queries a block, split the columns (K2) or each worklist (K1) across blocks
+so that a launch fills the card, and merge the splits' top-128s in a second
+pass of the same source; K1 stops each tile at its last non-PAD step. K3-K7
+compute in float32 on the CUDA cores (bf16 inputs upcast). The plain
+versions use float32 matrix products with TF32 off (of hi + lo summed in
+float32 for K1/K2; the ADC sum as a product with a one-hot of the codes,
+exact but summed in another order) and chunk over columns, so none builds a
+full [nq, S] score matrix. A wrapper launches its kernel for CUDA tensors
+and runs its plain version for CPU tensors only; any other device raises.
+Each kernel is compiled with nvcc at first use into ``_build/<source
+hash>/`` (a plain C interface loaded with ctypes); nothing is built at
+import."""
 
 from __future__ import annotations
 
@@ -92,7 +100,10 @@ import torch
 from .topk import merge_topk
 
 LANES = 128  # top-K width of the K1/K2 contract; floor width of K3
-QUERIES_PER_BLOCK = 8  # QB in the kernels: qt must be a multiple
+QUERIES_PER_BLOCK = 8  # QB of K3-K7: every kernel's qt must be a multiple
+RECON_BLOCK = 64  # queries per block of K1 and K2 (recon_mma.cuh BM)
+RECON_TILE = 64  # columns per tile of K1 and K2 (recon_mma.cuh BN)
+RECON_QSEG = 128  # K1/K2 take d_pad in multiples of this (recon_mma.cuh QSEG)
 MAX_K_LANES = 2048  # K3's widest select (faiss's BlockSelect range)
 REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
 MAX_LUT_ROW = 2048  # K4/K5 hold M * ksub float32 LUT entries per query
@@ -110,10 +121,10 @@ _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # <name>_launch, <name>_smem_bytes and <name>_error_string
 KERNELS = {
     "ivf_recon_dyn": (
-        [_vp] * 11 + [_ci, _ci, _ll, _ci, _ci, _ci, _ci, _vp], [_ci],
+        [_vp] * 14 + [_ci, _ci, _ll] + [_ci] * 6 + [_vp], [_ci],
     ),
     "ivf_recon": (
-        [_vp, _vp, _vp, _ll] + [_vp] * 6 + [_ci, _ci, _ll, _ci, _ci, _ci, _vp],
+        [_vp, _vp, _vp, _ll] + [_vp] * 8 + [_ci, _ci, _ll, _ci, _ci, _ci, _ci, _vp],
         [_ci],
     ),
     "knn_fused": (
@@ -239,6 +250,60 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_mma_operands(what, xq, planes, n2, d_pad, ct=None):
+    """What the tensor-core recon kernels (K1, K2) need of their operands
+    beyond the contract: TMA reads the store planes and n2 and the prologue
+    reads the queries 16 bytes at a time, so the base addresses 16-byte
+    aligned and the planes' row stride a multiple of 8 columns; d_pad a
+    multiple of 128 (the queries' resident block of dims); and with ``ct``,
+    chunks of whole 64-column tiles (K1, K2's masked mode). Raises
+    ValueError."""
+    for name, t in (("xq", xq), ("n2", n2)) + tuple(
+        (f"store plane {i}", p) for i, p in enumerate(planes)
+    ):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
+    ld = planes[0].stride(0)
+    if ld % 8:
+        raise ValueError(
+            f"{what}: the store's row stride {ld} must be a multiple of 8 "
+            "columns (16 bytes)"
+        )
+    if d_pad % RECON_QSEG:
+        raise ValueError(f"{what}: d_pad={d_pad} must be a multiple of {RECON_QSEG}")
+    if ct is not None and ct % RECON_TILE:
+        raise ValueError(f"{what}: ct={ct} must be a multiple of {RECON_TILE}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_count(blocks, units, sms):
+    """Splits of the columns (K2) or of each worklist (K1) so that a launch
+    of ``blocks`` blocks of 64 queries gives every one of ``sms`` SMs a
+    block (one fits per SM), without splitting ``units`` (64-column tiles
+    of K2's store, steps of K1's worklists) finer than one each."""
+    if blocks <= 0 or units <= 0 or sms <= 0:
+        raise ValueError(f"blocks={blocks}, units={units}, sms={sms} must be positive")
+    return max(1, min(sms // blocks, units))
+
+
+def _split_scratch(splits, nq, device):
+    """The per-split top-128s of a split launch, [splits, nq, 128] keys
+    and slots, merged by the kernel's second pass; (None, None) for one
+    split."""
+    if splits < 1:
+        raise ValueError(f"splits={splits} must be at least 1")
+    if splits == 1:
+        return None, None
+    return (
+        torch.empty(splits, nq, LANES, dtype=torch.float32, device=device),
+        torch.empty(splits, nq, LANES, dtype=torch.int32, device=device),
+    )
+
+
 def _check_bias(biasg, lid, nq, S):
     """The per-(query, grouped list column) term of the masked, penalized
     and ADC scans: ``biasg`` [nq, G * 128] float32 and ``lid`` [1, S] int32,
@@ -349,6 +414,13 @@ def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
     1e9}, ``lid`` [1, S] int32 and ``cgroup`` [S // ct] int32. Returns
     (keys, slots, floor).
 
+    The last chunk of the store (``S // ct - 1``) is the PAD chunk: its n2
+    is all +inf, and each worklist lists its tile's chunks first and fills
+    the steps after them with it. The kernel stops each tile at its last
+    step that is not the PAD chunk (exact: a +inf key is never selected) and
+    counts the steps it skipped (:func:`pad_steps_skipped`); the plain
+    version scans every step.
+
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
     _check_dyn(xq, yT, n2, cmap, qt, ct, yT_lo)
@@ -358,23 +430,56 @@ def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
         return ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt, ct, biasg, lid,
                                        cgroup, yT_lo)
     nq, d_pad = xq.shape
+    S, msteps = yT.shape[1], cmap.shape[1]
+    _check_mma_operands("K1", xq, (yT,) + lo, n2, d_pad, ct)
+    blocks = nq // qt * -(-qt // RECON_BLOCK)
+    splits = _split_count(blocks, msteps, _sm_count(xq.device.index or 0))
+    part_key, part_slot = _split_scratch(splits, nq, xq.device)
     keys, slots, floor = _lane_outputs(nq, xq.device)
     _launch(
         "ivf_recon_dyn", xq.data_ptr(), yT.data_ptr(), _ptr(yT_lo),
         n2.data_ptr(), cmap.data_ptr(), _ptr(biasg), _ptr(lid), _ptr(cgroup),
-        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq, d_pad,
-        yT.shape[1], cmap.shape[1], qt, ct,
-        0 if biasg is None else biasg.shape[1], _stream(xq.device),
+        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), _ptr(part_key),
+        _ptr(part_slot), _pad_counter(xq.device).data_ptr(), nq, d_pad, S,
+        msteps, qt, ct, 0 if biasg is None else biasg.shape[1],
+        _pad_chunk(S, ct), splits, _stream(xq.device),
     )
     ivf_recon_fused_dyn.launches += 1
     ivf_recon_fused_dyn.penalized_launches += bool(pen)
     ivf_recon_fused_dyn.hilo_launches += bool(lo)
+    ivf_recon_fused_dyn.splits = splits
     return keys, slots, floor
 
 
 ivf_recon_fused_dyn.launches = 0
 ivf_recon_fused_dyn.penalized_launches = 0
 ivf_recon_fused_dyn.hilo_launches = 0
+ivf_recon_fused_dyn.splits = 0  # worklist splits of the last launch
+
+_PAD_COUNTERS = {}  # device -> int64 [1], K1's skipped PAD steps
+
+
+def _pad_chunk(S, ct):
+    """The PAD chunk of K1's store: its last chunk."""
+    if ct <= 0 or S % ct or S // ct < 1:
+        raise ValueError(f"S={S} must hold whole chunks of ct={ct}")
+    return S // ct - 1
+
+
+def _pad_counter(device):
+    if device not in _PAD_COUNTERS:
+        _PAD_COUNTERS[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _PAD_COUNTERS[device]
+
+
+def pad_steps_skipped(reset=False):
+    """PAD steps K1's launches skipped (summed over tiles) since the last
+    reset; reads the device counters (a synchronising read)."""
+    n = sum(int(c.item()) for c in _PAD_COUNTERS.values())
+    if reset:
+        for c in _PAD_COUNTERS.values():
+            c.zero_()
+    return n
 
 
 def _lane_outputs(nq, device):
@@ -495,27 +600,35 @@ def ivf_recon_fused(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,
     current stream without synchronising; any other device raises."""
     ld = _check_recon(xq, yT, n2, yT_lo, qt, ct)
     mask = _check_mask(biasg, lid, yT, xq.shape[0], yT.shape[1], ct)
-    planes = (xq, yT, n2) + (() if yT_lo is None else (yT_lo,)) + mask
-    if not _route("K2", planes):
+    lo = () if yT_lo is None else (yT_lo,)
+    if not _route("K2", (xq, yT, n2) + lo + mask):
         return ivf_recon_fused_ref(xq, yT, n2, yT_lo, qt=qt, ct=ct,
                                    biasg=biasg, lid=lid)
     nq, d_pad = xq.shape
+    S = yT.shape[1]
+    _check_mma_operands("K2", xq, (yT,) + lo, n2, d_pad, ct if mask else None)
+    splits = _split_count(-(-nq // RECON_BLOCK), -(-S // RECON_TILE),
+                          _sm_count(xq.device.index or 0))
+    part_key, part_slot = _split_scratch(splits, nq, xq.device)
     keys, slots, floor = _lane_outputs(nq, xq.device)
     _launch(
         "ivf_recon", xq.data_ptr(), yT.data_ptr(), _ptr(yT_lo), ld,
         n2.data_ptr(), _ptr(biasg), _ptr(lid), keys.data_ptr(),
-        slots.data_ptr(), floor.data_ptr(), nq, d_pad, yT.shape[1], qt, ct,
-        0 if biasg is None else biasg.shape[1], _stream(xq.device),
+        slots.data_ptr(), floor.data_ptr(), _ptr(part_key), _ptr(part_slot),
+        nq, d_pad, S, qt, ct, 0 if biasg is None else biasg.shape[1], splits,
+        _stream(xq.device),
     )
     ivf_recon_fused.launches += 1
     ivf_recon_fused.masked_launches += bool(mask)
     ivf_recon_fused.hilo_launches += yT_lo is not None
+    ivf_recon_fused.splits = splits
     return keys, slots, floor
 
 
 ivf_recon_fused.launches = 0
 ivf_recon_fused.masked_launches = 0
 ivf_recon_fused.hilo_launches = 0
+ivf_recon_fused.splits = 0  # column splits of the last launch
 
 
 def ivf_recon_fused_ref(xq, yT, n2, yT_lo=None, *, qt: int = 512, ct: int = 1024,
