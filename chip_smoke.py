@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build K1-K7 (faiss_tpu_torch/csrc/*.cu: ivf_recon_dyn, ivf_recon,
      knn_fused, ivfpq_adc, ivfpq_v3, recon_floor), one nvcc per source, all
      started together, and print each one's ptxas register lines and
-     dynamic shared memory;
+     dynamic shared memory; K4's tensor-core instance must spill no
+     register, and the built library must route PQ32x4fs and M <= 37 4-bit
+     rows to it, ksub > 16 and wider rows to the lookup scan;
   3. regenerate the 1M x 128 Gaussian mixture of bench.py (seeds 42, 1, 2, 3);
   4. train and add IndexRefineFlat(IndexIVFPQFastScan(d=128, nlist=4096,
      M=32, nbits=4), store_float16=True) on the card, then stage the search
@@ -32,7 +34,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      beside K1 (not its library_ms), cuBLAS bf16 torch.mm of the same two
      products over the mean tile's real worklist columns, with no select;
   8. the unrefined IndexIVFPQFastScan.search of the 8192 queries at
-     nprobe=1, k=10 (K4): on 64 rows the distances equal a float64 ADC of
+     nprobe=1, k=10 (K4; every launch the tensor-core instance of
+     csrc/adc_mma.cuh, none the lookup scan): on 64 rows the distances
+     equal a float64 ADC of
      each returned slot (the same bf16 LUTs, codes, n2 and coarse term)
      within 1e-5 * (|q|^2 + max n2), and the ids agree tie-aware with a
      float64 ADC brute force over the query's probed list; recall@10;
@@ -43,7 +47,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K2 masked and K2 unmasked (phase 12's scan; the first 2048-query
      sub-batch of their paths) against their plain versions: keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|
      (the second term covers float32's spacing of 64 at the 1e9 mask), ids
-     tie-aware; times by CUDA events, plain, kernel, kernel, plain;
+     tie-aware; times by CUDA events, plain, kernel, kernel, plain; K4
+     prints its column splits;
  11. phase 9 with dyn_engage_frac = 0.7 (K1 penalized): on the rows of
      phase 9's kind in sub-batches that dropped no probed chunk, the ids lie
      in the probed list and agree tie-aware with phase 9;
@@ -54,11 +59,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (seconds, GiB); every 2048-query sub-batch through K6 bf16, K6 int8
      (int8 LUTs with their (a, c) from the float32 LUTs) and K4 on the
      unmasked coarse term, printing profile_v3's candidate recall (the
-     top-120 slots hold the ground-truth top-10); on the first sub-batch
-     each mode against its plain version, bf16 against K4 (the same
+     top-120 slots hold the ground-truth top-10); K4 of the path against
+     its plain version on every sub-batch (its columns split across blocks
+     and merged; the run fails unless they split); on the first sub-batch
+     each K6 mode against its plain version, bf16 against K4 (the same
      function), keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key| and ids
      tie-aware, int8 on 64 rows against a float64 a * acc + c + bias + n2
-     of its slots; times in turns, K4 too;
+     of its slots; times in turns, K4 too (with its splits); as a note
+     beside K4 (not its library_ms), cuBLAS bf16 torch.mm of the sub-batch's
+     LUTs with the one-hot's M * 16 PQ rows: the same products, no bias, no
+     select;
  12b. K7 over the decoded store on the 8192 queries in 2048-query
      sub-batches; on the first, against its plain version and the minimum
      over its lanes against K2's first key (one plane, unmasked), within
@@ -75,7 +85,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ways to sum the LUT entries (the one-hot product it takes at
      ksub <= 16, the table gathers above) timed on its inputs;
  13-14. re-staged with recon_scan_max_bytes = 0 (no decoded store): refined
-     soft (K5) and refined strict (K4); both mask unprobed lists, so their
+     soft (K5) and refined strict (K4, every launch on the tensor cores),
+     then K4 on phase 14's first 2048-query sub-batch (masked, its columns
+     split and merged) against its plain version as in phase 10;
+     both mask unprobed lists, so their
      ids agree tie-aware on the rows of phase 11's kind where K5's sub-batch
      dropped no probed chunk; recall@10 and ivf_fast_scan_stats.
      Every search of phases 8-14 runs with all launch counts set to 0 just
@@ -162,8 +175,8 @@ and of the coarse term, as bf16 hi + lo, with the 128 local-list rows. K3
 scores a float32 store exactly: float32 FMAs at 67 TFLOP/s. Rates are an
 H100 SXM's dense peaks at 700 W; only the slots that hold a vector are
 counted (K6's bytes count its one-hot). Phase 12a also prints the bound of
-K4's and K6's own design, M + 1 shared-memory LUT lookups per key at 32 a
-clock per SM, as a note.
+K6's own design (and K5's; K4's until it moved to the tensor cores), M + 1
+shared-memory LUT lookups per key at 32 a clock per SM, as a note.
 """
 
 import functools
@@ -247,12 +260,24 @@ def tc_products_ms(xq, hi, lo, ncols, reps=2):
 
 
 def recon_note(fused_knn, kernel):
-    """The split count of K1's or K2's last launch, and K1's PAD steps
+    """The split count of K1's, K2's or K4's last launch, and K1's PAD steps
     skipped since its counter was last reset."""
     if kernel == "K1":
         return (f"{fused_knn.ivf_recon_fused_dyn.splits} worklist splits, "
                 f"{fused_knn.pad_steps_skipped(reset=True)} PAD steps skipped")
+    if kernel == "K4":
+        return f"{fused_knn.ivfpq_fused.splits} column splits (tensor cores)"
     return f"{fused_knn.ivf_recon_fused.splits} column splits"
+
+
+def k4_on_tensor_cores(fused_knn, what, launches):
+    """Every K4 launch of a path since the counts were reset took the
+    tensor-core instance, none the lookup scan."""
+    tc = fused_knn.ivfpq_fused.tc_launches
+    check(tc == launches, f"{what}: {launches - tc} of {launches} K4 launches "
+                          "took the lookup scan, not the tensor cores")
+    print(f"{what}: all {launches} K4 launches on the tensor cores "
+          f"({fused_knn.ivfpq_fused.splits} column splits)", flush=True)
 
 
 def host_median(fn, n=5):
@@ -272,6 +297,7 @@ def reset_counts(fused_knn):
               fused_knn.recon_floor):
         f.launches = 0
     fused_knn.ivfpq_fused_v3.int8_launches = 0
+    fused_knn.ivfpq_fused.tc_launches = 0
     fused_knn.ivf_recon_fused_dyn.penalized_launches = 0
     fused_knn.ivf_recon_fused.masked_launches = 0
     fused_knn.ivf_recon_fused_dyn.hilo_launches = 0
@@ -319,7 +345,7 @@ def ops_s(store, keys, planes=1, int8=False):
 
 
 def lookup_s(codes, keys):
-    """Seconds of K4's and K6's own design over ``keys`` pairs: M + 1
+    """Seconds of K5's and K6's own design over ``keys`` pairs: M + 1
     shared-memory lookups per key (the LUT entries and the bias) at
     lookup_rate(). A note beside the bound, not the bound."""
     return keys * (codes.shape[0] + 1) / lookup_rate()
@@ -499,8 +525,9 @@ def scan_cost(store, n2s, nq, per_query, lid, planes=1):
 def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps, recon=None):
     """A kernel against its plain version on the same inputs (keys within
     lane_tol, ids tie-aware, floor all +inf), then both timed in turns;
-    with ``recon`` ("K1" or "K2") the launch's splits (and K1's skipped
-    PAD steps) are printed. Returns (max_abs_err, kernel ms, plain ms)."""
+    with ``recon`` ("K1", "K2" or "K4") the launch's splits (and K1's
+    skipped PAD steps) are printed. Returns (max_abs_err, kernel ms, plain
+    ms)."""
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 
     fused_knn.pad_steps_skipped(reset=True)
@@ -600,6 +627,7 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
     (Du, Iu), k4_launches = counted(
         fused_knn, f"8. unrefined search, nprobe={NPROBE} (K4)",
         lambda: base.search(xq, K), lambda: fused_knn.ivfpq_fused.launches)
+    k4_on_tensor_cores(fused_knn, "8. unrefined search", k4_launches)
     check(Du.shape == Iu.shape == (NQ, K), f"unrefined result shape {Du.shape}")
     check(((Iu >= -1) & (Iu < NB)).all() and np.isfinite(Du[Iu >= 0]).all()
           and np.isinf(Du[Iu < 0]).all(), "unrefined: invalid ids or distances")
@@ -712,8 +740,8 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
         fused_knn, f"K4 [{NQ} q x {S} slots]",
         lambda: fused_knn.ivfpq_fused(*a4, qt=qt, ct=ct),
         lambda: fused_knn.ivfpq_fused_ref(*a4, qt=qt, ct=ct),
-        xq_all.square().sum(1).cpu().numpy(), n2, 3)
-    out.append(entry("ivfpq_fused", "faiss_tpu_torch/csrc/ivfpq_adc.cu",
+        xq_all.square().sum(1).cpu().numpy(), n2, 3, recon="K4")
+    out.append(entry("ivfpq_fused", "faiss_tpu_torch/csrc/adc_mma.cuh",
                      "faiss_tpu/ops/pallas_knn.py:1484", k4_launches, err, ms,
                      pms, *scan_cost(br["codesT"], br["n2s"], len(xq_all), a4[:2],
                                      True)))
@@ -823,9 +851,24 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
     (Dk, Ik, _), k4r_launches = counted(
         fused_knn, "14. refined strict search, no decoded store (K4)",
         lambda: refined(index, xq), lambda: fused_knn.ivfpq_fused.launches)
+    k4_on_tensor_cores(fused_knn, "14. refined strict search, no decoded store",
+                       k4r_launches)
     print(f"K4 path: recall@10 {recall_at_k(Ik, gt, K):.4f}; "
           f"{P.ivf_fast_scan_stats}", flush=True)
     time_search("refined strict, no decoded store (K4)", lambda: index.search(xq, K), NQ)
+    # K4 on the first sub-batch of phase 14's path (masked, its columns split
+    # across blocks and merged) against its plain version
+    a4 = (P._masked_coarse_bias(xq2, br["centroids_g"], br["cn2g"], NPROBE),
+          P._adc_luts(xq2, br["cbt"]), br["codesT"], br["n2s"], br["lid"])
+    kernel_check(
+        fused_knn, f"K4 masked [{BATCH} q x {br['codesT'].shape[1]} slots]",
+        lambda: fused_knn.ivfpq_fused(*a4, qt=qt, ct=ct),
+        lambda: fused_knn.ivfpq_fused_ref(*a4, qt=qt, ct=ct),
+        xq2.square().sum(1).cpu().numpy(), br["n2s"][0].cpu().numpy(), 1,
+        recon="K4")
+    check(fused_knn.ivfpq_fused.splits > 1,
+          f"K4 at {BATCH} queries ran {fused_knn.ivfpq_fused.splits} column split(s)")
+    del a4
     exact_fp16(Dd, Id, "K5 path")
     exact_fp16(Dk, Ik, "K4 path")
     rows = undropped(drops, NQ) & full
@@ -884,15 +927,18 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
     # the same codes, with profile_v3's candidate recall
     reset_counts(fused_knn)
     cand = {"K4": [], "K6 bf16": [], "K6 int8": []}
+    k4_out = []
     for s0 in range(0, NQ, BATCH):
         x = xq_all[s0 : s0 + BATCH]
         for int8 in (False, True):
             cand[f"K6 {'int8' if int8 else 'bf16'}"].append(
                 fused_knn.ivfpq_fused_v3(*args(x, int8), **kw)[1])
         a = args(x, False)
-        cand["K4"].append(fused_knn.ivfpq_fused(a[0], a[1], codesT, n2, lid,
-                                                qt=256, ct=ct)[1])
+        k4_out.append(fused_knn.ivfpq_fused(a[0], a[1], codesT, n2, lid,
+                                            qt=256, ct=ct))
+        cand["K4"].append(k4_out[-1][1])
     torch.cuda.synchronize()
+    k4_splits = fused_knn.ivfpq_fused.splits
     v3 = fused_knn.ivfpq_fused_v3
     launches = {False: v3.launches - v3.int8_launches, True: v3.int8_launches}
     check(all(launches.values()), f"K6 launches by mode (int8?) {launches}")
@@ -905,11 +951,30 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
         print(f"12a. {name}: candidate recall@10 (the top-120 slots hold the "
               f"ground-truth top-10) {hit / K:.4f} over {NQ} queries", flush=True)
 
+    n2h = n2[0].cpu().numpy()
+    # K4 of the path against its plain version on every sub-batch (at 2048
+    # queries its columns split across blocks and the splits are merged)
+    check(k4_splits > 1, f"K4 at {BATCH} queries ran {k4_splits} column split(s)")
+    e4 = 0.0
+    for i, (kk, ks, kf) in enumerate(k4_out):
+        x = xq_all[i * BATCH : (i + 1) * BATCH]
+        a = args(x, False)
+        rk, rs_, _ = fused_knn.ivfpq_fused_ref(a[0], a[1], codesT, n2, lid,
+                                               qt=256, ct=ct)
+        check(bool(torch.isinf(kf).all()), f"K4 sub-batch {i}: floor is not all +inf")
+        tol = lane_tol(x.square().sum(1).cpu().numpy(), n2h, rk.cpu().numpy(),
+                       rs_.cpu().numpy())
+        e4 = max(e4, compare_lanes(kk, ks, rk, rs_, tol, f"K4 sub-batch {i}",
+                                   ids_agree_tie_aware))
+    print(f"12a. K4 equals its plain version on all {len(k4_out)} {BATCH}-query "
+          f"sub-batches ({k4_splits} column splits, merged; max_abs_err "
+          f"{e4:.3e}, ids agree on all rows)", flush=True)
+    del k4_out
+
     # the first sub-batch: each mode against its plain version, bf16 against
     # K4, int8 against float64
     x = xq_all[:BATCH]
     qn2 = x.square().sum(1).cpu().numpy()
-    n2h = n2[0].cpu().numpy()
     res = {}
     for int8 in (False, True):
         a = args(x, int8)
@@ -928,7 +993,12 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
                          lambda: fused_knn.ivfpq_fused(*a4, qt=256, ct=ct), 3)
     print(f"K6 bf16 equals K4 on the same inputs (max_abs_err {e:.3e}, ids agree "
           f"on all rows); K4 {t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / "
-          f"{t[3]:.2f} ms per {BATCH}-query sub-batch over the data chunks",
+          f"{t[3]:.2f} ms per {BATCH}-query sub-batch over the data chunks "
+          f"({recon_note(fused_knn, 'K4')})", flush=True)
+    print(f"note: cuBLAS bf16 torch.mm of the {BATCH} queries' LUTs with the "
+          f"one-hot's {codesT.shape[0] * ksub} PQ rows over {Sd} columns (K4's "
+          f"products, no bias, no select): "
+          f"{onehot_products_ms(a[1], oh[False][: codesT.shape[0] * ksub]):.2f} ms",
           flush=True)
     a = args(x, True)
     k8, s8, _ = fused_knn.ivfpq_fused_v3(*a, **kw)
@@ -959,14 +1029,28 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
             "faiss_tpu_torch/csrc/ivfpq_v3.cu", "faiss_tpu/ops/pallas_knn.py:778",
             launches[int8], *res[int8], ops_s(codesT, BATCH * held, int8=int8),
             nbytes(*read) + 3 * BATCH * 512))
-    print(f"12a. K4's and K6's own design, M + 1 shared-memory lookups per key "
-          f"at 32 a clock per SM, takes at least "
+    print(f"12a. K6's own design (and K5's; K4's until it moved to the tensor "
+          f"cores), M + 1 shared-memory lookups per key at 32 a clock per SM, "
+          f"takes at least "
           f"{lookup_s(codesT, BATCH * held) * 1e3:.2f} ms per {BATCH}-query "
           f"sub-batch (a note; the bounds are the tensor-core contraction's, "
           f"{out[0]['bound_ms']:.2f} ms bf16, {out[1]['bound_ms']:.2f} ms int8)",
           flush=True)
     del oh
     return out
+
+
+def onehot_products_ms(luts, oh_pq, reps=3):
+    """A note beside K4, not its library_ms (it has no bias and no select,
+    and the port never calls it): cuBLAS bf16 ``torch.mm`` of the LUTs [nq,
+    M * ksub] with the one-hot's PQ rows [M * ksub, S], in slabs of 65,536
+    columns."""
+
+    def run():
+        for c0 in range(0, oh_pq.shape[1], 1 << 16):
+            torch.mm(luts, oh_pq[:, c0 : c0 + (1 << 16)])
+
+    return cuda_ms(run, reps)
 
 
 def floor_phase(fused_knn, base, br, xq_all, dev):
@@ -1757,7 +1841,10 @@ def main():
                                       f"{lib.ivf_recon_dyn_smem_bytes(0)} (one plane)"),
         "ivf_recon": lambda lib: (f"{lib.ivf_recon_smem_bytes(1)} (hi/lo), "
                                   f"{lib.ivf_recon_smem_bytes(0)} (one plane)"),
-        "ivfpq_adc": lambda lib: f"{lib.ivfpq_adc_smem_bytes(M * (1 << NBITS))}",
+        "ivfpq_adc": lambda lib: (f"{lib.ivfpq_adc_smem_bytes(M, 1 << NBITS, 1)} "
+                                  f"(K4, tensor cores), "
+                                  f"{lib.ivfpq_adc_smem_bytes(M, 1 << NBITS, 0)} "
+                                  "(K5, lookup scan)"),
         "ivfpq_v3": lambda lib: ", ".join(
             f"{lib.ivfpq_v3_smem_bytes(M * (1 << NBITS), i)} ({m})"
             for i, m in ((0, "bf16"), (1, "int8"))
@@ -1776,6 +1863,23 @@ def main():
             for m in [re.search(r"entry function '\w*?(I(?:L[bi]\d+E)+E)", line)]
             if m or "registers" in line or "spill" in line
         ) + f"; dynamic smem {smem[name](lib)} B/block", flush=True)
+    lib, report = built["ivfpq_adc"]
+    lines = report.splitlines()
+    at = next(i for i, line in enumerate(lines)
+              if "entry function" in line and "adc_mma_kernel" in line)
+    tc = "\n".join(lines[at + 1 : at + 4])
+    regs = re.search(r"Used (\d+) registers", tc)
+    check(regs is not None and " 0 bytes spill stores, 0 bytes spill loads" in tc,
+          f"K4's tensor-core kernel spills: {tc}")
+    # the wrapper's route, as the built library answers it: the tensor
+    # cores for PQ32x4fs and up to M = 37 4-bit sub-quantizers, the lookup
+    # scan for ksub > 16 and for LUT rows beyond a block's shared memory
+    routes = {(M, 1 << NBITS): True, (37, 16): True, (38, 16): False,
+              (2, 17): False, (M, 256): False}
+    got = {s: fused_knn.adc_on_tensor_cores(*s) for s in routes}
+    check(got == routes, f"K4's route by (M, ksub) {got}, expected {routes}")
+    print(f"K4 on the tensor cores: {regs.group(1)} registers, no spill; "
+          f"route by (M, ksub), True for the tensor cores: {got}", flush=True)
 
     t0 = time.time()
     xb, xt, xq = bench_data()

@@ -3,48 +3,154 @@
 //
 // Replace faiss_tpu/ops/pallas_knn.py:ivfpq_fused_pallas (K4: every chunk in
 // order) and ivfpq_fused_dyn_pallas (K5: the chunks of each query tile's
-// worklist). They compute what those kernels compute, not how: for every
-// query row r the EXACT top-128 of
+// worklist). For every query row r they return the EXACT top-128 of
 //     key(s) = n2[s] + biasg[r, g * 128 + lid[s]]
 //              + sum_m luts[r, m * ksub + codesT[m, s]]
 // with g = min(chunk / cpg, G - 1) for K4 and g = cgroup[chunk] for K5, over
-// bf16 LUTs. The scan itself, its arithmetic, design and bound are those of
-// adc_scan.cuh, which K6 (ivfpq_v3.cu) shares.
+// bf16 LUTs.
 //
-// Arithmetic. The TPU kernel contracts the bf16 LUTs with a one-hot of the
-// codes on its matrix unit, and the bias, split into bf16 hi + lo, with a
-// one-hot of the list ids. Here the LUT entries (bf16 values, exact in
-// float32) are looked up and summed in float32, and the bias is added in
-// float32 as given: closer to the float32 key than the TPU's hi + lo.
+// K4 runs on the tensor cores (adc_mma.cuh): the LUTs contracted with a
+// one-hot of the codes built in registers, one mma.sync bf16 k-step per
+// sub-quantizer, for 64 queries a block, into the exact select of
+// tile_select.cuh; the columns split across blocks so that a launch gives
+// every SM a block, and a second pass (tile_select::merge_splits) merges
+// the splits' top-128s. It takes ksub <= 16 and LUT rows that fit its
+// shared memory (M <= 37; tc_takes); the wrapper asks
+// ivfpq_adc_smem_bytes(M, ksub, 1) and sends any other shape to the
+// shared-memory lookup scan of adc_scan.cuh, chosen by shape before the
+// launch (tc = 0), never as a fallback.
 //
-// What bounds it: the shared-memory lookups (adc_scan.cuh). Packed 4-bit
-// codes with LUTs in registers and byte permutes (faiss's FastScan) and
-// skipping the chunks of masked groups are later work.
+// K5 keeps the lookup scan of adc_scan.cuh, which K6 (ivfpq_v3.cu) shares:
+// the LUT entries (bf16 values, exact in float32) looked up in shared
+// memory and summed in float32, the bias added in float32 as given, closer
+// to the float32 key than the TPU's hi + lo. What bounds it: the
+// shared-memory lookups (adc_scan.cuh).
 
+#include "adc_mma.cuh"
 #include "adc_scan.cuh"
 
-// Dynamic shared memory of one block for M * ksub bf16 LUT entries per query.
-extern "C" long long ivfpq_adc_smem_bytes(int mk) {
-  const int row = adc_scan::lut_row(mk);
+namespace {
+
+using adc_mma::BM;
+using adc_mma::BN;
+using adc_mma::K;
+
+// Block b: query block b % qblocks of column split b / qblocks.
+__global__ void __launch_bounds__(adc_mma::THREADS, 1)
+adc_mma_kernel(adc_mma::Args a, const __grid_constant__ adc_mma::Maps maps,
+               long long nq, long long S, int qblocks, long long split_cols,
+               int ct, int cpg, int gmax, float* part_key, int* part_slot) {
+  const int qb = blockIdx.x % qblocks, p = blockIdx.x / qblocks;
+  const long long q0 = static_cast<long long>(qb) * BM;
+  const int rows = static_cast<int>(nq - q0 < BM ? nq - q0 : BM);
+  adc_mma::Walk w;
+  w.c0 = p * split_cols;
+  const long long c1 = w.c0 + split_cols < S ? w.c0 + split_cols : S;
+  w.ntiles = c1 > w.c0 ? static_cast<int>((c1 - w.c0) / BN) : 0;
+  w.ct = ct;
+  w.cpg = cpg;
+  w.gmax = gmax;
+  if (part_key != nullptr) {  // a split's top-128s go to the scratch
+    a.okey = part_key + p * nq * K;
+    a.oslot = part_slot + p * nq * K;
+    a.ofloor = nullptr;
+  }
+  adc_mma::scan(a, maps, w, q0, rows);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether K4's tensor-core kernel takes a shape: the 16 entries of a
+// sub-quantizer are one bf16 k-step, and a block's shared memory holds 64
+// LUT rows of M * 16 entries. The wrapper routes by this (through
+// ivfpq_adc_smem_bytes), so the decision lives here alone.
+bool tc_takes(int M, int ksub) {
+  return M > 0 && ksub > 0 && ksub <= 16 && adc_mma::smem_bytes(M) <= adc_mma::MAX_SMEM;
+}
+
+// K4 on the tensor cores; the caller has checked the common contract.
+int launch_tc(const void* biasg, const void* luts, const void* codesT,
+              const void* n2, const void* lid, void* out_key, void* out_slot,
+              void* out_floor, void* part_key, void* part_slot, int nq,
+              int nbias, int M, int ksub, long long S, int ct, int splits,
+              cudaStream_t stream) {
+  const int smem = adc_mma::smem_bytes(M);
+  if (!tc_takes(M, ksub) || ct % BN != 0 || splits < 1 ||
+      (splits > 1) != (part_key != nullptr) ||
+      (part_key != nullptr) != (part_slot != nullptr) || !aligned16(biasg) ||
+      !aligned16(codesT) || !aligned16(n2) || !aligned16(lid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  adc_mma::Maps maps;
+  if (const int e = adc_mma::make_maps(&maps, codesT, n2, lid, S, M)) return e;
+  adc_mma::Args a;
+  a.biasg = static_cast<const float*>(biasg);
+  a.luts = static_cast<const __nv_bfloat16*>(luts);
+  a.okey = static_cast<float*>(out_key);
+  a.oslot = static_cast<int*>(out_slot);
+  a.ofloor = static_cast<float*>(out_floor);
+  a.nbias = nbias;
+  a.M = M;
+  a.ksub = ksub;
+  const int G = nbias / K;
+  const int cpg = max(1, static_cast<int>(S / ct) / G);
+  const long long tiles = S / BN;
+  const long long split_cols = (tiles + splits - 1) / splits * BN;
+  const int qblocks = (nq + BM - 1) / BM;
+  cudaError_t err = cudaFuncSetAttribute(
+      adc_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* pk = static_cast<float*>(part_key);
+  int* ps = static_cast<int*>(part_slot);
+  adc_mma_kernel<<<qblocks * splits, adc_mma::THREADS, smem, stream>>>(
+      a, maps, nq, S, qblocks, split_cols, ct, cpg, G - 1, pk, ps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  tile_select::merge_splits<<<(nq + 3) / 4, 128, 0, stream>>>(
+      pk, ps, splits, nq, a.okey, a.oslot, a.ofloor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block: of K4's tensor-core kernel for M
+// sub-quantizers of ksub entries (tc != 0), or of the lookup scan for
+// M * ksub bf16 LUT entries per query; -1 where that instance does not take
+// the shape, which is how the wrapper chooses K4's instance.
+extern "C" long long ivfpq_adc_smem_bytes(int M, int ksub, int tc) {
+  if (tc) return tc_takes(M, ksub) ? adc_mma::smem_bytes(M) : -1;
+  const int row = adc_scan::lut_row(M * ksub);
   return row ? adc_scan::smem_bytes(false, row) : -1;
 }
 
-// cmap and cgroup null: K4 over every chunk (msteps unused); else K5 over
-// msteps worklist chunks per tile. nbias = G * 128 is biasg's row length.
+// cmap and cgroup null: K4 over every chunk (msteps unused), on the tensor
+// cores with tc != 0 (splits column splits, part_key / part_slot
+// [splits][nq][128] their top-128s until the merge, null with one split),
+// else by the lookup scan (splits 1); cmap and cgroup given: K5 over msteps
+// worklist chunks per tile by the lookup scan (tc 0). nbias = G * 128 is
+// biasg's row length.
 extern "C" int ivfpq_adc_launch(const void* biasg, const void* luts,
                                 const void* codesT, const void* n2,
                                 const void* lid, const void* cmap,
                                 const void* cgroup, void* out_key,
-                                void* out_slot, void* out_floor, int nq,
+                                void* out_slot, void* out_floor,
+                                void* part_key, void* part_slot, int nq,
                                 int nbias, int M, int ksub, long long S,
-                                int msteps, int qt, int ct, void* stream) {
+                                int msteps, int qt, int ct, int splits, int tc,
+                                void* stream) {
   const bool dyn = cmap != nullptr;
   if (nq <= 0 || qt <= 0 || nq % qt != 0 || qt % adc_scan::QB != 0 ||
       ct <= 0 || ct % 2 != 0 || S % ct != 0 || S >= (1LL << 31) || M <= 0 ||
       ksub <= 0 || ksub > 256 || adc_scan::lut_row(M * ksub) == 0 ||
       nbias <= 0 || nbias % adc_scan::K != 0 || dyn != (cgroup != nullptr) ||
-      (dyn && msteps <= 0)) {
+      (dyn && msteps <= 0) || (tc && dyn) ||
+      (!tc && (splits != 1 || part_key != nullptr || part_slot != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    return launch_tc(biasg, luts, codesT, n2, lid, out_key, out_slot, out_floor,
+                     part_key, part_slot, nq, nbias, M, ksub, S, ct, splits, st);
   }
   const int nchunks = static_cast<int>(S / ct);
   const int G = nbias / adc_scan::K;

@@ -48,6 +48,14 @@ mode) or over the tile's worklist ``cmap[r // qt, :]`` (K5, group
 ``cgroup[chunk]``). ``luts`` are bf16 (the flattened ``-2 q . codeword``
 tables), ``codesT`` [M, S] uint8 holds one code per byte, and ``biasg`` is
 the coarse term ``-2 q . c`` per grouped list column, 1e9 on unprobed lists.
+K4 runs on the tensor cores (csrc/adc_mma.cuh): the LUT sum is the TPU
+kernel's contraction of the bf16 LUTs with a one-hot of the codes, one bf16
+k-step of 16 entries per sub-quantizer into float32, for 64 queries a
+block, with the columns split across blocks as K2 does; then n2 and the
+bias are added in float32, ``(sum + n2) + bias``. It takes ksub <= 16 and an
+M * 16 LUT row that fits its shared memory; the wrapper sends other shapes
+to K5's shared-memory lookup scan (csrc/adc_scan.cuh), chosen by shape
+before the launch. K5 keeps that lookup scan.
 
 K6 ``ivfpq_fused_v3`` (csrc/ivfpq_v3.cu): counterpart of
 ivfpq_fused_pallas_v3, K4's keys over every chunk from a precomputed one-hot
@@ -73,8 +81,9 @@ qh.yh + ql.yh + qh.yl with the lo plane and qh.y + ql.y without, summed in
 float32 (the dropped ql.yl term is below 2^-16 |q| |y|). They serve 64
 queries a block, split the columns (K2) or each worklist (K1) across blocks
 so that a launch fills the card, and merge the splits' top-128s in a second
-pass of the same source; K1 stops each tile at its last non-PAD step. K3-K7
-compute in float32 on the CUDA cores (bf16 inputs upcast). The plain
+pass of the same source; K1 stops each tile at its last non-PAD step. K4's
+tensor-core instance does the same for its columns. K3 and K5-K7 compute in
+float32 on the CUDA cores (bf16 inputs upcast). The plain
 versions use float32 matrix products with TF32 off (of hi + lo summed in
 float32 for K1/K2; the ADC sum as a product with a one-hot of the codes,
 exact but summed in another order) and chunk over columns, so none builds a
@@ -107,6 +116,8 @@ RECON_QSEG = 128  # K1/K2 take d_pad in multiples of this (recon_mma.cuh QSEG)
 MAX_K_LANES = 2048  # K3's widest select (faiss's BlockSelect range)
 REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
 MAX_LUT_ROW = 2048  # K4/K5 hold M * ksub float32 LUT entries per query
+ADC_TC_BLOCK = 64  # queries per block of K4 on the tensor cores (adc_mma.cuh BM)
+ADC_TC_TILE = 128  # its columns per tile (adc_mma.cuh BN)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -132,7 +143,7 @@ KERNELS = {
         [_ci, _ci],
     ),
     "ivfpq_adc": (
-        [_vp] * 10 + [_ci, _ci, _ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci],
+        [_vp] * 12 + [_ci, _ci, _ci, _ci, _ll] + [_ci] * 5 + [_vp], [_ci] * 3,
     ),
     "ivfpq_v3": (
         [_vp] * 11 + [_ci, _ci, _ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci, _ci],
@@ -281,10 +292,11 @@ def _sm_count(index):
 
 
 def _split_count(blocks, units, sms):
-    """Splits of the columns (K2) or of each worklist (K1) so that a launch
-    of ``blocks`` blocks of 64 queries gives every one of ``sms`` SMs a
-    block (one fits per SM), without splitting ``units`` (64-column tiles
-    of K2's store, steps of K1's worklists) finer than one each."""
+    """Splits of the columns (K2, K4) or of each worklist (K1) so that a
+    launch of ``blocks`` blocks of 64 queries gives every one of ``sms`` SMs
+    a block (one fits per SM), without splitting ``units`` (64-column tiles
+    of K2's store, 128-column tiles of K4's codes, steps of K1's worklists)
+    finer than one each."""
     if blocks <= 0 or units <= 0 or sms <= 0:
         raise ValueError(f"blocks={blocks}, units={units}, sms={sms} must be positive")
     return max(1, min(sms // blocks, units))
@@ -809,6 +821,29 @@ def _adc_keys(biasg, lf, codes, n2c, lidc, groups, rows):
     return n2c[None, :] + _bias_terms(biasg, rows, groups, lidc) + lf[rows] @ onehot.T
 
 
+def adc_on_tensor_cores(M, ksub):
+    """K4's instance for a shape, as the built kernel library decides it:
+    True for the tensor-core kernel (ksub <= 16, the 16 entries of a
+    sub-quantizer being one bf16 k-step, and 64 LUT rows of M * 16 entries
+    that fit a block's shared memory, M <= 37), False for the shared-memory
+    lookup scan of adc_scan.cuh. ``ivfpq_adc_smem_bytes(M, ksub, 1)`` is -1
+    where the tensor-core kernel does not take the shape."""
+    lib, _ = build_kernel("ivfpq_adc")
+    return lib.ivfpq_adc_smem_bytes(M, ksub, 1) >= 0
+
+
+def _check_adc_tc(biasg, codesT, n2, lid, ct):
+    """What K4's tensor-core kernel needs beyond the contract: TMA reads
+    codesT, n2 and lid and the bias floor reads biasg 16 bytes at a time, so
+    their base addresses 16-byte aligned; chunks of whole 128-column tiles
+    (a tile lies in one chunk, so in one bias group). Raises ValueError."""
+    for name, t in (("biasg", biasg), ("codesT", codesT), ("n2", n2), ("lid", lid)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K4: {name} must start on a 16-byte boundary")
+    if ct % ADC_TC_TILE:
+        raise ValueError(f"K4: ct={ct} must be a multiple of {ADC_TC_TILE}")
+
+
 def ivfpq_fused(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
     """K4 (see the module docstring). ``biasg`` [nq, G * 128] float32 coarse
     term per grouped list column (1e9 on unprobed lists), ``luts`` [nq,
@@ -817,24 +852,42 @@ def ivfpq_fused(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
     Returns (keys, slots, floor); the keys lack ||q||^2.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream without synchronising; any other device raises."""
+    current stream without synchronising; any other device raises. On the
+    card the instance is chosen by shape before the launch, as the built
+    library answers :func:`adc_on_tensor_cores`: the tensor-core kernel for
+    ksub <= 16 and
+    M <= 37 (every IVF-PQ FastScan path: 4-bit codes), checked by
+    :func:`_check_adc_tc`; the lookup scan of adc_scan.cuh for wider codes
+    or rows. A failed build or launch raises."""
     M, ksub, G = _check_adc(biasg, luts, codesT, n2, lid, qt, ct)
     _static_cpg(codesT.shape[1] // ct, G)
     if not _route("K4", (biasg, luts, codesT, n2, lid)):
         return ivfpq_fused_ref(biasg, luts, codesT, n2, lid, qt=qt, ct=ct)
-    nq = luts.shape[0]
+    nq, S = luts.shape[0], codesT.shape[1]
+    tc = adc_on_tensor_cores(M, ksub)
+    splits = 1
+    if tc:
+        _check_adc_tc(biasg, codesT, n2, lid, ct)
+        splits = _split_count(-(-nq // ADC_TC_BLOCK), S // ADC_TC_TILE,
+                              _sm_count(luts.device.index or 0))
+    part_key, part_slot = _split_scratch(splits, nq, luts.device)
     keys, slots, floor = _lane_outputs(nq, luts.device)
     _launch(
         "ivfpq_adc", biasg.data_ptr(), luts.data_ptr(), codesT.data_ptr(),
         n2.data_ptr(), lid.data_ptr(), None, None, keys.data_ptr(),
-        slots.data_ptr(), floor.data_ptr(), nq, biasg.shape[1], M, ksub,
-        codesT.shape[1], 0, qt, ct, _stream(luts.device),
+        slots.data_ptr(), floor.data_ptr(), _ptr(part_key), _ptr(part_slot),
+        nq, biasg.shape[1], M, ksub, S, 0, qt, ct, splits, int(tc),
+        _stream(luts.device),
     )
     ivfpq_fused.launches += 1
+    ivfpq_fused.tc_launches += tc
+    ivfpq_fused.splits = splits
     return keys, slots, floor
 
 
 ivfpq_fused.launches = 0
+ivfpq_fused.tc_launches = 0  # launches of the tensor-core instance
+ivfpq_fused.splits = 0  # column splits of the last launch
 
 
 def ivfpq_fused_ref(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
@@ -878,8 +931,8 @@ def ivfpq_fused_dyn(biasg, luts, codesT, n2, lid, cmap, cgroup, *, qt: int = 256
     _launch(
         "ivfpq_adc", biasg.data_ptr(), luts.data_ptr(), codesT.data_ptr(),
         n2.data_ptr(), lid.data_ptr(), cmap.data_ptr(), cgroup.data_ptr(),
-        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), nq,
-        biasg.shape[1], M, ksub, codesT.shape[1], cmap.shape[1], qt, ct,
+        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), None, None, nq,
+        biasg.shape[1], M, ksub, codesT.shape[1], cmap.shape[1], qt, ct, 1, 0,
         _stream(luts.device),
     )
     ivfpq_fused_dyn.launches += 1
