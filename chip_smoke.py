@@ -14,9 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build K1-K7 (faiss_tpu_torch/csrc/*.cu: ivf_recon_dyn, ivf_recon,
      knn_fused, ivfpq_adc, ivfpq_v3, recon_floor), one nvcc per source, all
      started together, and print each one's ptxas register lines and
-     dynamic shared memory; K4's tensor-core instance must spill no
-     register, and the built library must route PQ32x4fs and M <= 37 4-bit
-     rows to it, ksub > 16 and wider rows to the lookup scan;
+     dynamic shared memory; K3's five kernels and K4's tensor-core
+     instance must spill no register, and the built library must route
+     PQ32x4fs and M <= 37 4-bit rows to K4's, ksub > 16 and wider rows to
+     the lookup scan;
   3. regenerate the 1M x 128 Gaussian mixture of bench.py (seeds 42, 1, 2, 3);
   4. train and add IndexRefineFlat(IndexIVFPQFastScan(d=128, nlist=4096,
      M=32, nbits=4), store_float16=True) on the card, then stage the search
@@ -115,13 +116,27 @@ just before it and read just after, and must launch its path's kernel:
  21. K2 (hi/lo and one plane) on the first 4096-query screen sub-batch
      against the full store, K2 hi/lo on the first and the last (pad-filled)
      k=1024 stripe as the striped path passes them (column slices of the
-     stripe-grid store, row stride wider than the slice), and K3 at k_lanes
-     128 and 2048, against their plain versions: keys within
-     1e-4 * (|q|^2 + n2), ids tie-aware;
+     stripe-grid store, row stride wider than the slice), against their
+     plain versions: keys within 1e-4 * (|q|^2 + n2), ids tie-aware; then
+     K3 against its plain version, values within 1e-4 * (|q|^2 + |y_s|^2)
+     and ids tie-aware, the floor all +inf (L2) or -inf (IP), and every
+     row's candidates within the buffer's bound (k_lanes - 1) * 32 +
+     k_lanes, printed with their mean and max, the scratch and the peak
+     device memory: L2 at k_lanes 128 (8192 q) and 2048 (1024 q), IP at
+     k_lanes 256 (1024 q), k_lanes 2048 over the store's columns sorted by
+     the mixture centre each vector was drawn from (an IVF-like order, the
+     adversarial one for the threshold), k_lanes 128 over a store whose
+     every column appears 8 times (ties), and 72 queries at d = 20 (IP,
+     k_lanes 2048) and d = 200 (L2, k_lanes 384) over uniform stores of
+     70,001 and 50,001 columns;
  22. time K2 (full store and one stripe) and K3 and their plain versions
-     with CUDA events (plain, kernel, kernel, plain), and ``search`` of the
-     8192 queries at k=100 and k=1024 by host clock, median of 5, with QPS;
-     peak device memory.
+     with CUDA events (plain, kernel, kernel, plain), K3's five kernels
+     one by one (the norms, pass 1, the threshold select, pass 2, the final
+     select), ``search`` of the 8192 queries at k=100 and k=1024, and the
+     fused searches of phase 19, by host clock, median of 5, with QPS; peak
+     device memory. As a note
+     beside K3 (not its library_ms), cuBLAS float32 torch.mm of x @ yT at
+     both shapes, TF32 off, the product alone.
 The flat index is then freed, and IVF-Flat search (BASELINE config 3)
 follows on the same data. Every search below runs with all launch counts
 set to 0 just before it and read just after, prints the branch it took
@@ -172,7 +187,9 @@ and three with hi/lo (qh.yh + ql.yh + qh.yl), at 989 TFLOP/s; for the ADC
 kernels (K4-K6) the contraction of the LUTs with the one-hot of the codes
 (M * 16 rows in the LUTs' type, bf16 at 989 TFLOP/s or int8 at 1979 TOP/s)
 and of the coarse term, as bf16 hi + lo, with the 128 local-list rows. K3
-scores a float32 store exactly: float32 FMAs at 67 TFLOP/s. Rates are an
+scores a float32 store at float32 accuracy: the product once as 3xTF32 (three
+TF32 products, the same work as the TPU's six bf16 products of HIGHEST) at
+495 TFLOP/s. Rates are an
 H100 SXM's dense peaks at 700 W; only the slots that hold a vector are
 counted (K6's bytes count its one-hot). Phase 12a also prints the bound of
 K6's own design (and K5's; K4's until it moved to the tensor cores), M + 1
@@ -306,9 +323,10 @@ def reset_counts(fused_knn):
 
 
 # H100 SXM at 700 W, datasheet dense peaks: float32 outside the tensor
-# cores, bf16 and int8 on them, an FMA counted as 2 operations; HBM bytes
-# per second
+# cores, bf16, TF32 and int8 on them, an FMA counted as 2 operations; HBM
+# bytes per second
 PEAK_FLOPS, PEAK_BF16, PEAK_INT8, PEAK_BYTES = 67e12, 989e12, 1979e12, 3.35e12
+PEAK_TF32 = 495e12
 
 
 @functools.lru_cache(maxsize=None)
@@ -1360,6 +1378,70 @@ def flat_search(fused_knn, what, fn, kernel, nq, k):
     return Dp, Ip, launches
 
 
+def k3_check(fused_knn, what, xq, yT, nb, metric_l2, k_lanes, yn, dev,
+             ids_agree_tie_aware):
+    """K3 against its plain version on the queries ``xq`` over the store
+    ``yT`` (``yn``: the column norms in store order): the floor all +inf
+    (L2) or -inf (IP), values within 1e-4 * (|q|^2 + |y_s|^2), ids
+    tie-aware, and every row's candidates within the buffer's bound.
+    Returns max_abs_err."""
+    x = torch.from_numpy(xq).to(dev)
+    kw = dict(metric_l2=metric_l2, qt=min(512, len(xq)), k_lanes=k_lanes)
+    kv, ki, kf = fused_knn.knn_fused(x, yT, nb, **kw)
+    counts = fused_knn.knn_fused.counts.cpu().numpy()
+    scratch = fused_knn.knn_fused.scratch_bytes
+    rv, ri, _ = fused_knn.knn_fused_ref(x, yT, nb, **kw)
+    torch.cuda.synchronize()
+    inf = float("inf") if metric_l2 else float("-inf")
+    check(bool((kf == inf).all()), f"{what}: floor is not all {inf}")
+    sign = 1.0 if metric_l2 else -1.0  # ascending keys for the comparison
+    rin = ri.cpu().numpy()
+    qn = (x.double() ** 2).sum(1).cpu().numpy()
+    tol = 1e-4 * (qn[:, None] + np.where(rin >= 0, yn[np.maximum(rin, 0)], 0))
+    e = compare_lanes(sign * kv, ki, sign * rv, ri, tol, what, ids_agree_tie_aware)
+    lt_cap = fused_knn.knn_lt_cap(k_lanes)
+    cand = counts[:, 0] + np.minimum(counts[:, 1], k_lanes)
+    bound = fused_knn.knn_candidates(k_lanes)
+    check((counts[:, 0] <= lt_cap).all() and (cand <= bound).all(),
+          f"{what}: {int(counts[:, 0].max())} pairs below the threshold, "
+          f"more than the lt region's {lt_cap}")
+    print(f"{what} vs plain [{len(xq)} q x {nb} columns]: max_abs_err {e:.3e}, "
+          f"ids agree on all rows, floor all {inf}; candidates per row mean "
+          f"{cand.mean():.1f}, max {int(cand.max())} of the bound {bound} "
+          f"(lt max {int(counts[:, 0].max())}, eq max {int(counts[:, 1].max())}); "
+          f"{fused_knn.knn_fused.splits} column splits, scratch "
+          f"{scratch / 2**20:.1f} MiB, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return e
+
+
+def k3_phases(fused_knn, x, yT, k_lanes):
+    """K3's kernels one after another on one sub-batch, by CUDA events: each
+    phase's time is that of the launch through it less that of the launch
+    before it (the phases read what the earlier ones wrote)."""
+    nq, nb = x.shape[0], NB
+    check(fused_knn.knn_sub_batch(nq, nb, k_lanes) == nq, "K3: not one sub-batch")
+    scratch = fused_knn.knn_scratch(yT, nb, nq, nq, k_lanes)
+    splits = fused_knn._split_count(-(-nq // fused_knn.KNN_BLOCK),
+                                    -(-nb // fused_knn.KNN_TILE),
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
+    out = (torch.empty(nq, k_lanes, device=x.device),
+           torch.empty(nq, k_lanes, dtype=torch.int32, device=x.device),
+           torch.empty(nq, 128, device=x.device))
+    phases = ((fused_knn.KNN_PHASE_N2, "n2"), (fused_knn.KNN_PHASE_MIN, "MIN"),
+              (fused_knn.KNN_PHASE_THETA, "theta"),
+              (fused_knn.KNN_PHASE_APPEND, "APPEND"),
+              (fused_knn.KNN_PHASE_FINAL, "final"))
+    cum, prev, parts = 0, 0.0, []
+    for bit, name in phases:
+        cum |= bit
+        ms = cuda_ms(lambda: fused_knn.knn_fused_launch(
+            x, yT, nb, True, k_lanes, 512, 1024, scratch, 0, out, splits, cum), 3)
+        parts.append(f"{name} {ms - prev:.3f}")
+        prev = ms
+    return "phases (ms): " + ", ".join(parts)
+
+
 def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
     """Phases 15-22: exact flat search and K2/K3. Returns their entries of
     the kernels' JSON line; K2's launches and max_abs_err start at
@@ -1499,22 +1581,45 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
     del lk_hi, lk_lo, lk_n2s, stripe_args
     xbT = flat._xbT_dev()
     yn = flat._norms.cpu().numpy()
-    k3_err = {}
-    for k_lanes, nq in ((128, NQ), (2048, 1024)):
-        x = torch.from_numpy(xq[:nq]).to(dev)
-        kw = dict(metric_l2=True, qt=512, k_lanes=k_lanes)
-        kv, ki, kf = fused_knn.knn_fused(x, xbT, NB, **kw)
-        rv, ri, _ = fused_knn.knn_fused_ref(x, xbT, NB, **kw)
-        torch.cuda.synchronize()
-        check(bool(torch.isinf(kf).all()), "K3: floor is not all +inf")
-        rin = ri.cpu().numpy()
-        tol = 1e-4 * (qn[:nq].cpu().numpy()[:, None]
-                      + np.where(rin >= 0, yn[np.maximum(rin, 0)], 0))
-        e = compare_lanes(kv, ki, rv, ri, tol, f"K3 k_lanes={k_lanes}",
-                          ids_agree_tie_aware)
-        k3_err[k_lanes] = e
-        print(f"K3 k_lanes={k_lanes} vs plain [{nq} q x {NB} columns]: "
-              f"max_abs_err {e:.3e}, ids agree on all rows", flush=True)
+    k3_err = {128: 0.0, 2048: 0.0}
+    # the two shapes of the fused path, IP at k_lanes 256, then k_lanes 2048
+    # over the columns in an IVF-like order (sorted by the mixture centre
+    # each vector was drawn from, bench.py:235-237) and over a store of
+    # duplicated columns (ties)
+    for k_lanes, nq, metric_l2 in ((128, NQ, True), (2048, 1024, True),
+                                   (256, 1024, False)):
+        e = k3_check(fused_knn, f"K3 {'L2' if metric_l2 else 'IP'} k_lanes={k_lanes}",
+                     xq[:nq], xbT, NB, metric_l2, k_lanes, yn, dev,
+                     ids_agree_tie_aware)
+        if metric_l2:
+            k3_err[k_lanes] = e
+    centre = np.random.RandomState(1).randint(2048, size=NB)
+    perm = torch.from_numpy(np.argsort(centre, kind="stable")).to(dev)
+    ivf = torch.zeros_like(xbT)
+    ivf[:, :NB] = xbT[:, perm]
+    k3_err[2048] = max(k3_err[2048], k3_check(
+        fused_knn, "K3 L2 k_lanes=2048, IVF-ordered columns", xq[:1024], ivf, NB,
+        True, 2048, yn[perm.cpu().numpy()], dev, ids_agree_tie_aware))
+    rep = np.random.RandomState(4).permutation(NB) % (NB // 8)  # each row 8 times
+    dup = torch.zeros_like(xbT)
+    dup[:, :NB] = xbT[:, torch.from_numpy(rep).to(dev)]
+    del ivf, perm
+    k3_err[128] = max(k3_err[128], k3_check(
+        fused_knn, "K3 L2 k_lanes=128, every column 8 times", xq[:1024], dup, NB,
+        True, 128, yn[rep], dev, ids_agree_tie_aware))
+    del dup
+    # off the main path's shapes: d below one ring stage (zero-filled dims)
+    # and above the resident query segment (reloaded per tile), 72 queries
+    # (a partial block), nb inside a tile, k_lanes 2048 (IP) and 384
+    rs = np.random.RandomState(5)
+    for d, nb, k_lanes, metric_l2 in ((20, 70_001, 2048, False), (200, 50_001, 384, True)):
+        y = torch.zeros(d, -(-nb // 1024) * 1024, device=dev)
+        y[:, :nb] = torch.from_numpy(rs.rand(d, nb).astype(np.float32)).to(dev)
+        k3_check(fused_knn, f"K3 {'L2' if metric_l2 else 'IP'} k_lanes={k_lanes}, d={d}",
+                 rs.rand(72, d).astype(np.float32), y, nb, metric_l2, k_lanes,
+                 (y[:, :nb].double() ** 2).sum(0).float().cpu().numpy(), dev,
+                 ids_agree_tie_aware)
+    del y
 
     # times
     k2_ms, k2_plain, t = turns(
@@ -1534,16 +1639,31 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
             lambda: fused_knn.knn_fused(x, xbT, NB, **kw), 2)
         t = k3_times[k_lanes][2]
         print(f"K3 k_lanes={k_lanes} {t[1]:.2f} / {t[2]:.2f} ms, plain "
-              f"{t[0]:.2f} / {t[3]:.2f} ms per {nq}-query bucket", flush=True)
+              f"{t[0]:.2f} / {t[3]:.2f} ms per {nq}-query bucket; "
+              f"{k3_phases(fused_knn, x, xbT, k_lanes)}", flush=True)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mm = cuda_ms(lambda: torch.mm(x, xbT), 2)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        print(f"note: cuBLAS float32 torch.mm of x @ yT [{nq} x {D}] x [{D} x "
+              f"{xbT.shape[1]}] (allow_tf32 False; the product alone, no select): "
+              f"{mm:.2f} ms", flush=True)
     for k in (100, 1024):
         med, times = host_median(lambda: flat.search(xq, k))
         print(f"IndexFlatL2 search of {NQ} queries at k={k}: median "
               f"{med * 1e3:.1f} ms over 5 ({', '.join(f'{t * 1e3:.1f}' for t in times)})"
               f" -> {NQ / med:.0f} QPS", flush=True)
+    flat.flat_screen = False  # the fused path (K3), as phase 19
+    for k, nq in ((100, NQ), (2000, 1024)):
+        med, times = host_median(lambda: flat.search(xq[:nq], k))
+        print(f"IndexFlatL2 fused search (flat_screen=False) of {nq} queries at "
+              f"k={k}: median {med * 1e3:.1f} ms over 5 "
+              f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> {nq / med:.0f} QPS",
+              flush=True)
+    flat.flat_screen = True
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    # K3 has one entry per k_lanes the path runs: it beats its plain version
-    # at 128 and loses to it at 2048
+    # K3 has one entry per k_lanes the path runs
     # K2 hi/lo: every column and query (ops_s, two planes); both planes, n2
     # and the queries read once
     S2 = yT_hi.shape[1]
@@ -1557,7 +1677,7 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
         entry(f"knn_fused[k_lanes={k_lanes}]", "faiss_tpu_torch/csrc/knn_fused.cu",
               "faiss_tpu/ops/pallas_knn.py:261", k3_launches[k_lanes],
               k3_err[k_lanes], k3_times[k_lanes][0], k3_times[k_lanes][1],
-              2 * nq * NB * D / PEAK_FLOPS,
+              3 * 2 * nq * NB * D / PEAK_TF32,
               nq * D * 4 + nbytes(xbT) + nq * (k_lanes * 8 + 128 * 4))
         for k_lanes, nq in ((128, NQ), (2048, 1024))
     ]
@@ -1850,9 +1970,7 @@ def main():
             for i, m in ((0, "bf16"), (1, "int8"))
         ),
         "recon_floor": lambda lib: f"{lib.recon_floor_smem_bytes(D)}",
-        "knn_fused": lambda lib: ", ".join(
-            f"{lib.knn_fused_smem_bytes(D, kl)} (k_lanes {kl})" for kl in (128, 2048)
-        ),
+        "knn_fused": lambda lib: f"{lib.knn_fused_smem_bytes(D, 128)} (product passes)",
     }
     for name, (lib, report) in built.items():
         print(f"{name}: ptxas " + "; ".join(
@@ -1863,6 +1981,13 @@ def main():
             for m in [re.search(r"entry function '\w*?(I(?:L[bi]\d+E)+E)", line)]
             if m or "registers" in line or "spill" in line
         ) + f"; dynamic smem {smem[name](lib)} B/block", flush=True)
+    # K3's five kernels (the norms, the two product passes, the two selects)
+    report = built["knn_fused"][1]
+    k3_regs = re.findall(r"Used (\d+) registers", report)
+    check(len(k3_regs) >= 5 and report.count(" 0 bytes spill stores, 0 bytes spill loads")
+          == report.count("spill stores"), f"K3's kernels spill: {report}")
+    print(f"K3: {len(k3_regs)} kernels, registers {', '.join(k3_regs)}, no spill",
+          flush=True)
     lib, report = built["ivfpq_adc"]
     lines = report.splitlines()
     at = next(i for i, line in enumerate(lines)

@@ -1,4 +1,5 @@
-// The exact top-K select shared by the port's scan kernels (K1, K2, K3).
+// The exact top-K select of the lookup scans of adc_scan.cuh (K5, K6, and K4
+// where the tensor cores do not take its shape).
 //
 // The TPU kernels keep an approximate top-K (per-lane insertion queues,
 // bitonic flushes on a fixed schedule, an eviction floor) because a

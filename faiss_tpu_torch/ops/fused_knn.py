@@ -35,7 +35,18 @@ K3 ``knn_fused`` (csrc/knn_fused.cu): exact float32 brute-force k-NN,
 counterpart of knn_fused_pallas. Top-``k_lanes`` values best-first WITH the
 query norm (L2: ``max(||q||^2 + ||y||^2 - 2 q.y, 0)``; IP: ``q.y``, largest
 first), int32 ids (-1 with +inf / -inf where none) and the floor [nq, 128]
-(+inf for L2, -inf for IP).
+(+inf for L2, -inf for IP). An exact top-2048 is 16 KB a query, too much
+to keep in shared memory for the 64 queries a block needs on the tensor
+cores, so K3 keeps no per-query state there and runs its products twice
+(csrc/knn_mma.cuh: 3xTF32 on mma.sync, the float32 store by TMA, 64
+queries a block, the columns split across blocks): pass 1 writes each
+query's smallest key of every bucket of KNN_BUCKET consecutive columns; a
+radix select (csrc/radix_select.cuh) takes the k_lanes-th smallest bucket
+minimum as a threshold theta; pass 2 appends every key below theta (at most
+``knn_lt_cap(k_lanes)`` pairs, since fewer than k_lanes buckets hold one)
+and up to k_lanes keys equal to it to a candidate buffer in device memory;
+a final select sorts the best k_lanes. The wrapper allocates that scratch
+and runs query sub-batches that keep it within KNN_SCRATCH_CAP.
 
 K4 ``ivfpq_fused`` and K5 ``ivfpq_fused_dyn`` (csrc/ivfpq_adc.cu): the
 code-streaming IVF-PQ ADC scans, counterparts of ivfpq_fused_pallas and
@@ -82,7 +93,7 @@ float32 (the dropped ql.yl term is below 2^-16 |q| |y|). They serve 64
 queries a block, split the columns (K2) or each worklist (K1) across blocks
 so that a launch fills the card, and merge the splits' top-128s in a second
 pass of the same source; K1 stops each tile at its last non-PAD step. K4's
-tensor-core instance does the same for its columns. K3 and K5-K7 compute in
+tensor-core instance does the same for its columns. K5-K7 compute in
 float32 on the CUDA cores (bf16 inputs upcast). The plain
 versions use float32 matrix products with TF32 off (of hi + lo summed in
 float32 for K1/K2; the ADC sum as a product with a one-hot of the codes,
@@ -109,7 +120,7 @@ import torch
 from .topk import merge_topk
 
 LANES = 128  # top-K width of the K1/K2 contract; floor width of K3
-QUERIES_PER_BLOCK = 8  # QB of K3-K7: every kernel's qt must be a multiple
+QUERIES_PER_BLOCK = 8  # QB of K5-K7: every kernel's qt must be a multiple
 RECON_BLOCK = 64  # queries per block of K1 and K2 (recon_mma.cuh BM)
 RECON_TILE = 64  # columns per tile of K1 and K2 (recon_mma.cuh BN)
 RECON_QSEG = 128  # K1/K2 take d_pad in multiples of this (recon_mma.cuh QSEG)
@@ -118,6 +129,16 @@ REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
 MAX_LUT_ROW = 2048  # K4/K5 hold M * ksub float32 LUT entries per query
 ADC_TC_BLOCK = 64  # queries per block of K4 on the tensor cores (adc_mma.cuh BM)
 ADC_TC_TILE = 128  # its columns per tile (adc_mma.cuh BN)
+KNN_BLOCK = 64  # queries per block of K3's product passes (knn_mma.cuh BM)
+KNN_TILE = 256  # their columns per tile (knn_mma.cuh BN)
+KNN_BUCKET = 32  # columns per bucket of K3's threshold (knn_mma.cuh W)
+KNN_SCRATCH_CAP = 2 << 30  # bytes of K3's per-row scratch per launch
+# K3's kernels, in launch order (knn_fused.cu PHASE_*): the store's norms,
+# pass 1 (bucket minima), the threshold select, pass 2 (appends), the final
+# select
+KNN_PHASE_N2, KNN_PHASE_MIN, KNN_PHASE_THETA, KNN_PHASE_APPEND, KNN_PHASE_FINAL = (
+    1, 2, 4, 8, 16)
+KNN_ALL_PHASES = 31
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -139,7 +160,8 @@ KERNELS = {
         [_ci],
     ),
     "knn_fused": (
-        [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp],
+        [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _vp] + [_ci] * 5
+        + [_vp, _vp, _ll, _vp, _vp, _vp, _ci, _ci, _vp],
         [_ci, _ci],
     ),
     "ivfpq_adc": (
@@ -713,6 +735,52 @@ def _check_knn(x, yT, nb, qt, ct, k_lanes):
     _check_aligned("yT", yT, 8)
 
 
+def _check_knn_mma(yT):
+    """What the tensor-core K3 needs of its store beyond the contract: TMA
+    reads it, so its base address 16-byte aligned and its row stride a
+    multiple of 4 columns (16 bytes). Raises ValueError."""
+    if yT.data_ptr() % 16:
+        raise ValueError("K3: yT must start on a 16-byte boundary")
+    if yT.stride(0) % 4:
+        raise ValueError(
+            f"K3: the store's row stride {yT.stride(0)} must be a multiple of "
+            "4 columns (16 bytes)"
+        )
+
+
+def knn_buckets(nb: int) -> int:
+    """K3's buckets over ``nb`` columns: runs of KNN_BUCKET consecutive
+    columns, the last one partial."""
+    return -(-int(nb) // KNN_BUCKET)
+
+
+def knn_lt_cap(k_lanes: int) -> int:
+    """Pairs of a row's lt region: fewer than k_lanes buckets have a minimum
+    below the threshold, and only they hold keys below it."""
+    return (k_lanes - 1) * KNN_BUCKET
+
+
+def knn_candidates(k_lanes: int) -> int:
+    """Pairs of a row's candidate buffer: the lt region, then k_lanes pairs
+    of keys equal to the threshold (the eq region)."""
+    return knn_lt_cap(k_lanes) + k_lanes
+
+
+def knn_row_bytes(nb: int, k_lanes: int) -> int:
+    """K3's scratch per query row: its bucket minima (float32), threshold
+    (float32), two counters (int32) and candidate pairs (key, column)."""
+    return 4 * knn_buckets(nb) + 4 + 8 + 8 * knn_candidates(k_lanes)
+
+
+def knn_sub_batch(nq: int, nb: int, k_lanes: int) -> int:
+    """Queries per K3 launch: as many as keep the per-row scratch within
+    KNN_SCRATCH_CAP, in whole blocks of KNN_BLOCK queries (in whole
+    multiples of 8 below one block), at least 8 and at most nq."""
+    rows = KNN_SCRATCH_CAP // knn_row_bytes(nb, k_lanes)
+    step = KNN_BLOCK if rows >= KNN_BLOCK else QUERIES_PER_BLOCK
+    return min(nq, max(QUERIES_PER_BLOCK, rows // step * step))
+
+
 def knn_fused(x, yT, nb: int, *, metric_l2: bool = True, qt: int = 512,
               ct: int = 1024, k_lanes: int = LANES):
     """K3 (see the module docstring). ``x`` [nq, d] float32, ``yT`` [d, nbp]
@@ -720,26 +788,82 @@ def knn_fused(x, yT, nb: int, *, metric_l2: bool = True, qt: int = 512,
     Returns (values [nq, k_lanes] f32, ids int32, floor [nq, 128] f32).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream without synchronising; any other device raises."""
+    current stream without synchronising, in sub-batches of
+    ``knn_sub_batch`` queries (one launch each); any other device raises.
+    After a launch, ``knn_fused.counts`` [nq, 2] int32 holds each row's
+    appended lt and eq pairs (the eq count before the region's cap) and
+    ``knn_fused.scratch_bytes`` the scratch it allocated."""
     nb = int(nb)
     _check_knn(x, yT, nb, qt, ct, k_lanes)
     if not _route("K3", (x, yT)):
         return knn_fused_ref(x, yT, nb, metric_l2=metric_l2, qt=qt, ct=ct,
                              k_lanes=k_lanes)
-    nq, d = x.shape
+    _check_knn_mma(yT)
+    nq = x.shape[0]
+    sub = knn_sub_batch(nq, nb, k_lanes)
+    scratch = knn_scratch(yT, nb, sub, nq, k_lanes)
+    splits = _split_count(-(-sub // KNN_BLOCK), max(1, -(-nb // KNN_TILE)),
+                          _sm_count(x.device.index or 0))
     vals = torch.empty(nq, k_lanes, dtype=torch.float32, device=x.device)
     ids = torch.empty(nq, k_lanes, dtype=torch.int32, device=x.device)
     floor = torch.empty(nq, LANES, dtype=torch.float32, device=x.device)
-    _launch(
-        "knn_fused", x.data_ptr(), yT.data_ptr(), yT.shape[1], nb,
-        int(metric_l2), vals.data_ptr(), ids.data_ptr(), floor.data_ptr(),
-        nq, d, k_lanes, qt, ct, _stream(x.device),
-    )
-    knn_fused.launches += 1
+    for q0 in range(0, nq, sub):
+        q1 = min(nq, q0 + sub)
+        knn_fused_launch(
+            x[q0:q1], yT, nb, metric_l2, k_lanes, qt, ct, scratch, q0,
+            (vals[q0:q1], ids[q0:q1], floor[q0:q1]), splits,
+            KNN_ALL_PHASES if q0 == 0 else KNN_ALL_PHASES & ~KNN_PHASE_N2,
+        )
+        knn_fused.launches += 1
+    knn_fused.counts = scratch["counts"]
+    knn_fused.scratch_bytes = sum(t.numel() * t.element_size()
+                                  for t in scratch.values())
+    knn_fused.splits = splits
     return vals, ids, floor
 
 
 knn_fused.launches = 0
+knn_fused.counts = None
+knn_fused.scratch_bytes = 0
+knn_fused.splits = 1
+
+
+def knn_scratch(yT, nb, sub, nq, k_lanes):
+    """K3's scratch, from torch.empty (the kernels allocate nothing): the
+    store's column norms ``n2`` (every tile's columns), the bucket minima
+    and candidate pairs of one sub-batch of ``sub`` rows, and the
+    thresholds and counters of all ``nq`` rows."""
+    dev = yT.device
+    ncols = max(1, -(-yT.shape[1] // KNN_TILE)) * KNN_TILE
+    return {
+        "n2": torch.empty(ncols, dtype=torch.float32, device=dev),
+        "minima": torch.empty(sub, max(1, knn_buckets(nb)), dtype=torch.float32,
+                              device=dev),
+        "theta": torch.empty(nq, dtype=torch.float32, device=dev),
+        "counts": torch.empty(nq, 2, dtype=torch.int32, device=dev),
+        "cand": torch.empty(sub, knn_candidates(k_lanes), 2, dtype=torch.int32,
+                            device=dev),
+    }
+
+
+def knn_fused_launch(x, yT, nb, metric_l2, k_lanes, qt, ct, scratch, row0, out,
+                     splits, phases):
+    """One launch of K3's kernels (the ``phases`` bits of KNN_ALL_PHASES, in
+    order) for the rows ``x`` (a sub-batch starting at row ``row0`` of the
+    call) into ``out`` = (values, ids, floor) of those rows, on the
+    scratch of knn_scratch. knn_fused calls it with every phase (n2 only on
+    its first sub-batch); chip_smoke.py times the phases with it. Counts no
+    launch."""
+    vals, ids, floor = out
+    nq, d = x.shape
+    _launch(
+        "knn_fused", x.data_ptr(), yT.data_ptr(), yT.stride(0), nb,
+        int(metric_l2), vals.data_ptr(), ids.data_ptr(), floor.data_ptr(),
+        nq, d, k_lanes, qt, ct, scratch["n2"].data_ptr(),
+        scratch["minima"].data_ptr(), scratch["minima"].shape[1],
+        scratch["theta"][row0:].data_ptr(), scratch["counts"][row0:].data_ptr(),
+        scratch["cand"].data_ptr(), splits, phases, _stream(x.device),
+    )
 
 
 def knn_fused_ref(x, yT, nb: int, *, metric_l2: bool = True, qt: int = 512,
