@@ -14,10 +14,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build K1-K7 (faiss_tpu_torch/csrc/*.cu: ivf_recon_dyn, ivf_recon,
      knn_fused, ivfpq_adc, ivfpq_v3, recon_floor), one nvcc per source, all
      started together, and print each one's ptxas register lines and
-     dynamic shared memory; K3's five kernels and K4's tensor-core
-     instance must spill no register, and the built library must route
-     PQ32x4fs and M <= 37 4-bit rows to K4's, ksub > 16 and wider rows to
-     the lookup scan;
+     dynamic shared memory; K3's five kernels and the tensor-core
+     instances of K4 and of K6 (bf16 and int8 LUTs) must spill no
+     register, and the built libraries must route PQ32x4fs and 4-bit rows
+     up to M = 37 (K4, K6 bf16) or 61 (K6 int8) to the tensor cores, ksub
+     > 16 and wider rows to the lookup scan;
   3. regenerate the 1M x 128 Gaussian mixture of bench.py (seeds 42, 1, 2, 3);
   4. train and add IndexRefineFlat(IndexIVFPQFastScan(d=128, nlist=4096,
      M=32, nbits=4), store_float16=True) on the card, then stage the search
@@ -60,15 +61,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (seconds, GiB); every 2048-query sub-batch through K6 bf16, K6 int8
      (int8 LUTs with their (a, c) from the float32 LUTs) and K4 on the
      unmasked coarse term, printing profile_v3's candidate recall (the
-     top-120 slots hold the ground-truth top-10); K4 of the path against
-     its plain version on every sub-batch (its columns split across blocks
-     and merged; the run fails unless they split); on the first sub-batch
-     each K6 mode against its plain version, bf16 against K4 (the same
-     function), keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key| and ids
-     tie-aware, int8 on 64 rows against a float64 a * acc + c + bias + n2
-     of its slots; times in turns, K4 too (with its splits); as a note
-     beside K4 (not its library_ms), cuBLAS bf16 torch.mm of the sub-batch's
-     LUTs with the one-hot's M * 16 PQ rows: the same products, no bias, no
+     top-120 slots hold the ground-truth top-10); every K6 launch of the
+     path must take the tensor-core instance of its mode, its columns
+     split across blocks; K4 and each K6 mode of the path against their
+     plain versions on every sub-batch (keys within 1e-4 * (|q|^2 + n2) +
+     1e-6 * |key|, ids tie-aware, floor all +inf; K4's columns must split);
+     on the first sub-batch, K6 bf16 against K4 (the same function), K6
+     int8 on 64 rows against a float64 a * acc + c + bias + n2 of its
+     slots, and each mode timed in turns with its plain version, K4 too
+     (with its splits); K6 int8 on 256 queries whose (a, c) vary by lane on
+     every third row (the ungated path) against its plain version; K6 at
+     ksub = 32 (M = 8, 256 queries over 65,536 columns of random codes),
+     which must take the lookup scan of adc_scan.cuh, in both modes against
+     its plain version; as notes beside K4 and K6 (not their library_ms),
+     cuBLAS bf16 torch.mm and int8 torch._int_mm of the sub-batch's LUTs
+     with the one-hot's M * 16 PQ rows: the same products, no bias, no
      select;
  12b. K7 over the decoded store on the 8192 queries in 2048-query
      sub-batches; on the first, against its plain version and the minimum
@@ -186,14 +193,16 @@ kernels' bf16 products of the query split into hi + lo, two with one plane
 and three with hi/lo (qh.yh + ql.yh + qh.yl), at 989 TFLOP/s; for the ADC
 kernels (K4-K6) the contraction of the LUTs with the one-hot of the codes
 (M * 16 rows in the LUTs' type, bf16 at 989 TFLOP/s or int8 at 1979 TOP/s)
-and of the coarse term, as bf16 hi + lo, with the 128 local-list rows. K3
+alone: they add the coarse bias by one lookup and one add a key, so the
+TPU's contraction of it with the 128 local-list rows is not counted. K3
 scores a float32 store at float32 accuracy: the product once as 3xTF32 (three
 TF32 products, the same work as the TPU's six bf16 products of HIGHEST) at
 495 TFLOP/s. Rates are an
 H100 SXM's dense peaks at 700 W; only the slots that hold a vector are
 counted (K6's bytes count its one-hot). Phase 12a also prints the bound of
-K6's own design (and K5's; K4's until it moved to the tensor cores), M + 1
-shared-memory LUT lookups per key at 32 a clock per SM, as a note.
+the lookup scan's design (K5's; K4's and K6's until they moved to the
+tensor cores), M + 1 shared-memory LUT lookups per key at 32 a clock per
+SM, as a note.
 """
 
 import functools
@@ -314,6 +323,7 @@ def reset_counts(fused_knn):
               fused_knn.recon_floor):
         f.launches = 0
     fused_knn.ivfpq_fused_v3.int8_launches = 0
+    fused_knn.ivfpq_fused_v3.tc_launches = 0
     fused_knn.ivfpq_fused.tc_launches = 0
     fused_knn.ivf_recon_fused_dyn.penalized_launches = 0
     fused_knn.ivf_recon_fused.masked_launches = 0
@@ -352,14 +362,15 @@ def ops_s(store, keys, planes=1, int8=False):
     bf16 hi + lo, the TPU kernels' bf16 products of d_pad, qh.y + ql.y with
     one plane and qh.yh + ql.yh + qh.yl with two (the TPU drops the ql.yl
     term, below 2^-16 |q| |y|). A code store (uint8 [M, S] of 4-bit
-    codes): K6's contraction, the LUTs (bf16, or int8 with ``int8``)
-    against the M * 16 one-hot rows, plus the coarse term as bf16 hi + lo
-    against the 128 local-list rows."""
+    codes): the PQ contraction alone, the LUTs (bf16, or int8 with
+    ``int8``) against the M * 16 one-hot rows. The coarse bias is one
+    lookup and one add a key in K4-K6 (the list ids are at hand), not the
+    TPU's bf16 hi + lo contraction over 128 local-list rows, so it is not
+    counted."""
     if store.dtype != torch.uint8:
         products = 3 if planes == 2 else 2
         return keys * 2 * store.shape[0] * products / PEAK_BF16
-    pq = keys * 2 * store.shape[0] * 16 / (PEAK_INT8 if int8 else PEAK_BF16)
-    return pq + keys * 2 * 2 * 128 / PEAK_BF16
+    return keys * 2 * store.shape[0] * 16 / (PEAK_INT8 if int8 else PEAK_BF16)
 
 
 def lookup_s(codes, keys):
@@ -944,25 +955,31 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
     # the path: every 2048-query sub-batch through both modes, and K4 over
     # the same codes, with profile_v3's candidate recall
     reset_counts(fused_knn)
-    cand = {"K4": [], "K6 bf16": [], "K6 int8": []}
-    k4_out = []
+    outs = {"K4": [], "K6 bf16": [], "K6 int8": []}
     for s0 in range(0, NQ, BATCH):
         x = xq_all[s0 : s0 + BATCH]
         for int8 in (False, True):
-            cand[f"K6 {'int8' if int8 else 'bf16'}"].append(
-                fused_knn.ivfpq_fused_v3(*args(x, int8), **kw)[1])
+            outs[f"K6 {'int8' if int8 else 'bf16'}"].append(
+                fused_knn.ivfpq_fused_v3(*args(x, int8), **kw))
         a = args(x, False)
-        k4_out.append(fused_knn.ivfpq_fused(a[0], a[1], codesT, n2, lid,
-                                            qt=256, ct=ct))
-        cand["K4"].append(k4_out[-1][1])
+        outs["K4"].append(fused_knn.ivfpq_fused(a[0], a[1], codesT, n2, lid,
+                                                qt=256, ct=ct))
     torch.cuda.synchronize()
     k4_splits = fused_knn.ivfpq_fused.splits
     v3 = fused_knn.ivfpq_fused_v3
     launches = {False: v3.launches - v3.int8_launches, True: v3.int8_launches}
     check(all(launches.values()), f"K6 launches by mode (int8?) {launches}")
+    check(v3.tc_launches == v3.launches,
+          f"{v3.launches - v3.tc_launches} of {v3.launches} K6 launches took the "
+          "lookup scan, not the tensor cores")
+    k6_splits = v3.splits
+    check(k6_splits > 1, f"K6 at {BATCH} queries ran {k6_splits} column split(s)")
+    print(f"12a. K6: all {v3.launches} launches ({launches[False]} bf16, "
+          f"{launches[True]} int8) on the tensor cores, {k6_splits} column "
+          "splits", flush=True)
     sm = br["slot_map"]
-    for name, parts in cand.items():
-        sl = torch.cat(parts)[:, :120].cpu().numpy()
+    for name, parts in outs.items():
+        sl = torch.cat([o[1] for o in parts])[:, :120].cpu().numpy()
         pos = np.where(sl >= 0, sm[np.maximum(sl, 0)], -1)
         ids = np.where(pos >= 0, base._ids_host[np.maximum(pos, 0)], -1)
         hit = np.mean([len(np.intersect1d(ids[i], gt[i, :K])) for i in range(NQ)])
@@ -970,27 +987,36 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
               f"ground-truth top-10) {hit / K:.4f} over {NQ} queries", flush=True)
 
     n2h = n2[0].cpu().numpy()
-    # K4 of the path against its plain version on every sub-batch (at 2048
-    # queries its columns split across blocks and the splits are merged)
+    # every kernel of the path against its plain version on every sub-batch
+    # (at 2048 queries the columns split across blocks and the splits are
+    # merged)
     check(k4_splits > 1, f"K4 at {BATCH} queries ran {k4_splits} column split(s)")
-    e4 = 0.0
-    for i, (kk, ks, kf) in enumerate(k4_out):
-        x = xq_all[i * BATCH : (i + 1) * BATCH]
-        a = args(x, False)
-        rk, rs_, _ = fused_knn.ivfpq_fused_ref(a[0], a[1], codesT, n2, lid,
-                                               qt=256, ct=ct)
-        check(bool(torch.isinf(kf).all()), f"K4 sub-batch {i}: floor is not all +inf")
-        tol = lane_tol(x.square().sum(1).cpu().numpy(), n2h, rk.cpu().numpy(),
-                       rs_.cpu().numpy())
-        e4 = max(e4, compare_lanes(kk, ks, rk, rs_, tol, f"K4 sub-batch {i}",
-                                   ids_agree_tie_aware))
-    print(f"12a. K4 equals its plain version on all {len(k4_out)} {BATCH}-query "
-          f"sub-batches ({k4_splits} column splits, merged; max_abs_err "
-          f"{e4:.3e}, ids agree on all rows)", flush=True)
-    del k4_out
+    path_err = {}
+    for name, parts in outs.items():
+        int8 = name == "K6 int8"
+        e = 0.0
+        for i, (kk, ks, kf) in enumerate(parts):
+            x = xq_all[i * BATCH : (i + 1) * BATCH]
+            a = args(x, int8)
+            if name == "K4":
+                rk, rs_, _ = fused_knn.ivfpq_fused_ref(a[0], a[1], codesT, n2, lid,
+                                                       qt=256, ct=ct)
+            else:
+                rk, rs_, _ = fused_knn.ivfpq_fused_v3_ref(*a, **kw)
+            check(bool(torch.isinf(kf).all()), f"{name} sub-batch {i}: floor is not all +inf")
+            tol = lane_tol(x.square().sum(1).cpu().numpy(), n2h, rk.cpu().numpy(),
+                           rs_.cpu().numpy())
+            e = max(e, compare_lanes(kk, ks, rk, rs_, tol, f"{name} sub-batch {i}",
+                                     ids_agree_tie_aware))
+        path_err[name] = e
+        splits = k4_splits if name == "K4" else k6_splits
+        print(f"12a. {name} equals its plain version on all {len(parts)} "
+              f"{BATCH}-query sub-batches ({splits} column splits, merged; "
+              f"max_abs_err {e:.3e}, ids agree on all rows)", flush=True)
+    del outs
 
-    # the first sub-batch: each mode against its plain version, bf16 against
-    # K4, int8 against float64
+    # the first sub-batch: each mode timed in turns with its plain version,
+    # bf16 against K4, int8 against float64
     x = xq_all[:BATCH]
     qn2 = x.square().sum(1).cpu().numpy()
     res = {}
@@ -1000,6 +1026,8 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
             fused_knn, f"K6 {'int8' if int8 else 'bf16'} [{BATCH} q x {Sd} slots]",
             lambda a=a: fused_knn.ivfpq_fused_v3(*a, **kw),
             lambda a=a: fused_knn.ivfpq_fused_v3_ref(*a, **kw), qn2, n2h, 3)
+        res[int8] = (max(res[int8][0], path_err[f"K6 {'int8' if int8 else 'bf16'}"]),
+                     *res[int8][1:])
     a = args(x, False)
     a4 = (a[0], a[1], codesT, n2, lid)
     kb, sb, _ = fused_knn.ivfpq_fused_v3(*a, **kw)
@@ -1013,12 +1041,16 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
           f"on all rows); K4 {t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / "
           f"{t[3]:.2f} ms per {BATCH}-query sub-batch over the data chunks "
           f"({recon_note(fused_knn, 'K4')})", flush=True)
+    mk = codesT.shape[0] * ksub
     print(f"note: cuBLAS bf16 torch.mm of the {BATCH} queries' LUTs with the "
-          f"one-hot's {codesT.shape[0] * ksub} PQ rows over {Sd} columns (K4's "
-          f"products, no bias, no select): "
-          f"{onehot_products_ms(a[1], oh[False][: codesT.shape[0] * ksub]):.2f} ms",
-          flush=True)
+          f"one-hot's {mk} PQ rows over {Sd} columns (K4's and K6's products, "
+          f"no bias, no select): "
+          f"{onehot_products_ms(a[1], oh[False][:mk]):.2f} ms", flush=True)
     a = args(x, True)
+    print(f"note: cuBLAS int8 torch._int_mm of the {BATCH} queries' int8 LUTs "
+          f"with the one-hot's {mk} PQ rows over {Sd} columns (K6 int8's "
+          f"products, no bias, no select): {int_mm_note(a[1], oh[True][:mk]):.2f} ms",
+          flush=True)
     k8, s8, _ = fused_knn.ivfpq_fused_v3(*a, **kw)
     r = EXACT_ROWS
     p = s8[:r].long().clamp_min(0)
@@ -1037,6 +1069,29 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
     check((err <= tol).all(), f"K6 int8: keys differ from float64 by {err.max():.3e}")
     print(f"K6 int8: {r} rows equal a float64 a * acc + c + bias + n2 of their "
           f"slots (max err {err.max():.3e})", flush=True)
+
+    # (a, c) varying by lane on every third row: those rows take the ungated
+    # path, reading a and c at each key's lane
+    nu = 256
+    biasg, q8, meta, _, _ = args(xq_all[:nu], True)
+    meta = meta.clone()
+    lanes = torch.arange(128, device=dev, dtype=torch.float32)
+    meta[::3, :128] *= 1.0 + 0.01 * (lanes % 7)
+    meta[::3, 128:] += 0.1 * (lanes % 5)
+    a = (biasg, q8, meta, oh[True], n2)
+    tc0 = v3.tc_launches
+    kk, ks, kf = fused_knn.ivfpq_fused_v3(*a, **kw)
+    rk, rs_, _ = fused_knn.ivfpq_fused_v3_ref(*a, **kw)
+    torch.cuda.synchronize()
+    check(v3.tc_launches == tc0 + 1, "K6 int8 with a per-lane meta left the tensor cores")
+    check(bool(torch.isinf(kf).all()), "K6 int8 per-lane meta: floor is not all +inf")
+    tol = lane_tol(xq_all[:nu].square().sum(1).cpu().numpy(), n2h, rk.cpu().numpy(),
+                   rs_.cpu().numpy())
+    e = compare_lanes(kk, ks, rk, rs_, tol, "K6 int8 per-lane meta", ids_agree_tie_aware)
+    print(f"12a. K6 int8 with (a, c) varying by lane on {len(range(0, nu, 3))} of "
+          f"{nu} rows (ungated) equals its plain version (max_abs_err {e:.3e}, "
+          "ids agree on all rows)", flush=True)
+    lookup_route_check(fused_knn, dev, ct, ids_agree_tie_aware)
     held = int(torch.isfinite(n2).sum())
     out = []
     for int8 in (False, True):
@@ -1047,9 +1102,9 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
             "faiss_tpu_torch/csrc/ivfpq_v3.cu", "faiss_tpu/ops/pallas_knn.py:778",
             launches[int8], *res[int8], ops_s(codesT, BATCH * held, int8=int8),
             nbytes(*read) + 3 * BATCH * 512))
-    print(f"12a. K6's own design (and K5's; K4's until it moved to the tensor "
-          f"cores), M + 1 shared-memory lookups per key at 32 a clock per SM, "
-          f"takes at least "
+    print(f"12a. the lookup scan's design (K5's; K4's and K6's until they moved "
+          f"to the tensor cores), M + 1 shared-memory lookups per key at 32 a "
+          f"clock per SM, takes at least "
           f"{lookup_s(codesT, BATCH * held) * 1e3:.2f} ms per {BATCH}-query "
           f"sub-batch (a note; the bounds are the tensor-core contraction's, "
           f"{out[0]['bound_ms']:.2f} ms bf16, {out[1]['bound_ms']:.2f} ms int8)",
@@ -1069,6 +1124,56 @@ def onehot_products_ms(luts, oh_pq, reps=3):
             torch.mm(luts, oh_pq[:, c0 : c0 + (1 << 16)])
 
     return cuda_ms(run, reps)
+
+
+def int_mm_note(q8, oh_pq, reps=3):
+    """A note beside K6 int8, not its library_ms (it has no bias and no
+    select, and the port never calls it): cuBLAS int8 ``torch._int_mm`` of
+    the int8 LUTs [nq, M * ksub] with the one-hot's PQ rows [M * ksub, S]
+    (int32 out), in contiguous slabs of 65,536 columns copied beforehand."""
+    slabs = [oh_pq[:, c0 : c0 + (1 << 16)].contiguous()
+             for c0 in range(0, oh_pq.shape[1], 1 << 16)]
+
+    def run():
+        for b in slabs:
+            torch._int_mm(q8, b)
+
+    return cuda_ms(run, reps)
+
+
+def lookup_route_check(fused_knn, dev, ct, ids_agree_tie_aware):
+    """K6 at ksub = 32 (M = 8; 256 queries over 65,536 columns of random
+    codes in runs of 256 slots a list, G = 2), which the tensor cores do not
+    take: both modes must take the lookup scan of adc_scan.cuh and equal
+    their plain versions."""
+    from faiss_tpu_torch.ops import quantize_lut as Q
+
+    nq, Mq, ksub, S, G = 256, 8, 32, 1 << 16, 2
+    g = torch.Generator(device=dev).manual_seed(7)
+    codes = torch.randint(ksub, (Mq, S), generator=g, device=dev).to(torch.uint8)
+    lid = ((torch.arange(S, device=dev) // 256) % 128).int()[None]
+    n2 = torch.rand(1, S, generator=g, device=dev) * 2
+    luts3 = torch.randn(nq, Mq, ksub, generator=g, device=dev)
+    biasg = torch.randn(nq, G * 128, generator=g, device=dev)
+    q8, meta = Q.quantize_luts_int8(luts3)
+    mag = (luts3.abs().amax(2).sum(1) + biasg.abs().amax(1)).cpu().numpy()
+    v3 = fused_knn.ivfpq_fused_v3
+    for int8 in (False, True):
+        luts = q8 if int8 else luts3.reshape(nq, -1).to(torch.bfloat16)
+        a = (biasg, luts, meta, Q.expand_onehot(codes, lid, ksub, int8), n2)
+        kw = dict(qt=256, ct=ct, ksub=ksub)
+        n0, tc0 = v3.launches, v3.tc_launches
+        kk, ks, kf = v3(*a, **kw)
+        rk, rs_, _ = fused_knn.ivfpq_fused_v3_ref(*a, **kw)
+        torch.cuda.synchronize()
+        what = f"K6 {'int8' if int8 else 'bf16'} at ksub {ksub}"
+        check(v3.launches == n0 + 1 and v3.tc_launches == tc0,
+              f"{what} did not take the lookup scan")
+        check(bool(torch.isinf(kf).all()), f"{what}: floor is not all +inf")
+        tol = lane_tol(mag, n2[0].cpu().numpy(), rk.cpu().numpy(), rs_.cpu().numpy())
+        e = compare_lanes(kk, ks, rk, rs_, tol, what, ids_agree_tie_aware)
+        print(f"12a. {what} (M = {Mq}, {nq} q x {S} columns) took the lookup "
+              f"scan and equals its plain version (max_abs_err {e:.3e})", flush=True)
 
 
 def floor_phase(fused_knn, base, br, xq_all, dev):
@@ -1966,8 +2071,9 @@ def main():
                                   f"{lib.ivfpq_adc_smem_bytes(M, 1 << NBITS, 0)} "
                                   "(K5, lookup scan)"),
         "ivfpq_v3": lambda lib: ", ".join(
-            f"{lib.ivfpq_v3_smem_bytes(M * (1 << NBITS), i)} ({m})"
+            f"{lib.ivfpq_v3_smem_bytes(M, 1 << NBITS, i, tc)} ({m}, {how})"
             for i, m in ((0, "bf16"), (1, "int8"))
+            for tc, how in ((1, "tensor cores"), (0, "lookup scan"))
         ),
         "recon_floor": lambda lib: f"{lib.recon_floor_smem_bytes(D)}",
         "knn_fused": lambda lib: f"{lib.knn_fused_smem_bytes(D, 128)} (product passes)",
@@ -1988,23 +2094,36 @@ def main():
           == report.count("spill stores"), f"K3's kernels spill: {report}")
     print(f"K3: {len(k3_regs)} kernels, registers {', '.join(k3_regs)}, no spill",
           flush=True)
-    lib, report = built["ivfpq_adc"]
-    lines = report.splitlines()
-    at = next(i for i, line in enumerate(lines)
-              if "entry function" in line and "adc_mma_kernel" in line)
-    tc = "\n".join(lines[at + 1 : at + 4])
-    regs = re.search(r"Used (\d+) registers", tc)
-    check(regs is not None and " 0 bytes spill stores, 0 bytes spill loads" in tc,
-          f"K4's tensor-core kernel spills: {tc}")
-    # the wrapper's route, as the built library answers it: the tensor
-    # cores for PQ32x4fs and up to M = 37 4-bit sub-quantizers, the lookup
-    # scan for ksub > 16 and for LUT rows beyond a block's shared memory
+    # the tensor-core instances (K4's, K6's two modes) spill nothing
+    tc_regs = {}
+    for name, what, mode in (("ivfpq_adc", "K4", 0), ("ivfpq_v3", "K6 bf16", 1),
+                             ("ivfpq_v3", "K6 int8", 2)):
+        lines = built[name][1].splitlines()
+        at = next(i for i, line in enumerate(lines) if "entry function" in line
+                  and "adc_mma_kernel" in line and f"ILi{mode}E" in line)
+        tc = "\n".join(lines[at + 1 : at + 4])
+        regs = re.search(r"Used (\d+) registers", tc)
+        check(regs is not None and " 0 bytes spill stores, 0 bytes spill loads" in tc,
+              f"{what}'s tensor-core kernel spills: {tc}")
+        tc_regs[what] = regs.group(1)
+    # the wrappers' routes, as the built libraries answer them: the tensor
+    # cores for PQ32x4fs and 4-bit rows up to M = 37 (K4, K6 bf16) or 61
+    # (K6 int8), the lookup scan for ksub > 16 and for LUT rows beyond a
+    # block's shared memory
     routes = {(M, 1 << NBITS): True, (37, 16): True, (38, 16): False,
               (2, 17): False, (M, 256): False}
     got = {s: fused_knn.adc_on_tensor_cores(*s) for s in routes}
     check(got == routes, f"K4's route by (M, ksub) {got}, expected {routes}")
-    print(f"K4 on the tensor cores: {regs.group(1)} registers, no spill; "
-          f"route by (M, ksub), True for the tensor cores: {got}", flush=True)
+    v3_routes = {(M, 1 << NBITS, False): True, (M, 1 << NBITS, True): True,
+                 (37, 16, False): True, (38, 16, False): False,
+                 (38, 16, True): True, (61, 16, True): True, (62, 16, True): False,
+                 (8, 32, False): False, (8, 32, True): False}
+    v3_got = {s: fused_knn.v3_on_tensor_cores(*s) for s in v3_routes}
+    check(v3_got == v3_routes,
+          f"K6's route by (M, ksub, int8) {v3_got}, expected {v3_routes}")
+    print(f"tensor-core instances, no spill: registers {tc_regs}; route by "
+          f"(M, ksub), True for the tensor cores: K4 {got}, K6 (M, ksub, int8) "
+          f"{v3_got}", flush=True)
 
     t0 = time.time()
     xb, xt, xq = bench_data()

@@ -1,31 +1,54 @@
-// K4's 4-bit ADC scan on the tensor cores (ivfpq_adc.cu), for sm_90a: for
-// every query row r the EXACT top-128 of
-//     key(s) = (sum_m luts[r, m * ksub + codesT[m, s]] + n2[s])
-//              + biasg[r, g * 128 + lid[s]],   g = min(chunk / cpg, G - 1),
-// over one split of the columns, offered to the select of tile_select.cuh.
+// The 4-bit ADC scan on the tensor cores, for sm_90a: K4 (ivfpq_adc.cu)
+// and K6 (ivfpq_v3.cu, over the codes its decode pass reads from the
+// one-hot). For every query row r the EXACT top-128 of, by mode,
+//     MODE_K4:      key(s) = (lsum(r, s) + n2[s]) + bias(r, s)
+//     MODE_V3:      key(s) = lsum(r, s) + (bias(r, s) + n2[s])
+//     MODE_V3_INT8: key(s) = (a * isum(r, s) + c) + (bias(r, s) + n2[s])
+// with lsum the float32 sum of the bf16 entries luts[r, m * ksub +
+// codesT[m, s]] over m, isum the int32 sum of the int8 entries, (a, c) the
+// row's meta at the slot's lane s % 128, and bias(r, s) = biasg[r, g * 128
+// + lid[s]], g = min(chunk / cpg, G - 1) (K6's groups, chunk / cpg with
+// nchunks a multiple of G, are the same), over one split of the columns,
+// offered to the select of tile_select.cuh.
 //
-// Arithmetic: the TPU kernel's (faiss_tpu/ops/pallas_knn.py:373-380). The
-// LUT sum is a contraction of the bf16 LUTs with a one-hot of the codes:
-// per sub-quantizer m one mma.sync.m16n8k16 bf16 k-step, whose 16 k rows
-// are the 16 entries of m (zero past ksub, which no code < ksub selects),
-// into float32 accumulators. Every product is a bf16 LUT entry times 1 or 0,
-// so each k-step adds exactly one entry: the sum is the float32 sum of the
-// M entries in the order m = 0, 1, ..., as the plain version's product
-// computes it up to the order of its additions. Then n2 and the coarse bias
-// (one float per query and list) are added in float32, in that order, the
-// TPU kernel's ip + n2 + bias: the TPU adds the bias through a second
-// contraction as bf16 hi + lo, which this port does not need.
+// Arithmetic: the TPU kernels' (faiss_tpu/ops/pallas_knn.py:373-380 for
+// K4, :713-732 for K6). The LUT sum is a contraction of the LUTs with a
+// one-hot of the codes. bf16: per sub-quantizer m one
+// mma.sync.m16n8k16 bf16 k-step, whose 16 k rows are the 16 entries of m
+// (zero past ksub, which no code < ksub selects), into float32
+// accumulators. Every product is a bf16 LUT entry times 1 or 0, so each
+// k-step adds exactly one entry: the sum is the float32 sum of the M
+// entries in the order m = 0, 1, ..., as the plain versions' products
+// compute it up to the order of their additions. Then n2 and the coarse
+// bias (one float per query and list) are added in float32 in the mode's
+// order: K4 the TPU kernel's ip + n2 + bias (the TPU adds the bias through
+// a second contraction as bf16 hi + lo, which this port does not need), K6
+// its ip + (bias + n2). int8 (K6): per pair of sub-quantizers (2m, 2m + 1)
+// one mma.sync.m16n8k32 s8 k-step, whose 32 k rows are the 16 entries of
+// each (a zero sub-quantizer after an odd M), into int32 accumulators: the
+// sum is exact. Right after a tile's products each thread dequantizes its
+// 64 sums once, a * float(acc) and + c rounded on their own (no fused
+// multiply-add), as the plain version does; the epilogue then adds (bias +
+// n2) as for bf16. (Dequantizing per key in the gates and offers, with a
+// per-key test for rows whose (a, c) vary by lane, made int8 slower than
+// bf16 on the H100.)
 //
-// Operands of a k-step. A (16 queries x 16 entries of m) comes from the
-// block's LUT rows in shared memory by ldmatrix. B (the one-hot of 8 slots'
-// codes for m, 16 x 8) is built in registers: in the m16n8k16 B fragment
-// lane l holds column n = l / 4 at k rows 2 (l % 4) + {0, 1} (register b0)
-// and 2 (l % 4) + {8, 9} (b1), each register two packed bf16, the lower k
-// in the low half. With c the column's code and d = 16 (c - 2 (l % 4)),
-// b0 = 0x3F80 << d and b1 = 0x3F80 << (d - 128) as unsigned shifts, which
-// PTX clamps at 32 (the result is 0 unless the code is one of the lane's
-// two rows; 0x3F80 is bf16 1.0): one byte permute, two multiply-adds and
-// two shifts per fragment register pair.
+// Operands of a k-step. A (16 queries x 16 bf16 or 32 int8 entries) comes
+// from the block's LUT rows in shared memory by ldmatrix: an 8 x 8 b16
+// matrix is 8 rows of 16 bytes either way, so the lane addresses are the
+// same in both modes. B (the one-hot of 8 slots' codes, 16 or 32 x 8) is
+// built in registers. bf16: in the m16n8k16 B fragment lane l holds column
+// n = l / 4 at k rows 2 (l % 4) + {0, 1} (register b0) and 2 (l % 4) +
+// {8, 9} (b1), each register two packed bf16, the lower k in the low half.
+// With c the column's code and d = 16 (c - 2 (l % 4)), b0 = 0x3F80 << d and
+// b1 = 0x3F80 << (d - 128) as unsigned shifts, which PTX clamps at 32 (the
+// result is 0 unless the code is one of the lane's two rows; 0x3F80 is bf16
+// 1.0): one byte permute, two multiply-adds and two shifts per fragment
+// register pair. int8: in the m16n8k32 s8 B fragment lane l holds column
+// l / 4 at k rows 4 (l % 4) + {0..3} (b0, the entries of sub-quantizer 2m)
+// and 16 + 4 (l % 4) + {0..3} (b1, of 2m + 1), four bytes each, so b0 =
+// 1 << (8 c_2m - 32 (l % 4)) and b1 likewise from c_2m+1, PTX's clamped
+// shift again: one byte permute and one shift per register.
 //
 // Layout. A block serves BM = 64 queries with two teams of 4 warps, which
 // take turns at the 128-column tiles (team k takes tiles t = k mod 2), so
@@ -33,16 +56,18 @@
 // overlap the other's epilogue. A warp owns all 64 query rows (4 row blocks
 // of 16) and 32 columns (4 mma n-tiles) of its team's tile, so a one-hot
 // fragment, built once, feeds the mmas of 4 row blocks, and an ldmatrix of
-// the LUTs feeds 4 n-tiles: per m a warp runs 16 mmas on 4 ldmatrix.x4 (2 KB
-// of shared memory, 128 bytes an mma), 4 fragment builds and one 32-bit
-// load of codes; the other team's warp on the same sub-partition covers
-// their latency (loading the next m's fragments ahead, in registers, was
-// no faster). The columns of n-tile t are the slots 4 n + t (n < 8)
-// of the warp's 32, so lane l's codes for its 4 n-tiles are the 4 bytes of
-// one word (slots 4 (l / 4) .. + 4), and its accumulators hold 8
-// consecutive slots, 8 (l % 4) .. + 8, of each of its 8 query rows. The LUT
-// rows are M * 32 + 16 bytes apart, an odd number of 16-byte chunks, so the
-// 8 rows an ldmatrix matrix reads fall in 8 different bank groups.
+// the LUTs feeds 4 n-tiles: per k-step a warp runs 16 mmas on 4
+// ldmatrix.x4 (2 KB of shared memory, 128 bytes an mma), 4 fragment builds
+// and one (int8: two) 32-bit loads of codes; the other team's warp on the
+// same sub-partition covers their latency (loading the next k-step's
+// fragments ahead, in registers, was no faster). The columns of n-tile t
+// are the slots 4 n + t (n < 8) of the warp's 32, so lane l's codes for
+// its 4 n-tiles are the 4 bytes of one word (slots 4 (l / 4) .. + 4), and
+// its accumulators hold 8 consecutive slots, 8 (l % 4) .. + 8, of each of
+// its 8 query rows. A LUT row is 32 bytes a k-step plus 16 bytes of pad,
+// an odd number of 16-byte chunks, so the 8 rows an ldmatrix matrix reads
+// fall in 8 different bank groups. PQ32x4fs takes 32 bf16 k-steps a tile,
+// or 16 int8 k-steps, each at up to twice the bf16 rate.
 //
 // Data flow: a tile's codes [M, BN], n2 [BN] and lid [BN] are M + 8 bytes
 // a slot, read by every query block, mostly from L2. They arrive by TMA in a
@@ -64,23 +89,35 @@
 // the loads from global memory complete under the products; otherwise a key
 // takes its bias from biasg in the epilogue, and the row's gate uses its
 // smallest bias in g. Two lower bounds gate a row before any key is
-// offered: the row's LUT floor (the smallest entry of each sub-quantizer,
-// summed, less a margin for rounding; computed once per block) plus the
-// smallest n2, and then its smallest bias-free key, each plus the gate's
-// bias (where the 8 columns share a list, the second is the smallest key
-// itself). A row whose bound misses its threshold offers nothing: every
-// rounded sum is monotone in its terms, so the gates are exact. On K4's
-// paths the bias is 1e9 on every unprobed list, so once a row's threshold
-// falls below those keys the LUT floor alone closes it. The select is
-// tile_select::Select<64, 256, 64> (2 KB a query). A team offers a tile in
-// two phases of 64 columns (its warps 0-1, then 2-3), each followed by its
-// compactions (make_room, one warp per 16 rows), so a queue is compacted
-// once per 64 queued pairs; with one phase of 128 columns it would be
-// compacted after every tile that offered it a key, which made unmasked
-// scans several times slower. One barrier of the team (bar.red.or) tells its
-// warps whether any row may offer; when none may, as on most masked tiles,
-// the phases and their three other barriers are skipped. A pair of barriers
-// passes the select from one team to the other.
+// offered: the row's LUT floor plus the smallest n2 and the gate's bias,
+// and then its smallest key with the gate's bias in the place of each
+// key's (where the 8 columns share a list, the smallest key itself), each
+// summed in the mode's order. The LUT floor is, for bf16, the smallest
+// entry of each sub-quantizer, summed, less a margin for rounding
+// (computed once per block), and for int8 the exact int32 sum of the
+// smallest entries, dequantized as a key is: a > 0, so a * floor + c
+// bounds a * acc + c. A row whose bound misses its threshold offers
+// nothing: every rounded sum is monotone in its terms, so the gates are
+// exact. On K4's paths the bias is 1e9 on every unprobed list, so once a
+// row's threshold falls below those keys the LUT floor alone closes it.
+//
+// int8 meta. The contract reads (a, c) at each slot's lane, but 64 rows x
+// 256 floats do not fit beside the select. So the prologue marks a row
+// uniform when its 128 a's are equal, its 128 c's are equal and a is
+// positive and finite, as quantize_luts_int8 makes every row; a uniform
+// row keeps its (a, c) in shared memory (512 bytes a block) and is gated.
+// Any other row reads a and c at each key's lane from device memory and is
+// never gated: slow, but exact.
+//
+// The select is tile_select::Select<64, 256, 64> (2 KB a query). A team
+// offers a tile in two phases of 64 columns (its warps 0-1, then 2-3), each
+// followed by its compactions (make_room, one warp per 16 rows), so a queue
+// is compacted once per 64 queued pairs; with one phase of 128 columns it
+// would be compacted after every tile that offered it a key, which made
+// unmasked scans several times slower. One barrier of the team
+// (bar.red.or) tells its warps whether any row may offer; when none may, as
+// on most masked tiles, the phases and their three other barriers are
+// skipped. A pair of barriers passes the select from one team to the other.
 //
 // Why mma.sync and not wgmma: the one-hot is built in registers, and
 // wgmma takes registers for A only, so the slots are its 64 rows, the LUTs
@@ -90,17 +127,19 @@
 // on the H100: its products alone ran faster than these, but the whole
 // kernel was no faster, at the register limit.
 //
-// What bounds it: the products, M * 16 * 2 = 1,024 operations a key at
-// mma.sync's rate, which the fragment builds, the code loads and the
-// tile's barriers beside them keep below what a loop of mma.sync and
+// What bounds it: the products, 1,024 bf16 (or int8) operations a key for
+// M = 32 at mma.sync's rate, which the fragment builds, the code loads and
+// the tile's barriers beside them keep below what a loop of mma.sync and
 // ldmatrix alone reaches; the epilogue costs little on masked keys.
 // Every key is scored, masked or not: skipping the tiles whose lists no
 // query of a block probes is later work.
 //
 // Shared memory per block (bytes): the ring STAGES x (M x 128 + 1,024); the
-// LUT rows 64 x (M x 32 + 16); the select 131,584; the LUT floors 256; 4
-// mbarriers: 218,912 at M = 32, and M <= 37 fits the 232,448 a block may
-// have (smem_bytes). One block of 8 warps per SM.
+// LUT rows 64 x lut_row_bytes (bf16, M x 32 + 16) or lut8_row_bytes (int8,
+// ceil(M / 2) x 32 + 16); the select 131,584; the LUT floors 256; with int8
+// the rows' (a, c) 512; 4 mbarriers: 218,912 at M = 32 bf16, 186,656 at
+// M = 32 int8. M <= 37 (bf16) and M <= 61 (int8) fit the 232,448 a block
+// may have (smem_bytes). One block of 8 warps per SM.
 
 #pragma once
 
@@ -110,6 +149,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <type_traits>
 
 #include "recon_mma.cuh"
 #include "tile_select.cuh"
@@ -128,6 +169,10 @@ constexpr int STAGES = 4;              // ring depth
 constexpr int CAP = 256;        // select pairs per query
 constexpr int PHASE = BN / 2;   // columns a phase offers (2 warps)
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may have
+// the modes (the key's order and the LUT type; see the top of this file)
+constexpr int MODE_K4 = 0;
+constexpr int MODE_V3 = 1;
+constexpr int MODE_V3_INT8 = 2;
 
 static_assert(NT == 4, "a lane's codes for its n-tiles are one 32-bit word");
 
@@ -139,11 +184,20 @@ __host__ __device__ constexpr int stage_bytes(int M) { return M * BN + BN * 8; }
 // Bytes between two queries' LUT rows: M * 16 bf16 and 16 bytes of pad.
 __host__ __device__ constexpr int lut_row_bytes(int M) { return M * 32 + 16; }
 
+// int8: the sub-quantizers in pairs of 16 entries each (a zero one after an
+// odd M), then 16 bytes of pad.
+__host__ __device__ constexpr int lut8_row_bytes(int M) { return (M + 1) / 2 * 32 + 16; }
+
+__host__ __device__ constexpr int lut_stride(int mode, int M) {
+  return mode == MODE_V3_INT8 ? lut8_row_bytes(M) : lut_row_bytes(M);
+}
+
 // Shared memory, in this order: the ring, the LUT rows, the select, each
-// query's LUT floor (lut_floor), the full mbarriers.
-__host__ __device__ constexpr int smem_bytes(int M) {
-  return STAGES * stage_bytes(M) + BM * lut_row_bytes(M) + Select::kBytes +
-         BM * 4 + STAGES * 8;
+// query's LUT floor (lut_floor), with int8 each query's a and c, the full
+// mbarriers.
+__host__ __device__ constexpr int smem_bytes(int M, int mode = MODE_K4) {
+  return STAGES * stage_bytes(M) + BM * lut_stride(mode, M) + Select::kBytes +
+         BM * 4 + (mode == MODE_V3_INT8 ? BM * 8 : 0) + STAGES * 8;
 }
 
 // The TMA descriptors of a launch: codesT as a 2-D tensor [M rows, S
@@ -156,7 +210,8 @@ struct alignas(64) Maps {
 // split's part of the scratch); ofloor is null for a split's part.
 struct Args {
   const float* biasg;           // [nq, nbias]
-  const __nv_bfloat16* luts;    // [nq, M * ksub]
+  const void* luts;             // [nq, M * ksub] bf16, or int8 (MODE_V3_INT8)
+  const float* meta;            // [nq, 256]: a, then c (MODE_V3_INT8)
   float* okey;
   int* oslot;
   float* ofloor;
@@ -194,19 +249,45 @@ __device__ __forceinline__ void onehot(uint32_t c, uint32_t kb16,
   b1 = shl(0x3F80u, d - 128u);
 }
 
-// The block's `rows` LUT rows from row q0 into shared memory as [BM][M * 16]
-// bf16 (row stride lut_row_bytes), entries past ksub and rows past `rows`
-// zero, by every thread.
-__device__ void load_luts(const Args& a, long long q0, int rows,
-                          unsigned char* lut) {
-  const int n = a.M * 16;
+// One register of the m16n8k32 s8 one-hot B fragment: the lane's four k
+// rows 4 (lane % 4) + {0..3} of a sub-quantizer of code c, for the same
+// kb16 = 32 (lane % 4), now the bit offset of the lane's first k row
+// (8 bits an entry); int8 1 in the byte of the code, else 0.
+__device__ __forceinline__ uint32_t onehot8(uint32_t c, uint32_t kb16) {
+  return shl(1u, c * 8u - kb16);
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  recon_mma::mma(c, a, b0, b1);
+}
+
+// c += a (16 x 32, row) . b (32 x 8, col), int8 in, int32 accumulate.
+__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block's `rows` LUT rows from row q0 into shared memory as [BM][mp *
+// 16] entries of T (bf16 bits, or int8) with row stride `stride` bytes,
+// entries past ksub, sub-quantizers past M and rows past `rows` zero, by
+// every thread.
+template <typename T>
+__device__ void load_luts(const Args& a, long long q0, int rows, int mp,
+                          int stride, unsigned char* lut) {
+  const int n = mp * 16;
   const int mk = a.M * a.ksub;
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(a.luts);
+  const T* src = static_cast<const T*>(a.luts);
   for (int i = threadIdx.x; i < BM * n; i += THREADS) {
     const int r = i / n, e = i % n, m = e >> 4, k = e & 15;
-    unsigned short v = 0;
-    if (r < rows && k < a.ksub) v = src[(q0 + r) * mk + m * a.ksub + k];
-    *reinterpret_cast<unsigned short*>(lut + r * lut_row_bytes(a.M) + e * 2) = v;
+    T v = 0;
+    if (r < rows && m < a.M && k < a.ksub) v = src[(q0 + r) * mk + m * a.ksub + k];
+    *reinterpret_cast<T*>(lut + r * stride + e * sizeof(T)) = v;
   }
 }
 
@@ -232,35 +313,96 @@ __device__ float lut_floor(const Args& a, const unsigned char* lut, int q, int r
   return lo - mag * (1.f / 65536.f);
 }
 
+// a * acc + c as the key rounds it: the product, then the sum.
+__device__ __forceinline__ float dequant(int acc, float a, float c) {
+  return __fadd_rn(__fmul_rn(a, static_cast<float>(acc)), c);
+}
+
+// int8: the (a, c) of each of the block's rows, read from meta [nq, 256],
+// by warp w for rows w, w + 8, ...: am[r] = a where the row is uniform (its
+// 128 a's equal, its 128 c's equal, a > 0 and finite), else 0; cm[r] = c.
+__device__ void load_meta(const Args& a, long long q0, int rows, float* am, float* cm) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < BM; r += THREADS / 32) {
+    bool same = true;
+    float a0 = 0.f, c0 = 0.f;
+    if (r < rows) {
+      const float* row = a.meta + (q0 + r) * (2 * K);
+      a0 = row[0];
+      c0 = row[K];
+#pragma unroll
+      for (int i = 0; i < K / 32; ++i) {
+        same = same && row[lane + 32 * i] == a0 && row[K + lane + 32 * i] == c0;
+      }
+    }
+    same = __all_sync(tile_select::kFull, same) && r < rows && a0 > 0.f && isfinite(a0);
+    if (lane == 0) {
+      am[r] = same ? a0 : 0.f;
+      cm[r] = c0;
+    }
+  }
+}
+
+// int8: the dequantized LUT floor of query q (< rows), by one thread: the
+// int32 sum of the smallest entry of each sub-quantizer (exact; a lower
+// bound of every acc), as a key dequantizes it; -inf where the row is not
+// uniform (never read: such a row is not gated).
+__device__ float lut_floor8(const Args& a, const unsigned char* lut, int q, int rows,
+                            const float* am, const float* cm) {
+  if (q >= rows || !(am[q] > 0.f)) return -CUDART_INF_F;
+  const signed char* row = reinterpret_cast<const signed char*>(lut + q * lut8_row_bytes(a.M));
+  int lo = 0;
+  for (int m = 0; m < a.M; ++m) {
+    int mn = 127;
+    for (int k = 0; k < a.ksub; ++k) mn = min(mn, static_cast<int>(row[m * 16 + k]));
+    lo += mn;
+  }
+  return dequant(lo, am[q], cm[q]);
+}
+
 // The warp's 64 rows x 32 columns of the stage's tile: acc[rb][nt] is the
-// m16n8 accumulator of row block rb and n-tile nt. Per sub-quantizer m the
-// 4 one-hot fragments are built from one code word, and each ldmatrix of a
-// row block's LUT fragment feeds the mmas of the 4 n-tiles.
+// m16n8 accumulator of row block rb and n-tile nt. Per k-step m the 4
+// one-hot fragments are built from the code word of sub-quantizer m (bf16)
+// or the words of 2m and 2m + 1 (int8), and each ldmatrix of a row block's
+// LUT fragment feeds the mmas of the 4 n-tiles.
+template <int MODE, typename Acc>
 __device__ __forceinline__ void products(int M, const unsigned char* codes,
                                          uint32_t lut_lane, int row16,
-                                         float (&acc)[RB][NT][4]) {
+                                         Acc (&acc)[RB][NT][4]) {
   const int lane = threadIdx.x & 31, tw = (threadIdx.x >> 5) % 4;
   const uint32_t kb16 = (lane & 3) * 32;
   const uint32_t* cw = reinterpret_cast<const uint32_t*>(
       codes + tw * WCOLS + 4 * (lane >> 2));
+  const int nk = MODE == MODE_V3_INT8 ? (M + 1) / 2 : M;  // k-steps
 #pragma unroll
   for (int i = 0; i < RB; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 #pragma unroll 2
-  for (int m = 0; m < M; ++m) {
-    const uint32_t w = cw[m * (BN / 4)];
+  for (int m = 0; m < nk; ++m) {
     uint32_t b[NT][2];
+    if constexpr (MODE == MODE_V3_INT8) {
+      const uint32_t w = cw[2 * m * (BN / 4)];
+      // an odd M's last pair: code 0 of the zero sub-quantizer
+      const uint32_t w1 = 2 * m + 1 < M ? cw[(2 * m + 1) * (BN / 4)] : 0u;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) onehot(__byte_perm(w, 0u, 0x4440u | nt), kb16, b[nt][0], b[nt][1]);
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt][0] = onehot8(__byte_perm(w, 0u, 0x4440u | nt), kb16);
+        b[nt][1] = onehot8(__byte_perm(w1, 0u, 0x4440u | nt), kb16);
+      }
+    } else {
+      const uint32_t w = cw[m * (BN / 4)];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) onehot(__byte_perm(w, 0u, 0x4440u | nt), kb16, b[nt][0], b[nt][1]);
+    }
 #pragma unroll
     for (int rb = 0; rb < RB; ++rb) {
       uint32_t a[4];
       recon_mma::ldsm_x4(lut_lane + rb * row16 + m * 32, a);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) recon_mma::mma(acc[rb][nt], a, b[nt][0], b[nt][1]);
+      for (int nt = 0; nt < NT; ++nt) mma(acc[rb][nt], a, b[nt][0], b[nt][1]);
     }
   }
 }
@@ -378,8 +520,48 @@ __device__ __forceinline__ bool bar_any(int id, int n, bool v) {
   return r != 0;
 }
 
+// Per-query state of the block in shared memory beside the select: the LUT
+// floor, and with int8 the rows' (a, c) (am 0 on a row that is not
+// uniform).
+struct Rows {
+  const float* lfloor;
+  const float* am;
+  const float* cm;
+};
+
+// int8: the LUT terms a * acc + c of the thread's keys, once per tile,
+// into lut (the same places as acc): with the row's (a, c) on a uniform
+// row (and on the rows past `rows`, never offered), with the slot's lane's
+// from meta on any other.
+__device__ __forceinline__ void dequant_rows(const Args& a, const Rows& rs,
+                                             const int (&acc)[RB][NT][4],
+                                             float (&lut)[RB][NT][4],
+                                             long long q0, int rows) {
+  const int lane = threadIdx.x & 31, tw = (threadIdx.x >> 5) % 4;
+  const int s0 = tw * WCOLS + 8 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int r = 16 * (j >> 1) + 8 * (j & 1) + (lane >> 2);
+    const float am = rs.am[r], cm = rs.cm[r];
+    if (am > 0.f || r >= rows) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        lut[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] =
+            dequant(acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)], am, cm);
+      }
+    } else {  // (a, c) at the slot's lane, s0 + i
+      const float* mrow = a.meta + (q0 + r) * (2 * K) + s0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        lut[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] =
+            dequant(acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)], mrow[i], mrow[K + i]);
+      }
+    }
+  }
+}
+
 // Keys of the warp's rows over its columns of tile t, offered to the
-// select. The team first waits for the other team to leave the select
+// select; acc holds the LUT sums (K4, bf16) or terms (int8, dequant_rows). The team first waits for the other team to leave the select
 // (barrier 3 + team, both teams' 256 threads). Then one barrier of the team
 // (id 1 + team, 128 threads) finds whether any of its rows passed the
 // gates, and after it every warp of the team is done with the tile's stage,
@@ -389,10 +571,11 @@ __device__ __forceinline__ bool bar_any(int id, int n, bool v) {
 // row whose queue could not take another 64 offers, one warp per 16 rows),
 // the team's barrier separating offers from compactions. Last the team
 // lets the other team in.
+template <int MODE>
 __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
                                          const Ring& ring, const Walk& w, int t,
                                          const Cols& c, Select& sel,
-                                         const float* lfloor,
+                                         const Rows& rs,
                                          const float (&acc)[RB][NT][4],
                                          long long q0, int rows) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -400,6 +583,7 @@ __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
   const int s0 = tw * WCOLS + 8 * (lane & 3);  // the thread's first column
   const long long col = w.col(t);
   const long long gcol = static_cast<long long>(w.group(t)) * K;
+  const float* lfloor = rs.lfloor;
   if (t > 0) bar_sync(3 + team, 2 * TEAM);  // the other team has left
   // rows that may offer: the row's LUT floor plus the smallest n2, then
   // its smallest bias-free key, plus the gate's bias (each rounded sum
@@ -410,11 +594,28 @@ __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
     const int r = 16 * (j >> 1) + 8 * (j & 1) + (lane >> 2);
     if (r >= rows) continue;
     const float thr = sel.thr[r];
-    if (!((lfloor[r] + c.n2min) + c.pen[j] < thr)) continue;
-    float xmin = CUDART_INF_F;
+    if constexpr (MODE == MODE_K4) {
+      if (!((lfloor[r] + c.n2min) + c.pen[j] < thr)) continue;
+      float xmin = CUDART_INF_F;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) xmin = fminf(xmin, acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] + c.n2[i]);
-    if (xmin + c.pen[j] < thr) live |= 1u << j;
+      for (int i = 0; i < 8; ++i) xmin = fminf(xmin, acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] + c.n2[i]);
+      if (xmin + c.pen[j] < thr) live |= 1u << j;
+    } else {
+      // K6's order, lut + (bias + n2), with the gate's bias; an int8 row
+      // whose (a, c) vary by lane is never gated
+      if (MODE == MODE_V3_INT8 && !(rs.am[r] > 0.f)) {
+        live |= 1u << j;
+        continue;
+      }
+      if (!(lfloor[r] + (c.pen[j] + c.n2min) < thr)) continue;
+      float xmin = CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float rest = c.pen[j] + c.n2[i];
+        xmin = fminf(xmin, acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] + rest);
+      }
+      if (xmin < thr) live |= 1u << j;
+    }
   }
   // one barrier of the team: every warp is done with the stage (its first
   // thread refills it) and says whether any of its rows may offer
@@ -432,10 +633,19 @@ __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
         const float* brow = a.biasg + (q0 + r) * a.nbias + gcol;
 #pragma unroll
         for (int i = 0; i < 8; ++i) bias[i] = c.one ? c.pen[j] : brow[c.lid[i]];
+        if constexpr (MODE == MODE_K4) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float key = (acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] + c.n2[i]) + bias[i];
-          if (key < thr) sel.offer(r, key, static_cast<int>(col + s0 + i));
+          for (int i = 0; i < 8; ++i) {
+            const float key = (acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] + c.n2[i]) + bias[i];
+            if (key < thr) sel.offer(r, key, static_cast<int>(col + s0 + i));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float rest = bias[i] + c.n2[i];
+            const float key = acc[j >> 1][i & 3][2 * (j & 1) + (i >> 2)] + rest;
+            if (key < thr) sel.offer(r, key, static_cast<int>(col + s0 + i));
+          }
         }
       }
     }
@@ -450,16 +660,22 @@ __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
 // each query's top-128 written to row q0 + r of okey/oslot (and ofloor).
 // Team k takes tiles t = k mod 2; the first thread fills the ring's
 // stages before the first tile.
+template <int MODE>
 __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
                      long long q0, int rows) {
+  constexpr bool INT8 = MODE == MODE_V3_INT8;
+  using Acc = typename std::conditional<INT8, int, float>::type;
   extern __shared__ __align__(1024) unsigned char adc_smem[];
+  const int row_bytes = lut_stride(MODE, a.M);
   Ring ring;
   ring.SB = stage_bytes(a.M);
   ring.base = adc_smem;
   unsigned char* lut = ring.base + STAGES * ring.SB;
-  Select sel(lut + BM * lut_row_bytes(a.M));
-  float* lfloor = reinterpret_cast<float*>(lut + BM * lut_row_bytes(a.M) + Select::kBytes);
-  ring.full = recon_mma::smem_u32(lfloor + BM);
+  Select sel(lut + BM * row_bytes);
+  float* lfloor = reinterpret_cast<float*>(lut + BM * row_bytes + Select::kBytes);
+  float* am = lfloor + BM;  // int8 only: the rows' a (0: not uniform), then c
+  float* cm = am + BM;
+  ring.full = recon_mma::smem_u32(lfloor + (INT8 ? 3 : 1) * BM);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -467,21 +683,30 @@ __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   sel.init(THREADS);
-  load_luts(a, q0, rows, lut);
+  if constexpr (INT8) {
+    load_luts<signed char>(a, q0, rows, (a.M + 1) / 2 * 2, row_bytes, lut);
+    load_meta(a, q0, rows, am, cm);
+  } else {
+    load_luts<unsigned short>(a, q0, rows, a.M, row_bytes, lut);
+  }
   __syncthreads();
-  if (threadIdx.x < BM) lfloor[threadIdx.x] = lut_floor(a, lut, threadIdx.x, rows);
+  if (threadIdx.x < BM) {
+    lfloor[threadIdx.x] = INT8 ? lut_floor8(a, lut, threadIdx.x, rows, am, cm)
+                               : lut_floor(a, lut, threadIdx.x, rows);
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int t = 0; t < STAGES && t < w.ntiles; ++t) ring.issue(maps, w, t, a.M);
   }
   const int team = warp / 4;
-  const int row16 = 16 * lut_row_bytes(a.M);  // bytes between row blocks
+  const int row16 = 16 * row_bytes;  // bytes between row blocks
   // ldmatrix.x4: lane l addresses row l % 8 (+ 8 for matrices 1 and 3) of
-  // the A fragment, k columns 8 (l / 16) .. + 8
+  // the A fragment, 16-byte column l / 16 of the k-step
   const uint32_t lut_lane = recon_mma::smem_u32(lut) +
-                            ((lane & 7) + ((lane >> 3) & 1) * 8) * lut_row_bytes(a.M) +
+                            ((lane & 7) + ((lane >> 3) & 1) * 8) * row_bytes +
                             (lane >> 4) * 16;
-  float acc[RB][NT][4];
+  const Rows rs{lfloor, am, cm};
+  Acc acc[RB][NT][4];
   int grp = -1;
   float pmin[2 * RB];
   for (int t = team; t < w.ntiles; t += 2) {
@@ -490,8 +715,14 @@ __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
     const unsigned char* st = ring.base + slot * ring.SB;
     Cols c;
     load_cols(a, w, t, st, q0, rows, grp, pmin, c);
-    products(a.M, st, lut_lane, row16, acc);
-    epilogue(a, maps, ring, w, t, c, sel, lfloor, acc, q0, rows);
+    products<MODE>(a.M, st, lut_lane, row16, acc);
+    if constexpr (INT8) {
+      float lut[RB][NT][4];
+      dequant_rows(a, rs, acc, lut, q0, rows);
+      epilogue<MODE>(a, maps, ring, w, t, c, sel, rs, lut, q0, rows);
+    } else {
+      epilogue<MODE>(a, maps, ring, w, t, c, sel, rs, acc, q0, rows);
+    }
   }
   bar_sync(5, THREADS);  // every offer and compaction is done
   for (int i = 0; i < BM / (THREADS / 32); ++i) {
@@ -504,6 +735,30 @@ __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
     tile_select::write_row(k, s, a.okey + o, a.oslot + o,
                            a.ofloor ? a.ofloor + o : nullptr);
   }
+}
+
+// Block b: query block b % qblocks of column split b / qblocks.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+adc_mma_kernel(Args a, const __grid_constant__ Maps maps, long long nq, long long S,
+               int qblocks, long long split_cols, int ct, int cpg, int gmax,
+               float* part_key, int* part_slot) {
+  const int qb = blockIdx.x % qblocks, p = blockIdx.x / qblocks;
+  const long long q0 = static_cast<long long>(qb) * BM;
+  const int rows = static_cast<int>(nq - q0 < BM ? nq - q0 : BM);
+  Walk w;
+  w.c0 = p * split_cols;
+  const long long c1 = w.c0 + split_cols < S ? w.c0 + split_cols : S;
+  w.ntiles = c1 > w.c0 ? static_cast<int>((c1 - w.c0) / BN) : 0;
+  w.ct = ct;
+  w.cpg = cpg;
+  w.gmax = gmax;
+  if (part_key != nullptr) {  // a split's top-128s go to the scratch
+    a.okey = part_key + p * nq * K;
+    a.oslot = part_slot + p * nq * K;
+    a.ofloor = nullptr;
+  }
+  scan<MODE>(a, maps, w, q0, rows);
 }
 
 // Host: the launch's TMA descriptors. Returns 0 or a CUDA error code.
@@ -557,6 +812,37 @@ inline int make_maps(Maps* m, const void* codesT, const void* n2,
     }
   }
   return 0;
+}
+
+// Host: one launch of the scan in MODE over codesT [M, S], n2 and lid [S],
+// for a's nq rows, its columns in `splits` ranges of whole tiles (with
+// more than one, part_key / part_slot [splits][nq][128] hold the splits'
+// top-128s until tile_select::merge_splits joins them into a's outputs).
+// The caller has checked the shape and the 16-byte alignment TMA needs.
+template <int MODE>
+int launch(const Args& a, const void* codesT, const void* n2, const void* lid,
+           void* part_key, void* part_slot, int nq, long long S, int ct,
+           int splits, cudaStream_t stream) {
+  Maps maps;
+  if (const int e = make_maps(&maps, codesT, n2, lid, S, a.M)) return e;
+  const int smem = smem_bytes(a.M, MODE);
+  const int G = a.nbias / K;
+  const int cpg = max(1, static_cast<int>(S / ct) / G);
+  const long long tiles = S / BN;
+  const long long split_cols = (tiles + splits - 1) / splits * BN;
+  const int qblocks = (nq + BM - 1) / BM;
+  cudaError_t err = cudaFuncSetAttribute(
+      adc_mma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* pk = static_cast<float*>(part_key);
+  int* ps = static_cast<int*>(part_slot);
+  adc_mma_kernel<MODE><<<qblocks * splits, THREADS, smem, stream>>>(
+      a, maps, nq, S, qblocks, split_cols, ct, cpg, G - 1, pk, ps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  tile_select::merge_splits<<<(nq + 3) / 4, 128, 0, stream>>>(
+      pk, ps, splits, nq, a.okey, a.oslot, a.ofloor);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace adc_mma

@@ -20,43 +20,19 @@
 // shared-memory lookup scan of adc_scan.cuh, chosen by shape before the
 // launch (tc = 0), never as a fallback.
 //
-// K5 keeps the lookup scan of adc_scan.cuh, which K6 (ivfpq_v3.cu) shares:
-// the LUT entries (bf16 values, exact in float32) looked up in shared
-// memory and summed in float32, the bias added in float32 as given, closer
-// to the float32 key than the TPU's hi + lo. What bounds it: the
-// shared-memory lookups (adc_scan.cuh).
+// K5 keeps the lookup scan of adc_scan.cuh, which K6 (ivfpq_v3.cu) shares
+// for the shapes its tensor-core instances do not take: the LUT entries
+// (bf16 values, exact in float32) looked up in shared memory and summed in
+// float32, the bias added in float32 as given, closer to the float32 key
+// than the TPU's hi + lo. What bounds it: the shared-memory lookups
+// (adc_scan.cuh).
 
 #include "adc_mma.cuh"
 #include "adc_scan.cuh"
 
 namespace {
 
-using adc_mma::BM;
 using adc_mma::BN;
-using adc_mma::K;
-
-// Block b: query block b % qblocks of column split b / qblocks.
-__global__ void __launch_bounds__(adc_mma::THREADS, 1)
-adc_mma_kernel(adc_mma::Args a, const __grid_constant__ adc_mma::Maps maps,
-               long long nq, long long S, int qblocks, long long split_cols,
-               int ct, int cpg, int gmax, float* part_key, int* part_slot) {
-  const int qb = blockIdx.x % qblocks, p = blockIdx.x / qblocks;
-  const long long q0 = static_cast<long long>(qb) * BM;
-  const int rows = static_cast<int>(nq - q0 < BM ? nq - q0 : BM);
-  adc_mma::Walk w;
-  w.c0 = p * split_cols;
-  const long long c1 = w.c0 + split_cols < S ? w.c0 + split_cols : S;
-  w.ntiles = c1 > w.c0 ? static_cast<int>((c1 - w.c0) / BN) : 0;
-  w.ct = ct;
-  w.cpg = cpg;
-  w.gmax = gmax;
-  if (part_key != nullptr) {  // a split's top-128s go to the scratch
-    a.okey = part_key + p * nq * K;
-    a.oslot = part_slot + p * nq * K;
-    a.ofloor = nullptr;
-  }
-  adc_mma::scan(a, maps, w, q0, rows);
-}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -74,41 +50,24 @@ int launch_tc(const void* biasg, const void* luts, const void* codesT,
               void* out_floor, void* part_key, void* part_slot, int nq,
               int nbias, int M, int ksub, long long S, int ct, int splits,
               cudaStream_t stream) {
-  const int smem = adc_mma::smem_bytes(M);
   if (!tc_takes(M, ksub) || ct % BN != 0 || splits < 1 ||
       (splits > 1) != (part_key != nullptr) ||
       (part_key != nullptr) != (part_slot != nullptr) || !aligned16(biasg) ||
       !aligned16(codesT) || !aligned16(n2) || !aligned16(lid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  adc_mma::Maps maps;
-  if (const int e = adc_mma::make_maps(&maps, codesT, n2, lid, S, M)) return e;
   adc_mma::Args a;
   a.biasg = static_cast<const float*>(biasg);
-  a.luts = static_cast<const __nv_bfloat16*>(luts);
+  a.luts = luts;
+  a.meta = nullptr;
   a.okey = static_cast<float*>(out_key);
   a.oslot = static_cast<int*>(out_slot);
   a.ofloor = static_cast<float*>(out_floor);
   a.nbias = nbias;
   a.M = M;
   a.ksub = ksub;
-  const int G = nbias / K;
-  const int cpg = max(1, static_cast<int>(S / ct) / G);
-  const long long tiles = S / BN;
-  const long long split_cols = (tiles + splits - 1) / splits * BN;
-  const int qblocks = (nq + BM - 1) / BM;
-  cudaError_t err = cudaFuncSetAttribute(
-      adc_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  float* pk = static_cast<float*>(part_key);
-  int* ps = static_cast<int*>(part_slot);
-  adc_mma_kernel<<<qblocks * splits, adc_mma::THREADS, smem, stream>>>(
-      a, maps, nq, S, qblocks, split_cols, ct, cpg, G - 1, pk, ps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  tile_select::merge_splits<<<(nq + 3) / 4, 128, 0, stream>>>(
-      pk, ps, splits, nq, a.okey, a.oslot, a.ofloor);
-  return static_cast<int>(cudaGetLastError());
+  return adc_mma::launch<adc_mma::MODE_K4>(a, codesT, n2, lid, part_key, part_slot,
+                                           nq, S, ct, splits, stream);
 }
 
 }  // namespace

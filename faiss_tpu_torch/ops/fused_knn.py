@@ -74,12 +74,20 @@ ivfpq_fused_pallas_v3, K4's keys over every chunk from a precomputed one-hot
 ``m * ksub + code``, then the 128 local-list rows) instead of the codes, with
 bf16 LUTs or int8 LUTs and their per-query ``meta`` (a, c) (quantize_luts_int8):
 
-  bf16:  luts . oh_pq + biasg_g . oh_list + n2
+  bf16:  luts . oh_pq + (biasg_g . oh_list + n2)
   int8:  (a * (q8 . oh_pq) + c) + (biasg_g . oh_list + n2)
 
 with ``biasg_g`` the 128 bias columns of the chunk's group ``chunk // cpg``
 (the chunks split evenly into the G groups) and (a, c) read at the slot's
-lane ``s % 128``. A column that is not a one-hot is refused.
+lane ``s % 128``. A column that is not a one-hot is refused. A first pass
+decodes the one-hot into codes and list ids (checking every column); then
+the products run on the tensor cores as K4's do (csrc/adc_mma.cuh), in K6's
+order of additions: bf16 LUTs one bf16 k-step per sub-quantizer into
+float32, int8 LUTs one int8 k-step (mma m16n8k32) per pair of
+sub-quantizers into exact int32 sums; a row whose 128 (a, c) lanes agree is
+gated by its LUT floor, any other reads (a, c) per key. The wrapper sends
+shapes the tensor cores do not take (ksub > 16; M > 37 bf16, M > 61 int8)
+to K5's lookup scan, chosen by shape before the launch.
 
 K7 ``recon_floor`` (csrc/recon_floor.cu): counterpart of the score-only
 kernel of benchs/archive/exp_r3c.py:floor_call, K2's score producer with no
@@ -92,9 +100,9 @@ qh.yh + ql.yh + qh.yl with the lo plane and qh.y + ql.y without, summed in
 float32 (the dropped ql.yl term is below 2^-16 |q| |y|). They serve 64
 queries a block, split the columns (K2) or each worklist (K1) across blocks
 so that a launch fills the card, and merge the splits' top-128s in a second
-pass of the same source; K1 stops each tile at its last non-PAD step. K4's
-tensor-core instance does the same for its columns. K5-K7 compute in
-float32 on the CUDA cores (bf16 inputs upcast). The plain
+pass of the same source; K1 stops each tile at its last non-PAD step. K4's and
+K6's tensor-core instances do the same for their columns. K5 and K7 compute
+in float32 on the CUDA cores (bf16 inputs upcast). The plain
 versions use float32 matrix products with TF32 off (of hi + lo summed in
 float32 for K1/K2; the ADC sum as a product with a one-hot of the codes,
 exact but summed in another order) and chunk over columns, so none builds a
@@ -127,7 +135,7 @@ RECON_QSEG = 128  # K1/K2 take d_pad in multiples of this (recon_mma.cuh QSEG)
 MAX_K_LANES = 2048  # K3's widest select (faiss's BlockSelect range)
 REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
 MAX_LUT_ROW = 2048  # K4/K5 hold M * ksub float32 LUT entries per query
-ADC_TC_BLOCK = 64  # queries per block of K4 on the tensor cores (adc_mma.cuh BM)
+ADC_TC_BLOCK = 64  # queries per block of K4 and K6 on the tensor cores (adc_mma.cuh BM)
 ADC_TC_TILE = 128  # its columns per tile (adc_mma.cuh BN)
 KNN_BLOCK = 64  # queries per block of K3's product passes (knn_mma.cuh BM)
 KNN_TILE = 256  # their columns per tile (knn_mma.cuh BN)
@@ -168,7 +176,7 @@ KERNELS = {
         [_vp] * 12 + [_ci, _ci, _ci, _ci, _ll] + [_ci] * 5 + [_vp], [_ci] * 3,
     ),
     "ivfpq_v3": (
-        [_vp] * 11 + [_ci, _ci, _ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci, _ci],
+        [_vp] * 13 + [_ci, _ci, _ci, _ci, _ll] + [_ci] * 5 + [_vp], [_ci] * 4,
     ),
     "recon_floor": ([_vp] * 4 + [_ci, _ci, _ll, _ci, _ci, _vp], [_ci]),
 }
@@ -314,11 +322,11 @@ def _sm_count(index):
 
 
 def _split_count(blocks, units, sms):
-    """Splits of the columns (K2, K4) or of each worklist (K1) so that a
-    launch of ``blocks`` blocks of 64 queries gives every one of ``sms`` SMs
-    a block (one fits per SM), without splitting ``units`` (64-column tiles
-    of K2's store, 128-column tiles of K4's codes, steps of K1's worklists)
-    finer than one each."""
+    """Splits of the columns (K2, K4, K6) or of each worklist (K1) so that
+    a launch of ``blocks`` blocks of 64 queries gives every one of ``sms``
+    SMs a block (one fits per SM), without splitting ``units`` (64-column
+    tiles of K2's store, 128-column tiles of K4's and K6's codes, steps of
+    K1's worklists) finer than one each."""
     if blocks <= 0 or units <= 0 or sms <= 0:
         raise ValueError(f"blocks={blocks}, units={units}, sms={sms} must be positive")
     return max(1, min(sms // blocks, units))
@@ -956,16 +964,17 @@ def adc_on_tensor_cores(M, ksub):
     return lib.ivfpq_adc_smem_bytes(M, ksub, 1) >= 0
 
 
-def _check_adc_tc(biasg, codesT, n2, lid, ct):
-    """What K4's tensor-core kernel needs beyond the contract: TMA reads
-    codesT, n2 and lid and the bias floor reads biasg 16 bytes at a time, so
-    their base addresses 16-byte aligned; chunks of whole 128-column tiles
-    (a tile lies in one chunk, so in one bias group). Raises ValueError."""
-    for name, t in (("biasg", biasg), ("codesT", codesT), ("n2", n2), ("lid", lid)):
+def _check_adc_tc(what, named, ct):
+    """What the tensor-core ADC kernel (K4, K6) needs beyond the contract:
+    TMA reads the codes, n2 and the list ids and the bias floor reads biasg
+    16 bytes at a time, so the base addresses of the ``named`` (name,
+    tensor) pairs 16-byte aligned; chunks of whole 128-column tiles (a tile
+    lies in one chunk, so in one bias group). Raises ValueError."""
+    for name, t in named:
         if t.data_ptr() % 16:
-            raise ValueError(f"K4: {name} must start on a 16-byte boundary")
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
     if ct % ADC_TC_TILE:
-        raise ValueError(f"K4: ct={ct} must be a multiple of {ADC_TC_TILE}")
+        raise ValueError(f"{what}: ct={ct} must be a multiple of {ADC_TC_TILE}")
 
 
 def ivfpq_fused(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
@@ -991,7 +1000,8 @@ def ivfpq_fused(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
     tc = adc_on_tensor_cores(M, ksub)
     splits = 1
     if tc:
-        _check_adc_tc(biasg, codesT, n2, lid, ct)
+        _check_adc_tc("K4", (("biasg", biasg), ("codesT", codesT), ("n2", n2),
+                             ("lid", lid)), ct)
         splits = _split_count(-(-nq // ADC_TC_BLOCK), S // ADC_TC_TILE,
                               _sm_count(luts.device.index or 0))
     part_key, part_slot = _split_scratch(splits, nq, luts.device)
@@ -1132,6 +1142,17 @@ def _check_v3(biasg, luts, meta, ohT, n2, qt, ct, ksub):
     return Kpq // ksub, G, int8
 
 
+def v3_on_tensor_cores(M, ksub, int8):
+    """K6's instance for a shape and LUT type, as the built kernel library
+    decides it: True for the tensor-core kernel (ksub <= 16 and 64 LUT rows
+    that fit a block's shared memory: M <= 37 with bf16 LUTs, M <= 61 with
+    int8), False for the shared-memory lookup scan of adc_scan.cuh.
+    ``ivfpq_v3_smem_bytes(M, ksub, int8, 1)`` is -1 where the tensor-core
+    kernel does not take the shape."""
+    lib, _ = build_kernel("ivfpq_v3")
+    return lib.ivfpq_v3_smem_bytes(M, ksub, int(int8), 1) >= 0
+
+
 def ivfpq_fused_v3(biasg, luts, meta, ohT, n2, *, qt: int = 256, ct: int = 1024,
                    ksub: int = 16):
     """K6 (see the module docstring). ``biasg`` [nq, G * 128] float32 coarse
@@ -1144,12 +1165,25 @@ def ivfpq_fused_v3(biasg, luts, meta, ohT, n2, *, qt: int = 256, ct: int = 1024,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream and read the kernel's count of non-one-hot columns once
-    (a synchronisation) to raise on them; any other device raises."""
+    (a synchronisation) to raise on them; any other device raises. On the
+    card the instance is chosen by shape before the launch, as the built
+    library answers :func:`v3_on_tensor_cores`: the tensor-core kernel for
+    ksub <= 16 and M <= 37 (bf16) or 61 (int8), checked by
+    :func:`_check_adc_tc`, its columns split across blocks; the lookup scan
+    of adc_scan.cuh for wider codes or rows. A failed build or launch
+    raises."""
     M, G, int8 = _check_v3(biasg, luts, meta, ohT, n2, qt, ct, ksub)
     if not _route("K6", (biasg, luts, meta, ohT, n2)):
         return ivfpq_fused_v3_ref(biasg, luts, meta, ohT, n2, qt=qt, ct=ct,
                                   ksub=ksub)
     nq, S, dev = luts.shape[0], ohT.shape[1], luts.device
+    tc = v3_on_tensor_cores(M, ksub, int8)
+    splits = 1
+    if tc:
+        _check_adc_tc("K6", (("biasg", biasg), ("n2", n2)), ct)
+        splits = _split_count(-(-nq // ADC_TC_BLOCK), S // ADC_TC_TILE,
+                              _sm_count(dev.index or 0))
+    part_key, part_slot = _split_scratch(splits, nq, dev)
     codes = torch.empty(M, S, dtype=torch.uint8, device=dev)
     lid = torch.empty(1, S, dtype=torch.int32, device=dev)
     bad = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1158,10 +1192,13 @@ def ivfpq_fused_v3(biasg, luts, meta, ohT, n2, *, qt: int = 256, ct: int = 1024,
         "ivfpq_v3", biasg.data_ptr(), luts.data_ptr(), meta.data_ptr(),
         ohT.data_ptr(), n2.data_ptr(), codes.data_ptr(), lid.data_ptr(),
         bad.data_ptr(), keys.data_ptr(), slots.data_ptr(), floor.data_ptr(),
-        nq, biasg.shape[1], M, ksub, S, qt, ct, int(int8), _stream(dev),
+        _ptr(part_key), _ptr(part_slot), nq, biasg.shape[1], M, ksub, S, qt,
+        ct, int(int8), splits, int(tc), _stream(dev),
     )
     ivfpq_fused_v3.launches += 1
     ivfpq_fused_v3.int8_launches += int8
+    ivfpq_fused_v3.tc_launches += tc
+    ivfpq_fused_v3.splits = splits
     nbad = int(bad.item())
     if nbad:
         raise ValueError(f"ohT: {nbad} columns are not a one-hot")
@@ -1170,6 +1207,8 @@ def ivfpq_fused_v3(biasg, luts, meta, ohT, n2, *, qt: int = 256, ct: int = 1024,
 
 ivfpq_fused_v3.launches = 0
 ivfpq_fused_v3.int8_launches = 0
+ivfpq_fused_v3.tc_launches = 0  # launches of the tensor-core instances
+ivfpq_fused_v3.splits = 0  # column splits of the last launch
 
 
 def _check_onehot(oh, Kpq, ksub):
