@@ -15,10 +15,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      knn_fused, ivfpq_adc, ivfpq_v3, recon_floor), one nvcc per source, all
      started together, and print each one's ptxas register lines and
      dynamic shared memory; K3's five kernels and the tensor-core
-     instances of K4 and of K6 (bf16 and int8 LUTs) must spill no
+     instances of K4, K5, K6 (bf16 and int8 LUTs) and K7 must spill no
      register, and the built libraries must route PQ32x4fs and 4-bit rows
-     up to M = 37 (K4, K6 bf16) or 61 (K6 int8) to the tensor cores, ksub
-     > 16 and wider rows to the lookup scan;
+     up to M = 37 (K4 and K5, K6 bf16) or 61 (K6 int8) to the tensor cores,
+     ksub > 16 and wider rows to the lookup scan;
   3. regenerate the 1M x 128 Gaussian mixture of bench.py (seeds 42, 1, 2, 3);
   4. train and add IndexRefineFlat(IndexIVFPQFastScan(d=128, nlist=4096,
      M=32, nbits=4), store_float16=True) on the card, then stage the search
@@ -50,7 +50,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      sub-batch of their paths) against their plain versions: keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|
      (the second term covers float32's spacing of 64 at the 1e9 mask), ids
      tie-aware; times by CUDA events, plain, kernel, kernel, plain; K4
-     prints its column splits;
+     prints its column splits, K5 its worklist splits and PAD steps
+     skipped; K5 and K1 soft over the same worklists timed in turns;
  11. phase 9 with dyn_engage_frac = 0.7 (K1 penalized): on the rows of
      phase 9's kind in sub-batches that dropped no probed chunk, the ids lie
      in the probed list and agree tie-aware with phase 9;
@@ -78,11 +79,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with the one-hot's M * 16 PQ rows: the same products, no bias, no
      select;
  12b. K7 over the decoded store on the 8192 queries in 2048-query
-     sub-batches; on the first, against its plain version and the minimum
-     over its lanes against K2's first key (one plane, unmasked), within
-     1e-4 * (|q|^2 + max n2); K7 and K2 timed in turns, and K2's time
-     printed as a share of K7's (K7 keeps the float32 producer that K1
-     and K2 left);
+     sub-batches, every launch on the tensor cores with its columns split;
+     on the first, against its plain version and the minimum over its
+     lanes against K2's first key (one plane, unmasked), within
+     1e-4 * (|q|^2 + max n2), with the largest difference from K2 and the
+     rows where they are bitwise equal printed (the same products in the
+     same order); K7 and K2 timed in turns, and K2's time printed as a
+     share of K7's (the select's cost);
  12c. IndexIVFPQ.search by probe (64 queries, nprobe=16, then with
      max_codes=2000) and through the XLA ADC scan (k=200 on 1024 queries),
      none launching a kernel: on 64 rows the distances within
@@ -93,7 +96,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ways to sum the LUT entries (the one-hot product it takes at
      ksub <= 16, the table gathers above) timed on its inputs;
  13-14. re-staged with recon_scan_max_bytes = 0 (no decoded store): refined
-     soft (K5) and refined strict (K4, every launch on the tensor cores),
+     soft (K5: every launch on the tensor cores with its worklist steps
+     split, PAD steps skipped; K5 against its plain version on every
+     2048-query sub-batch of the path, as in phase 10; one K5 launch at
+     ksub = 32, M = 8, which must take the lookup scan and equal its plain
+     version) and refined strict (K4, every launch on the tensor cores),
      then K4 on phase 14's first 2048-query sub-batch (masked, its columns
      split and merged) against its plain version as in phase 10;
      both mask unprobed lists, so their
@@ -200,9 +207,9 @@ TF32 products, the same work as the TPU's six bf16 products of HIGHEST) at
 495 TFLOP/s. Rates are an
 H100 SXM's dense peaks at 700 W; only the slots that hold a vector are
 counted (K6's bytes count its one-hot). Phase 12a also prints the bound of
-the lookup scan's design (K5's; K4's and K6's until they moved to the
-tensor cores), M + 1 shared-memory LUT lookups per key at 32 a clock per
-SM, as a note.
+the lookup scan's design (K4's, K5's and K6's before they moved to the
+tensor cores, and still theirs at ksub > 16), M + 1 shared-memory LUT
+lookups per key at 32 a clock per SM, as a note.
 """
 
 import functools
@@ -286,11 +293,15 @@ def tc_products_ms(xq, hi, lo, ncols, reps=2):
 
 
 def recon_note(fused_knn, kernel):
-    """The split count of K1's, K2's or K4's last launch, and K1's PAD steps
-    skipped since its counter was last reset."""
+    """The split count of K1's, K2's, K4's or K5's last launch, and K1's or
+    K5's PAD steps skipped since its counter was last reset."""
     if kernel == "K1":
         return (f"{fused_knn.ivf_recon_fused_dyn.splits} worklist splits, "
                 f"{fused_knn.pad_steps_skipped(reset=True)} PAD steps skipped")
+    if kernel == "K5":
+        return (f"{fused_knn.ivfpq_fused_dyn.splits} worklist splits (tensor "
+                f"cores), {fused_knn.pad_steps_skipped(reset=True, kernel='K5')} "
+                "PAD steps skipped")
     if kernel == "K4":
         return f"{fused_knn.ivfpq_fused.splits} column splits (tensor cores)"
     return f"{fused_knn.ivf_recon_fused.splits} column splits"
@@ -325,11 +336,13 @@ def reset_counts(fused_knn):
     fused_knn.ivfpq_fused_v3.int8_launches = 0
     fused_knn.ivfpq_fused_v3.tc_launches = 0
     fused_knn.ivfpq_fused.tc_launches = 0
+    fused_knn.ivfpq_fused_dyn.tc_launches = 0
     fused_knn.ivf_recon_fused_dyn.penalized_launches = 0
     fused_knn.ivf_recon_fused.masked_launches = 0
     fused_knn.ivf_recon_fused_dyn.hilo_launches = 0
     fused_knn.ivf_recon_fused.hilo_launches = 0
     fused_knn.pad_steps_skipped(reset=True)
+    fused_knn.pad_steps_skipped(reset=True, kernel="K5")
 
 
 # H100 SXM at 700 W, datasheet dense peaks: float32 outside the tensor
@@ -374,7 +387,7 @@ def ops_s(store, keys, planes=1, int8=False):
 
 
 def lookup_s(codes, keys):
-    """Seconds of K5's and K6's own design over ``keys`` pairs: M + 1
+    """Seconds of the lookup scan's design over ``keys`` pairs: M + 1
     shared-memory lookups per key (the LUT entries and the bias) at
     lookup_rate(). A note beside the bound, not the bound."""
     return keys * (codes.shape[0] + 1) / lookup_rate()
@@ -551,15 +564,15 @@ def scan_cost(store, n2s, nq, per_query, lid, planes=1):
             S * per_col + nbytes(*per_query) + 3 * nq * 512)
 
 
-def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps, recon=None):
+def lanes_check(fused_knn, what, kern, plain, qn2, n2, recon=None):
     """A kernel against its plain version on the same inputs (keys within
-    lane_tol, ids tie-aware, floor all +inf), then both timed in turns;
-    with ``recon`` ("K1", "K2" or "K4") the launch's splits (and K1's
-    skipped PAD steps) are printed. Returns (max_abs_err, kernel ms, plain
-    ms)."""
+    lane_tol, ids tie-aware, floor all +inf); with ``recon`` ("K1", "K2",
+    "K4" or "K5") the launch's splits (and K1's or K5's skipped PAD steps)
+    are printed. Returns max_abs_err."""
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 
     fused_knn.pad_steps_skipped(reset=True)
+    fused_knn.pad_steps_skipped(reset=True, kernel="K5")
     kk, ks, kf = kern()
     rk, rs_, _ = plain()
     torch.cuda.synchronize()
@@ -567,7 +580,13 @@ def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps, recon=None):
         print(f"{what}: {recon_note(fused_knn, recon)}", flush=True)
     check(bool(torch.isinf(kf).all()), f"{what}: floor is not all +inf")
     tol = lane_tol(qn2, n2, rk.cpu().numpy(), rs_.cpu().numpy())
-    err = compare_lanes(kk, ks, rk, rs_, tol, what, ids_agree_tie_aware)
+    return compare_lanes(kk, ks, rk, rs_, tol, what, ids_agree_tie_aware)
+
+
+def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps, recon=None):
+    """lanes_check, then the kernel and its plain version timed in turns.
+    Returns (max_abs_err, kernel ms, plain ms)."""
+    err = lanes_check(fused_knn, what, kern, plain, qn2, n2, recon)
     ms, plain_ms, t = turns(plain, kern, reps)
     print(f"{what} vs plain: max_abs_err {err:.3e}, ids agree on all rows; "
           f"{t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / {t[3]:.2f} ms",
@@ -784,7 +803,7 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
         fused_knn, f"K5 [{BATCH} q, {cmap.shape[1]} steps]",
         lambda: fused_knn.ivfpq_fused_dyn(*a5, qt=qt, ct=ct),
         lambda: fused_knn.ivfpq_fused_dyn_ref(*a5, qt=qt, ct=ct),
-        xs.square().sum(1).cpu().numpy(), n2, 5)
+        xs.square().sum(1).cpu().numpy(), n2, 5, recon="K5")
     k5_cost = dyn_cost(br, cmap, qt, br["codesT"], a5[:2], True)
     # K1 penalized: the first strict sub-batch at dyn_engage_frac = 0.7
     pen = torch.where(P._probe_mask(cm2, pcols_s), 0.0, 1e9)
@@ -796,6 +815,14 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
         lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1),
         xs.square().sum(1).cpu().numpy(), n2, 10, recon="K1")
     k1p_cost = dyn_cost(br, cmap, qt, br["yT"], (a1[0], pen), True)
+    # K5 beside K1 soft over the same worklists (K1 over the decoded store),
+    # both timed in turns: K5, K1, K1, K5
+    k5f = lambda: fused_knn.ivfpq_fused_dyn(*a5, qt=qt, ct=ct)  # noqa: E731
+    k1f = lambda: fused_knn.ivf_recon_fused_dyn(*a1)  # noqa: E731
+    tt = [cuda_ms(f, 10) for f in (k5f, k1f, k1f, k5f)]
+    print(f"10. K5 {tt[0]:.3f} / {tt[3]:.3f} ms, K1 soft {tt[1]:.3f} / "
+          f"{tt[2]:.3f} ms over the same {cmap.shape[1]}-step worklists of "
+          f"{BATCH} q: K5/K1 = {(tt[0] + tt[3]) / (tt[1] + tt[2]):.3f}", flush=True)
     # K2 masked: the first strict sub-batch
     mask = torch.where(P._probed(xq2, br["centroids_g"], br["cn2g"], NPROBE)[1],
                        0.0, 1e9)
@@ -872,8 +899,40 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
     (Dd, Id, drops), k5_launches = counted(
         fused_knn, "13. refined soft search, no decoded store (K5)",
         lambda: refined(index, xq), lambda: fused_knn.ivfpq_fused_dyn.launches)
+    k5_tc = fused_knn.ivfpq_fused_dyn.tc_launches
+    k5_splits = fused_knn.ivfpq_fused_dyn.splits
+    k5_skipped = fused_knn.pad_steps_skipped(reset=True, kernel="K5")
+    msteps = base._dyn_bucket[NPROBE]
+    check(k5_tc == k5_launches, f"13.: {k5_launches - k5_tc} of {k5_launches} K5 "
+                                "launches took the lookup scan, not the tensor cores")
+    check(k5_splits > 1, f"13.: K5 at {BATCH} queries ran {k5_splits} worklist split(s)")
+    check(k5_skipped > 0, "13.: K5 skipped no PAD step")
+    print(f"13.: all {k5_launches} K5 launches on the tensor cores ({k5_splits} "
+          f"worklist splits), {k5_skipped} PAD steps skipped of "
+          f"{k5_launches * (BATCH // qt) * msteps} (tiles x msteps); msteps "
+          f"{msteps}", flush=True)
     print(f"K5 path: recall@10 {recall_at_k(Id, gt, K):.4f}; "
           f"{P.ivf_fast_scan_stats}", flush=True)
+    # K5 against its plain version on every sub-batch of the path, as
+    # _fused_search_rerank_dyn hands them to it
+    k5_err = k5[0]
+    for s0 in range(0, NQ, BATCH):
+        xb_ = xq_all[s0 : s0 + BATCH]
+        perm, pcols_s, cm2, cmap, nd = P._dyn_inputs(xb_, br, NPROBE, qt, msteps)
+        xs = xb_[perm]
+        cm2_s = torch.where(P._probe_mask(cm2, pcols_s), cm2[perm], 1e9)
+        a5 = (cm2_s, P._adc_luts(xs, br["cbt"]), br["codesT"], br["n2s"],
+              br["lid"], cmap, br["cgroup"])
+        what = f"13. K5 sub-batch {s0 // BATCH} [{BATCH} q, {msteps} steps, ndropped {int(nd)}]"
+        e = lanes_check(fused_knn, what,
+                        lambda: fused_knn.ivfpq_fused_dyn(*a5, qt=qt, ct=ct),
+                        lambda: fused_knn.ivfpq_fused_dyn_ref(*a5, qt=qt, ct=ct),
+                        xs.square().sum(1).cpu().numpy(),
+                        br["n2s"][0].cpu().numpy(), recon="K5")
+        print(f"{what}: max_abs_err {e:.3e}, ids agree on all rows", flush=True)
+        k5_err = max(k5_err, e)
+    del a5
+    dyn_lookup_check(fused_knn, dev, ct, ids_agree_tie_aware)
     time_search("refined soft, no decoded store (K5)", lambda: index.search(xq, K), NQ)
     base.strict_probe = True
     P.ivf_fast_scan_stats.reset()
@@ -903,8 +962,8 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
     rows = undropped(drops, NQ) & full
     agree_at_cut(rows, Dk, Ik, Dd, Id, adc64, "K5 soft vs K4 strict")
     out.insert(1, entry("ivfpq_fused_dyn", "faiss_tpu_torch/csrc/ivfpq_adc.cu",
-                        "faiss_tpu/ops/pallas_knn.py:570", k5_launches, *k5,
-                        *k5_cost))
+                        "faiss_tpu/ops/pallas_knn.py:570", k5_launches, k5_err,
+                        *k5[1:], *k5_cost))
     out[0]["launches"] += k4r_launches
 
     # K2's entry (flat_phases) adds phase 12's unmasked launches and error
@@ -1102,7 +1161,7 @@ def onehot_adc_phases(fused_knn, base, br, xq, gt, dev):
             "faiss_tpu_torch/csrc/ivfpq_v3.cu", "faiss_tpu/ops/pallas_knn.py:778",
             launches[int8], *res[int8], ops_s(codesT, BATCH * held, int8=int8),
             nbytes(*read) + 3 * BATCH * 512))
-    print(f"12a. the lookup scan's design (K5's; K4's and K6's until they moved "
+    print(f"12a. the lookup scan's design (K4's, K5's and K6's before they moved "
           f"to the tensor cores), M + 1 shared-memory lookups per key at 32 a "
           f"clock per SM, takes at least "
           f"{lookup_s(codesT, BATCH * held) * 1e3:.2f} ms per {BATCH}-query "
@@ -1176,6 +1235,42 @@ def lookup_route_check(fused_knn, dev, ct, ids_agree_tie_aware):
               f"scan and equals its plain version (max_abs_err {e:.3e})", flush=True)
 
 
+def dyn_lookup_check(fused_knn, dev, ct, ids_agree_tie_aware):
+    """K5 at ksub = 32 (M = 8; 256 queries in one tile over a worklist of
+    24 of 64 chunks of random codes in runs of 256 slots a list, G = 2,
+    then PAD steps), which the tensor cores do not take: it must take the
+    lookup scan of adc_scan.cuh and equal its plain version."""
+    nq, Mq, ksub, nch, G, msteps = 256, 8, 32, 64, 2, 32
+    S = (nch + 1) * ct
+    g = torch.Generator(device=dev).manual_seed(11)
+    codes = torch.randint(ksub, (Mq, S), generator=g, device=dev).to(torch.uint8)
+    lid = ((torch.arange(S, device=dev) // 256) % 128).int()[None]
+    n2 = torch.rand(1, S, generator=g, device=dev) * 2
+    n2[:, nch * ct :] = float("inf")  # the PAD chunk
+    luts = torch.randn(nq, Mq * ksub, generator=g, device=dev).to(torch.bfloat16)
+    biasg = torch.randn(nq, G * 128, generator=g, device=dev)
+    cgroup = torch.clamp(torch.arange(nch + 1, device=dev) // (nch // G), max=G - 1).int()
+    cmap = torch.full((1, msteps), nch, dtype=torch.int32, device=dev)
+    cmap[0, :24] = torch.randperm(nch, generator=g, device=dev)[:24].sort().values.int()
+    a = (biasg, luts, codes, n2, lid, cmap, cgroup)
+    dyn = fused_knn.ivfpq_fused_dyn
+    n0, tc0 = dyn.launches, dyn.tc_launches
+    kk, ks, kf = dyn(*a, qt=nq, ct=ct)
+    rk, rs_, _ = fused_knn.ivfpq_fused_dyn_ref(*a, qt=nq, ct=ct)
+    torch.cuda.synchronize()
+    what = f"K5 at ksub {ksub}"
+    check(dyn.launches == n0 + 1 and dyn.tc_launches == tc0,
+          f"{what} did not take the lookup scan")
+    check(bool(torch.isinf(kf).all()), f"{what}: floor is not all +inf")
+    mag = (luts.float().abs().reshape(nq, Mq, ksub).amax(2).sum(1)
+           + biasg.abs().amax(1)).cpu().numpy()
+    tol = lane_tol(mag, n2[0].cpu().numpy(), rk.cpu().numpy(), rs_.cpu().numpy())
+    e = compare_lanes(kk, ks, rk, rs_, tol, what, ids_agree_tie_aware)
+    print(f"13. {what} (M = {Mq}, {nq} q over {msteps} steps of {ct} columns) "
+          f"took the lookup scan and equals its plain version (max_abs_err "
+          f"{e:.3e})", flush=True)
+
+
 def floor_phase(fused_knn, base, br, xq_all, dev):
     """Phase 12b: K7 over the decoded store, against its plain version and
     K2's first key, and timed beside K2 (one plane, unmasked) on the same
@@ -1189,7 +1284,13 @@ def floor_phase(fused_knn, base, br, xq_all, dev):
                                   n2s, **kw) for s0 in range(0, NQ, BATCH)]
     torch.cuda.synchronize()
     launches = fused_knn.recon_floor.launches
+    splits = fused_knn.recon_floor.splits
     check(launches > 0, "K7's path launched it no time")
+    # the card's only K7 instance is the tensor-core one; each sub-batch has
+    # the shape of the last
+    check(splits > 1, f"K7 at {BATCH} queries ran {splits} column split(s)")
+    print(f"12b. all {launches} K7 launches on the tensor cores, {splits} "
+          "column splits each", flush=True)
     fl = torch.cat(outs)
     check(tuple(fl.shape) == (NQ, 128) and bool(torch.isfinite(fl).all()),
           "K7: a lane without a finite key")
@@ -1206,6 +1307,9 @@ def floor_phase(fused_knn, base, br, xq_all, dev):
     e2 = float((got.min(1).values - k2).abs().max())
     check(bool(((got.min(1).values - k2).abs() <= tol).all()),
           f"K7: the minimum over the lanes differs from K2's first key by {e2:.3e}")
+    same = int((got.min(1).values == k2).sum())
+    print(f"12b. min over K7's lanes vs K2 one plane's first key: largest "
+          f"difference {e2!r}, bitwise equal on {same} of {BATCH} rows", flush=True)
     check(bool((got == fl[:BATCH]).all()), "K7 differs between two launches")
     ms, plain_ms, t = turns(lambda: fused_knn.recon_floor_ref(xp, yT, n2s, **kw),
                             lambda: fused_knn.recon_floor(xp, yT, n2s, **kw), 3)
@@ -1217,9 +1321,9 @@ def floor_phase(fused_knn, base, br, xq_all, dev):
     tt = [cuda_ms(f, 2) for f in (k7f, k2f, k2f, k7f)]
     k7ms, k2ms = (tt[0] + tt[3]) / 2, (tt[1] + tt[2]) / 2
     print(f"12b. K7 {tt[0]:.2f} / {tt[3]:.2f} ms, K2 one plane {tt[1]:.2f} / "
-          f"{tt[2]:.2f} ms on the same {BATCH} queries: K2 (tensor-core products "
+          f"{tt[2]:.2f} ms on the same {BATCH} queries: K2 (the same products "
           f"and the exact select) takes K2/K7 = {k2ms / k7ms:.3f} of K7 (the "
-          f"float32 producer of recon_step.cuh, no select)", flush=True)
+          f"products and per-lane minima, no select)", flush=True)
     held = int(torch.isfinite(n2s).sum())
     return entry("recon_floor", "faiss_tpu_torch/csrc/recon_floor.cu",
                  "benchs/archive/exp_r3c.py:106", launches, err, ms, plain_ms,
@@ -2067,9 +2171,9 @@ def main():
         "ivf_recon": lambda lib: (f"{lib.ivf_recon_smem_bytes(1)} (hi/lo), "
                                   f"{lib.ivf_recon_smem_bytes(0)} (one plane)"),
         "ivfpq_adc": lambda lib: (f"{lib.ivfpq_adc_smem_bytes(M, 1 << NBITS, 1)} "
-                                  f"(K4, tensor cores), "
+                                  f"(K4 and K5, tensor cores), "
                                   f"{lib.ivfpq_adc_smem_bytes(M, 1 << NBITS, 0)} "
-                                  "(K5, lookup scan)"),
+                                  "(lookup scan)"),
         "ivfpq_v3": lambda lib: ", ".join(
             f"{lib.ivfpq_v3_smem_bytes(M, 1 << NBITS, i, tc)} ({m}, {how})"
             for i, m in ((0, "bf16"), (1, "int8"))
@@ -2094,13 +2198,18 @@ def main():
           == report.count("spill stores"), f"K3's kernels spill: {report}")
     print(f"K3: {len(k3_regs)} kernels, registers {', '.join(k3_regs)}, no spill",
           flush=True)
-    # the tensor-core instances (K4's, K6's two modes) spill nothing
+    # the tensor-core instances (K4's, K5's, K6's two modes, K7's) spill
+    # nothing
     tc_regs = {}
-    for name, what, mode in (("ivfpq_adc", "K4", 0), ("ivfpq_v3", "K6 bf16", 1),
-                             ("ivfpq_v3", "K6 int8", 2)):
+    for name, what, pattern in (
+            ("ivfpq_adc", "K4", r"adc_mma_kernelILi0E"),
+            ("ivfpq_adc", "K5", r"adc_dyn_kernel"),
+            ("ivfpq_v3", "K6 bf16", r"adc_mma_kernelILi1E"),
+            ("ivfpq_v3", "K6 int8", r"adc_mma_kernelILi2E"),
+            ("recon_floor", "K7", r"recon_floor_kernel")):
         lines = built[name][1].splitlines()
         at = next(i for i, line in enumerate(lines) if "entry function" in line
-                  and "adc_mma_kernel" in line and f"ILi{mode}E" in line)
+                  and re.search(pattern, line))
         tc = "\n".join(lines[at + 1 : at + 4])
         regs = re.search(r"Used (\d+) registers", tc)
         check(regs is not None and " 0 bytes spill stores, 0 bytes spill loads" in tc,

@@ -1,6 +1,6 @@
-// The 4-bit ADC scan on the tensor cores, for sm_90a: K4 (ivfpq_adc.cu)
-// and K6 (ivfpq_v3.cu, over the codes its decode pass reads from the
-// one-hot). For every query row r the EXACT top-128 of, by mode,
+// The 4-bit ADC scan on the tensor cores, for sm_90a: K4 and K5
+// (ivfpq_adc.cu) and K6 (ivfpq_v3.cu, over the codes its decode pass reads
+// from the one-hot). For every query row r the EXACT top-128 of, by mode,
 //     MODE_K4:      key(s) = (lsum(r, s) + n2[s]) + bias(r, s)
 //     MODE_V3:      key(s) = lsum(r, s) + (bias(r, s) + n2[s])
 //     MODE_V3_INT8: key(s) = (a * isum(r, s) + c) + (bias(r, s) + n2[s])
@@ -9,7 +9,12 @@
 // row's meta at the slot's lane s % 128, and bias(r, s) = biasg[r, g * 128
 // + lid[s]], g = min(chunk / cpg, G - 1) (K6's groups, chunk / cpg with
 // nchunks a multiple of G, are the same), over one split of the columns,
-// offered to the select of tile_select.cuh.
+// offered to the select of tile_select.cuh. K5 runs MODE_K4 over the chunks
+// of each query tile's worklist instead, with g = cgroup[chunk]: the scan
+// is a template on its Walk (ntiles, col(t), group(t)), Walk below for K4
+// and K6, recon_mma::ListWalk for K5 (ivfpq_adc.cu), whose blocks split
+// each tile's worklist steps as K1's do (recon_mma::dyn_block: the trailing
+// PAD steps skipped, the splits merged by tile_select::merge_splits).
 //
 // Arithmetic: the TPU kernels' (faiss_tpu/ops/pallas_knn.py:373-380 for
 // K4, :713-732 for K6). The LUT sum is a contraction of the LUTs with a
@@ -219,7 +224,7 @@ struct Args {
 };
 
 // Tiles [c0 + t * BN, ...) of one split, whole tiles inside [c0, c1); the
-// group of a tile is that of its chunk.
+// group of a tile is that of its chunk (K4, K6).
 struct Walk {
   long long c0;
   int ntiles;
@@ -438,6 +443,7 @@ struct Ring {
   uint32_t full;  // shared address of the first mbarrier
   int SB;
   // Tile t into its stage, by one thread.
+  template <class Walk>
   __device__ __forceinline__ void issue(const Maps& maps, const Walk& w, int t,
                                         int M) const {
     unsigned char* st = base + (t % STAGES) * SB;
@@ -463,6 +469,7 @@ struct Cols {
   float pen[8];
 };
 
+template <class Walk>
 __device__ __forceinline__ void load_cols(const Args& a, const Walk& w, int t,
                                           const unsigned char* stage, long long q0,
                                           int rows, int& grp, float (&pmin)[2 * RB],
@@ -571,7 +578,7 @@ __device__ __forceinline__ void dequant_rows(const Args& a, const Rows& rs,
 // row whose queue could not take another 64 offers, one warp per 16 rows),
 // the team's barrier separating offers from compactions. Last the team
 // lets the other team in.
-template <int MODE>
+template <int MODE, class Walk>
 __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
                                          const Ring& ring, const Walk& w, int t,
                                          const Cols& c, Select& sel,
@@ -660,7 +667,7 @@ __device__ __forceinline__ void epilogue(const Args& a, const Maps& maps,
 // each query's top-128 written to row q0 + r of okey/oslot (and ofloor).
 // Team k takes tiles t = k mod 2; the first thread fills the ring's
 // stages before the first tile.
-template <int MODE>
+template <int MODE, class Walk>
 __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
                      long long q0, int rows) {
   constexpr bool INT8 = MODE == MODE_V3_INT8;
@@ -814,6 +821,17 @@ inline int make_maps(Maps* m, const void* codesT, const void* n2,
   return 0;
 }
 
+// Host: after a launch of `splits` splits, the check of the launch and,
+// with more than one, the merge of the splits' top-128s into a's outputs.
+inline int merge(const Args& a, float* part_key, int* part_slot, int nq,
+                 int splits, cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  tile_select::merge_splits<<<(nq + 3) / 4, 128, 0, stream>>>(
+      part_key, part_slot, splits, nq, a.okey, a.oslot, a.ofloor);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Host: one launch of the scan in MODE over codesT [M, S], n2 and lid [S],
 // for a's nq rows, its columns in `splits` ranges of whole tiles (with
 // more than one, part_key / part_slot [splits][nq][128] hold the splits'
@@ -838,11 +856,7 @@ int launch(const Args& a, const void* codesT, const void* n2, const void* lid,
   int* ps = static_cast<int*>(part_slot);
   adc_mma_kernel<MODE><<<qblocks * splits, THREADS, smem, stream>>>(
       a, maps, nq, S, qblocks, split_cols, ct, cpg, G - 1, pk, ps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  tile_select::merge_splits<<<(nq + 3) / 4, 128, 0, stream>>>(
-      pk, ps, splits, nq, a.okey, a.oslot, a.ofloor);
-  return static_cast<int>(cudaGetLastError());
+  return merge(a, pk, ps, nq, splits, stream);
 }
 
 }  // namespace adc_mma

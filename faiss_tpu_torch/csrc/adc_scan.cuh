@@ -1,5 +1,7 @@
 // The ADC scan with an exact top-128 shared by K4, K5 (ivfpq_adc.cu) and K6
-// (ivfpq_v3.cu), for sm_90a.
+// (ivfpq_v3.cu), for sm_90a, for the shapes their tensor-core kernels
+// (adc_mma.cuh) do not take: ksub > 16, or LUT rows beyond a block's
+// shared memory. The wrappers choose it by shape before the launch.
 //
 // For every query row r it returns the EXACT top-128 of
 //     key(s) = n2[s] + biasg[r, g * 128 + lid[s]] + acc(r, s)

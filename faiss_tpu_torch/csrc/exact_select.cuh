@@ -1,5 +1,6 @@
-// The exact top-K select of the lookup scans of adc_scan.cuh (K5, K6, and K4
-// where the tensor cores do not take its shape).
+// The exact top-K select of the lookup scan of adc_scan.cuh, which serves
+// K4, K5 and K6 only for the shapes their tensor-core kernels do not take
+// (ksub > 16, or LUT rows beyond a block's shared memory).
 //
 // The TPU kernels keep an approximate top-K (per-lane insertion queues,
 // bitonic flushes on a fixed schedule, an eviction floor) because a

@@ -88,7 +88,7 @@ ivf_recon_kernel(recon_mma::Args a, const __grid_constant__ recon_mma::Maps maps
     a.oslot = part_slot + p * nq * K;
     a.ofloor = nullptr;
   }
-  recon_mma::scan<HILO, MASKED>(a, maps, w, q0, rows);
+  recon_mma::scan<HILO, recon_mma::TopK<MASKED>>(a, maps, w, q0, rows);
 }
 
 template <bool HILO, bool MASKED>

@@ -31,7 +31,8 @@
 // finds the tile's last step that is not the PAD chunk and splits only the
 // steps up to it (a PAD step among them, which no worklist of the port has,
 // would be scanned, with the same result). The skipped steps are counted
-// once per tile into `skipped` when it is given.
+// once per tile into `skipped` when it is given. recon_mma::dyn_block and
+// ListWalk do this, for K5 too.
 //
 // What bounds it (PERF.md): the mma.sync products and the epilogue
 // and select beside them; the qt / 64 blocks of a tile read the same
@@ -53,67 +54,28 @@ using recon_mma::BN;
 using recon_mma::K;
 using recon_mma::THREADS;
 
-// Tiles of steps [s0, s0 + ntiles / tpc) of one worklist, tpc tiles a chunk.
-struct Walk {
-  const int* work;
-  const int* cgroup;
-  int s0, ntiles, tpc, ct;
-  __device__ int chunk(int t) const { return __ldg(work + s0 + t / tpc); }
-  __device__ long long col(int t) const {
-    return static_cast<long long>(chunk(t)) * ct + (t % tpc) * BN;
-  }
-  __device__ int valid(int) const { return BN; }
-  __device__ int group(int t) const { return __ldg(cgroup + chunk(t)); }
-};
-
 // Block b: sub-block b % subs of query tile (b / subs) % ntq, worklist split
-// b / (subs * ntq).
+// b / (subs * ntq), its steps cut after the tile's last non-PAD one
+// (recon_mma::dyn_block).
 template <bool PEN, bool HILO>
 __global__ void __launch_bounds__(THREADS, 1)
 ivf_recon_dyn_kernel(recon_mma::Args a, const __grid_constant__ recon_mma::Maps maps, const int* cmap, const int* cgroup,
                      long long nq, int msteps, int qt, int ct, int pad_chunk,
                      int subs, int ntq, float* part_key, int* part_slot,
                      unsigned long long* skipped) {
-  // the tile's last non-PAD step, reduced in the query planes' space
-  // before the scan loads them
+  // the reduction's int lies in the query planes, loaded after it
   extern __shared__ __align__(1024) unsigned char smem[];
-  int* last_real = reinterpret_cast<int*>(
+  int* slot = reinterpret_cast<int*>(
       smem + recon_mma::ring_bytes(HILO) + recon_mma::STAGES * BN * 4);
-  const int sub = blockIdx.x % subs;
-  const int tile = (blockIdx.x / subs) % ntq;
-  const int p = blockIdx.x / (subs * ntq);
-  const int splits = gridDim.x / (subs * ntq);
-  const int* work = cmap + static_cast<long long>(tile) * msteps;
-  if (threadIdx.x == 0) *last_real = -1;
-  __syncthreads();
-  int mine = -1;
-  for (int j = threadIdx.x; j < msteps; j += THREADS) {
-    if (__ldg(work + j) != pad_chunk) mine = j;
-  }
-  if (mine >= 0) atomicMax(last_real, mine);
-  __syncthreads();
-  const int real = *last_real + 1;  // steps up to the last non-PAD one
-  __syncthreads();
-  if (skipped != nullptr && p == 0 && sub == 0 && threadIdx.x == 0) {
-    atomicAdd(skipped, static_cast<unsigned long long>(msteps - real));
-  }
-  const int s0 = static_cast<int>(static_cast<long long>(real) * p / splits);
-  const int s1 = static_cast<int>(static_cast<long long>(real) * (p + 1) / splits);
-  Walk w;
-  w.work = work;
-  w.cgroup = cgroup;
-  w.s0 = s0;
-  w.tpc = ct / BN;
-  w.ntiles = (s1 - s0) * w.tpc;
-  w.ct = ct;
-  const long long q0 = static_cast<long long>(tile) * qt + sub * BM;
-  const int rows = qt - sub * BM < BM ? qt - sub * BM : BM;
+  const recon_mma::DynBlock b = recon_mma::dyn_block(
+      cmap, msteps, qt, pad_chunk, subs, ntq, BM, slot, skipped);
+  const recon_mma::ListWalk<BN> w(b, cgroup, ct);
   if (part_key != nullptr) {  // a split's top-128s go to the scratch
-    a.okey = part_key + p * nq * K;
-    a.oslot = part_slot + p * nq * K;
+    a.okey = part_key + b.p * nq * K;
+    a.oslot = part_slot + b.p * nq * K;
     a.ofloor = nullptr;
   }
-  recon_mma::scan<HILO, PEN>(a, maps, w, q0, rows);
+  recon_mma::scan<HILO, recon_mma::TopK<PEN>>(a, maps, w, b.q0, b.rows);
 }
 
 template <bool PEN, bool HILO>

@@ -1,9 +1,10 @@
-// The tensor-core scan shared by the recon kernels K1 (ivf_recon_dyn.cu) and
-// K2 (ivf_recon.cu): the keys
+// The tensor-core scan shared by the recon kernels K1 (ivf_recon_dyn.cu),
+// K2 (ivf_recon.cu) and K7 (recon_floor.cu): the keys
 //     key(r, s) = n2[s] - 2 * q_r . (y_hi[:, s] + y_lo[:, s])  (+ pen)
 // of a block's BM = 64 float32 queries against a walk of column tiles of a
-// transposed bf16 store (one plane, or hi and lo), offered to the exact
-// top-128 select of tile_select.cuh.
+// transposed bf16 store (one plane, or hi and lo), handed tile by tile to
+// an epilogue policy: K1 and K2 offer them to the exact top-128 select of
+// tile_select.cuh (TopK), K7 keeps per-lane running minima (recon_floor.cu).
 //
 // Arithmetic: the TPU kernels' (faiss_tpu/ops/pallas_knn.py:920-946). The
 // prologue splits each float32 query into bf16 hi = bf16(q) and lo =
@@ -24,11 +25,22 @@
 // 32 (w / 4) .. + 32 of a tile: per 16 dims one ldmatrix of each query
 // plane, ldmatrix.trans of the store (it is MN-major: columns contiguous)
 // and mma.sync.m16n8k16 bf16 products into 16 float32 accumulators a
-// thread. The epilogue adds n2 and, with a penalty, the bias term; a key
-// below the query's threshold goes to the select, which the two warps of the
-// rows compact between tiles (a 64-thread named barrier), never the block.
-// Columns past the walk's valid range arrive as zeros and are never
-// offered; query rows past the block's are zero and never offered.
+// thread, at the places acc_row() and acc_col() name. Columns past the
+// walk's valid range arrive as zeros and their n2 counts as +inf; query
+// rows past the block's are zero and never reported.
+//
+// The epilogue policy. scan() is a template on a class Epi that owns what
+// follows the products: its shared memory (Epi::kBytes, placed after the
+// query planes), init() by every thread before the first tile, tile() by
+// each consumer thread on its accumulators once a tile's last stage is in
+// them, and finish() by the consumer threads after the last tile. A policy
+// rather than a second scan, so that the ring, the mbarriers, the
+// producer, the query reloads and the products exist once for all three
+// kernels.
+// TopK: the epilogue adds n2 and, with a penalty, the bias term; a key
+// below the query's threshold goes to the select, which the two warps of
+// the rows compact between tiles (a 64-thread named barrier), never the
+// block.
 //
 // Why mma.sync and not wgmma: a block holds 64 queries' selects (128 KB)
 // beside the queries and the ring, so one block runs per SM, and between
@@ -39,10 +51,11 @@
 //
 // Shared memory per block (bytes): the ring 4 stages x 8,192 per plane
 // (65,536 with two planes, 32,768 with one) and 4 x 256 of n2; the queries
-// 2 planes x 64 x 128 x 2 = 32,768; the select 64 queries x 256 pairs x 8 =
-// 131,072 + 512 for counts and thresholds (2 KB per query); 8 mbarriers.
-// 230,976 / 198,208 in all, of the 232,448 a block may have: one block of
-// 9 warps per SM.
+// 2 planes x 64 x 128 x 2 = 32,768; the policy's (TopK: the select, 64
+// queries x 256 pairs x 8 = 131,072 + 512 for counts and thresholds, 2 KB
+// per query; K7: its lane minima, 34,816); 8 mbarriers. With TopK 230,976
+// / 198,208 in all, of the 232,448 a block may have: one block of 9 warps
+// per SM; K7 101,440, two blocks per SM.
 
 #pragma once
 
@@ -76,14 +89,14 @@ constexpr int kYPlane = KC * BN * 2;     // one store plane of a stage, bf16
 
 // Shared memory, in this order: the ring's store planes (STAGES x planes x
 // kYPlane, each 1024-byte aligned for the 128-byte swizzle), the ring's n2
-// (STAGES x BN floats), the query planes, the select, the full and empty
-// mbarriers.
+// (STAGES x BN floats), the query planes, the epilogue policy's bytes
+// (TopK's select by default), the full and empty mbarriers.
 __host__ __device__ constexpr int ring_bytes(bool hilo) {
   return STAGES * (hilo ? 2 : 1) * kYPlane;
 }
 
-__host__ __device__ constexpr int smem_bytes(bool hilo) {
-  return ring_bytes(hilo) + STAGES * BN * 4 + 2 * kQPlane + Select::kBytes +
+__host__ __device__ constexpr int smem_bytes(bool hilo, int epi_bytes = Select::kBytes) {
+  return ring_bytes(hilo) + STAGES * BN * 4 + 2 * kQPlane + epi_bytes +
          2 * STAGES * 8;
 }
 
@@ -96,7 +109,8 @@ struct alignas(64) Maps {
 };
 
 // The operands of one launch. okey/oslot are the rows' outputs (or a
-// split's part of the scratch); ofloor is null for a split's part.
+// split's part of the scratch); ofloor is null for a split's part. K7
+// writes its lane minima to okey and reads no other output or bias.
 struct Args {
   const float* xq;             // [nq, d_pad] float32
   const float* biasg;          // [nq, nbias] or null
@@ -223,6 +237,18 @@ __device__ void load_queries(const Args& a, long long q0, int rows, int k0,
   }
 }
 
+// Where products() puts a thread's accumulators: acc[nt][2 h + e] is query
+// row acc_row() + 8 h of the block and column acc_col() + 8 nt + e of the
+// tile (PTX's m16n8 accumulator layout: lane l holds row l / 4 and columns
+// 2 (l % 4) + {0, 1} of its n-tile, elements 2 and 3 eight rows below).
+__device__ __forceinline__ int acc_row() {
+  return 16 * ((threadIdx.x >> 5) % 4) + ((threadIdx.x & 31) >> 2);
+}
+
+__device__ __forceinline__ int acc_col() {
+  return ((threadIdx.x >> 5) / 4) * (BN / WN) + 2 * (threadIdx.x & 3);
+}
+
 // Ring stage of unit u = (tile u / nkc, dims (u % nkc) * KC), by one
 // thread: one TMA box per plane (row r of the box at r * 128 bytes, its
 // 16-byte chunk c at c ^ (r & 7)), and with the tile's last unit its n2.
@@ -317,9 +343,9 @@ __device__ __forceinline__ void epilogue(const Args& a, const Walk& w, int t,
                                          const float* n2s, Select& sel,
                                          const float (&acc)[NT][4], long long q0,
                                          int rows, int& grp, float (&pmin)[2]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = 16 * (warp % 4) + (lane >> 2), tq = lane & 3;
-  const int c0 = (warp / 4) * (BN / WN) + 2 * tq;  // the thread's first column
+  const int warp = threadIdx.x >> 5;
+  const int r0 = acc_row();
+  const int c0 = acc_col();  // the thread's first column
   const long long col = w.col(t);
   const int nval = w.valid(t);
   // the other warp of these rows is done compacting after the last tile
@@ -395,19 +421,53 @@ __device__ __forceinline__ void epilogue(const Args& a, const Walk& w, int t,
   sel.make_room(16 * (warp % 4) + (warp / 4) * (16 / WN), 16 / WN);
 }
 
-// The block's scan: `rows` queries from row q0 over the walk's tiles, then
-// each query's top-128 written to row q0 + r of okey/oslot (and ofloor).
-// Walk: ntiles, col(t), valid(t), group(t). Every thread of the block
-// enters; the producer warp returns once it has issued the last tile.
-template <bool HILO, bool PEN, class Walk>
+// The exact top-128 (K1, K2): the epilogue policy that offers each tile's
+// keys to the select and writes each query's top-128 to row q0 + r of
+// okey/oslot (and ofloor). PEN: the penalized (K1) or masked (K2) mode.
+template <bool PEN>
+struct TopK {
+  static constexpr int kBytes = Select::kBytes;
+  Select sel;
+  int grp = -1;                // the bias group pmin holds
+  float pmin[2] = {0.f, 0.f};  // the rows' smallest bias in it
+  __device__ explicit TopK(unsigned char* smem) : sel(smem) {}
+  __device__ void init() { sel.init(THREADS); }
+  template <class Walk>
+  __device__ __forceinline__ void tile(const Args& a, const Walk& w, int t,
+                                       const float* n2s, const float (&acc)[NT][4],
+                                       long long q0, int rows) {
+    epilogue<PEN>(a, w, t, n2s, sel, acc, q0, rows, grp, pmin);
+  }
+  // each warp's rows took their last offers before the pair's last barrier
+  __device__ void finish(const Args& a, long long q0, int rows) {
+    const int warp = threadIdx.x >> 5;
+    for (int i = 0; i < 16 / WN; ++i) {
+      const int r = 16 * (warp % 4) + (warp / 4) * (16 / WN) + i;
+      if (r >= rows) break;
+      float k[4];
+      int s[4];
+      sel.result(r, k, s);
+      const long long o = (q0 + r) * K;
+      tile_select::write_row(k, s, a.okey + o, a.oslot + o,
+                             a.ofloor ? a.ofloor + o : nullptr);
+    }
+  }
+};
+
+// The block's scan: `rows` queries from row q0 over the walk's tiles, each
+// tile's accumulators handed to the epilogue policy Epi (see the top of
+// this file), then Epi's finish. Walk: ntiles, col(t), valid(t) and, for
+// a penalized TopK, group(t). Every thread of the block enters; the
+// producer warp returns once it has issued the last tile.
+template <bool HILO, class Epi, class Walk>
 __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
                      long long q0, int rows) {
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* ring = smem;
   unsigned char* n2ring = ring + ring_bytes(HILO);
   unsigned char* qs = n2ring + STAGES * BN * 4;
-  Select sel(qs + 2 * kQPlane);
-  const uint32_t full = smem_u32(qs + 2 * kQPlane + Select::kBytes);
+  Epi epi(qs + 2 * kQPlane);
+  const uint32_t full = smem_u32(qs + 2 * kQPlane + Epi::kBytes);
   const uint32_t empty = full + 8 * STAGES;
   constexpr int SB = (HILO ? 2 : 1) * kYPlane;
   const int nkc = a.d_pad / KC;
@@ -423,7 +483,7 @@ __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  sel.init(THREADS);
+  epi.init();
   if (!reload) load_queries(a, q0, rows, 0, qs, THREADS);
   __syncthreads();
 
@@ -439,8 +499,6 @@ __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
     return;
   }
   float acc[NT][4];
-  int grp = -1;
-  float pmin[2] = {0.f, 0.f};
   for (int u = 0; u < n; ++u) {
     const int slot = u % STAGES;
     const int kc = u % nkc;
@@ -458,25 +516,78 @@ __device__ void scan(const Args& a, const Maps& maps, const Walk& w,
     }
     products<HILO>(qs, ring + slot * SB, (kc % kps) * KC, acc);
     if (kc == nkc - 1) {
-      epilogue<PEN>(a, w, u / nkc,
-                    reinterpret_cast<const float*>(n2ring + slot * BN * 4),
-                    sel, acc, q0, rows, grp, pmin);
+      epi.tile(a, w, u / nkc, reinterpret_cast<const float*>(n2ring + slot * BN * 4),
+               acc, q0, rows);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * slot);
   }
-  // each warp's rows took their last offers before the pair's last barrier
-  for (int i = 0; i < 16 / WN; ++i) {
-    const int r = 16 * (warp % 4) + (warp / 4) * (16 / WN) + i;
-    if (r >= rows) break;
-    float k[4];
-    int s[4];
-    sel.result(r, k, s);
-    const long long o = (q0 + r) * K;
-    tile_select::write_row(k, s, a.okey + o, a.oslot + o,
-                           a.ofloor ? a.ofloor + o : nullptr);
-  }
+  epi.finish(a, q0, rows);
 }
+
+// A block of a worklist scan (K1, and K5 in adc_mma.cuh): block b is
+// sub-block b % subs (bm queries each) of query tile (b / subs) % ntq,
+// over split b / (subs * ntq) of the tile's worklist steps. A worklist
+// lists its tile's probed chunks and fills the steps after them with the
+// PAD chunk, the store's last chunk, whose n2 is +inf: its keys are never
+// kept. So the block first finds the tile's last step that is not the PAD
+// chunk (reduced by the whole block through the int at `slot` in shared
+// memory, free again on return) and splits only the steps up to it; the
+// first block of a tile counts the steps skipped into `skipped` when given.
+struct DynBlock {
+  const int* work;  // the tile's worklist
+  int s0, s1;       // the split's steps [s0, s1)
+  long long q0;     // the block's first query row
+  int rows;         // its queries: bm, fewer in a tile of qt < bm
+  int p;            // its split
+};
+
+__device__ DynBlock dyn_block(const int* cmap, int msteps, int qt, int pad_chunk,
+                              int subs, int ntq, int bm, int* slot,
+                              unsigned long long* skipped) {
+  DynBlock b;
+  const int sub = blockIdx.x % subs;
+  const int tile = (blockIdx.x / subs) % ntq;
+  const int splits = gridDim.x / (subs * ntq);
+  b.p = blockIdx.x / (subs * ntq);
+  b.work = cmap + static_cast<long long>(tile) * msteps;
+  if (threadIdx.x == 0) *slot = -1;
+  __syncthreads();
+  int mine = -1;
+  for (int j = threadIdx.x; j < msteps; j += blockDim.x) {
+    if (__ldg(b.work + j) != pad_chunk) mine = j;
+  }
+  if (mine >= 0) atomicMax(slot, mine);
+  __syncthreads();
+  const int real = *slot + 1;  // steps up to the last non-PAD one
+  __syncthreads();
+  if (skipped != nullptr && b.p == 0 && sub == 0 && threadIdx.x == 0) {
+    atomicAdd(skipped, static_cast<unsigned long long>(msteps - real));
+  }
+  b.s0 = static_cast<int>(static_cast<long long>(real) * b.p / splits);
+  b.s1 = static_cast<int>(static_cast<long long>(real) * (b.p + 1) / splits);
+  b.q0 = static_cast<long long>(tile) * qt + sub * bm;
+  b.rows = qt - sub * bm < bm ? qt - sub * bm : bm;
+  return b;
+}
+
+// The tiles of a block's worklist steps [s0, s0 + ntiles / tpc), tpc tiles
+// of TBN columns a chunk of ct (K1: recon_mma's BN; K5: adc_mma's).
+template <int TBN>
+struct ListWalk {
+  const int* work;
+  const int* cgroup;
+  int s0, ntiles, tpc, ct;
+  __device__ ListWalk(const DynBlock& b, const int* cg, int chunk_cols)
+      : work(b.work), cgroup(cg), s0(b.s0), ntiles((b.s1 - b.s0) * (chunk_cols / TBN)),
+        tpc(chunk_cols / TBN), ct(chunk_cols) {}
+  __device__ int chunk(int t) const { return __ldg(work + s0 + t / tpc); }
+  __device__ long long col(int t) const {
+    return static_cast<long long>(chunk(t)) * ct + (t % tpc) * TBN;
+  }
+  __device__ int valid(int) const { return TBN; }
+  __device__ int group(int t) const { return __ldg(cgroup + chunk(t)); }
+};
 
 // Host: the launch's TMA descriptors (yT_lo may be null). Returns 0 or a
 // CUDA error code.

@@ -63,10 +63,13 @@ K4 runs on the tensor cores (csrc/adc_mma.cuh): the LUT sum is the TPU
 kernel's contraction of the bf16 LUTs with a one-hot of the codes, one bf16
 k-step of 16 entries per sub-quantizer into float32, for 64 queries a
 block, with the columns split across blocks as K2 does; then n2 and the
-bias are added in float32, ``(sum + n2) + bias``. It takes ksub <= 16 and an
-M * 16 LUT row that fits its shared memory; the wrapper sends other shapes
-to K5's shared-memory lookup scan (csrc/adc_scan.cuh), chosen by shape
-before the launch. K5 keeps that lookup scan.
+bias are added in float32, ``(sum + n2) + bias``. K5 runs the same
+tensor-core scan in the same order over each tile's worklist, its blocks
+mapped as K1's (the worklist steps split across blocks, each tile cut after
+its last non-PAD step, the splits merged). Both take ksub <= 16 and an
+M * 16 LUT row that fits the kernel's shared memory; the wrappers send
+other shapes to the shared-memory lookup scan (csrc/adc_scan.cuh), chosen
+by shape before the launch.
 
 K6 ``ivfpq_fused_v3`` (csrc/ivfpq_v3.cu): counterpart of
 ivfpq_fused_pallas_v3, K4's keys over every chunk from a precomputed one-hot
@@ -87,22 +90,26 @@ float32, int8 LUTs one int8 k-step (mma m16n8k32) per pair of
 sub-quantizers into exact int32 sums; a row whose 128 (a, c) lanes agree is
 gated by its LUT floor, any other reads (a, c) per key. The wrapper sends
 shapes the tensor cores do not take (ksub > 16; M > 37 bf16, M > 61 int8)
-to K5's lookup scan, chosen by shape before the launch.
+to the lookup scan, chosen by shape before the launch.
 
 K7 ``recon_floor`` (csrc/recon_floor.cu): counterpart of the score-only
 kernel of benchs/archive/exp_r3c.py:floor_call, K2's score producer with no
 select: out [nq, 128] f32, per lane l the minimum of ``n2[s] - 2 q . y[:, s]``
-over the columns s with ``s % 128 == l``.
+over the columns s with ``s % 128 == l``. It runs K2's one-plane products
+(csrc/recon_mma.cuh) with per-lane running minima in shared memory in
+place of the select (each (row, lane) held by one thread), two blocks an
+SM, the columns split across blocks in whole 128-column lane groups and
+the splits' minima merged by a second pass.
 
-K1 and K2 take the TPU kernels' products on the tensor cores
+K1, K2 and K7 take the TPU kernels' products on the tensor cores
 (csrc/recon_mma.cuh): the float32 query split into bf16 hi + lo, then
 qh.yh + ql.yh + qh.yl with the lo plane and qh.y + ql.y without, summed in
 float32 (the dropped ql.yl term is below 2^-16 |q| |y|). They serve 64
-queries a block, split the columns (K2) or each worklist (K1) across blocks
-so that a launch fills the card, and merge the splits' top-128s in a second
-pass of the same source; K1 stops each tile at its last non-PAD step. K4's and
-K6's tensor-core instances do the same for their columns. K5 and K7 compute
-in float32 on the CUDA cores (bf16 inputs upcast). The plain
+queries a block, split the columns (K2, K7) or each worklist (K1) across
+blocks so that a launch fills the card, and merge the splits' results in a
+second pass of the same source; K1 stops each tile at its last non-PAD
+step. K4's, K5's and K6's tensor-core instances do the same for their
+columns or worklists. The plain
 versions use float32 matrix products with TF32 off (of hi + lo summed in
 float32 for K1/K2; the ADC sum as a product with a one-hot of the codes,
 exact but summed in another order) and chunk over columns, so none builds a
@@ -128,14 +135,15 @@ import torch
 from .topk import merge_topk
 
 LANES = 128  # top-K width of the K1/K2 contract; floor width of K3
-QUERIES_PER_BLOCK = 8  # QB of K5-K7: every kernel's qt must be a multiple
+QUERIES_PER_BLOCK = 8  # QB of the lookup scan: every kernel's qt must be a multiple
 RECON_BLOCK = 64  # queries per block of K1 and K2 (recon_mma.cuh BM)
 RECON_TILE = 64  # columns per tile of K1 and K2 (recon_mma.cuh BN)
-RECON_QSEG = 128  # K1/K2 take d_pad in multiples of this (recon_mma.cuh QSEG)
+RECON_QSEG = 128  # K1/K2/K7 take d_pad in multiples of this (recon_mma.cuh QSEG)
+RECON_FLOOR_BLOCKS_PER_SM = 2  # K7's blocks an SM holds (recon_floor.cu BLOCKS_PER_SM)
 MAX_K_LANES = 2048  # K3's widest select (faiss's BlockSelect range)
 REF_CHUNK = 1 << 16  # columns per score tile of the plain versions
-MAX_LUT_ROW = 2048  # K4/K5 hold M * ksub float32 LUT entries per query
-ADC_TC_BLOCK = 64  # queries per block of K4 and K6 on the tensor cores (adc_mma.cuh BM)
+MAX_LUT_ROW = 2048  # the lookup scan holds M * ksub float32 LUT entries per query
+ADC_TC_BLOCK = 64  # queries per block of K4-K6 on the tensor cores (adc_mma.cuh BM)
 ADC_TC_TILE = 128  # its columns per tile (adc_mma.cuh BN)
 KNN_BLOCK = 64  # queries per block of K3's product passes (knn_mma.cuh BM)
 KNN_TILE = 256  # their columns per tile (knn_mma.cuh BN)
@@ -173,12 +181,12 @@ KERNELS = {
         [_ci, _ci],
     ),
     "ivfpq_adc": (
-        [_vp] * 12 + [_ci, _ci, _ci, _ci, _ll] + [_ci] * 5 + [_vp], [_ci] * 3,
+        [_vp] * 13 + [_ci, _ci, _ci, _ci, _ll] + [_ci] * 5 + [_vp], [_ci] * 3,
     ),
     "ivfpq_v3": (
         [_vp] * 13 + [_ci, _ci, _ci, _ci, _ll] + [_ci] * 5 + [_vp], [_ci] * 4,
     ),
-    "recon_floor": ([_vp] * 4 + [_ci, _ci, _ll, _ci, _ci, _vp], [_ci]),
+    "recon_floor": ([_vp] * 5 + [_ci, _ci, _ll, _ci, _ci, _ci, _vp], [_ci]),
 }
 
 
@@ -292,7 +300,7 @@ def _ptr(t):
 
 
 def _check_mma_operands(what, xq, planes, n2, d_pad, ct=None):
-    """What the tensor-core recon kernels (K1, K2) need of their operands
+    """What the tensor-core recon kernels (K1, K2, K7) need of their operands
     beyond the contract: TMA reads the store planes and n2 and the prologue
     reads the queries 16 bytes at a time, so the base addresses 16-byte
     aligned and the planes' row stride a multiple of 8 columns; d_pad a
@@ -322,11 +330,12 @@ def _sm_count(index):
 
 
 def _split_count(blocks, units, sms):
-    """Splits of the columns (K2, K4, K6) or of each worklist (K1) so that
-    a launch of ``blocks`` blocks of 64 queries gives every one of ``sms``
-    SMs a block (one fits per SM), without splitting ``units`` (64-column
-    tiles of K2's store, 128-column tiles of K4's and K6's codes, steps of
-    K1's worklists) finer than one each."""
+    """Splits of the columns (K2, K4, K6, K7) or of each worklist (K1, K5)
+    so that a launch of ``blocks`` blocks of 64 queries gives every one of
+    ``sms`` block slots a block (one fits per SM; K7 passes two slots an
+    SM), without splitting ``units`` (64-column tiles of K2's store,
+    128-column tiles of K4's and K6's codes and lane groups of K7's store,
+    steps of K1's and K5's worklists) finer than one each."""
     if blocks <= 0 or units <= 0 or sms <= 0:
         raise ValueError(f"blocks={blocks}, units={units}, sms={sms} must be positive")
     return max(1, min(sms // blocks, units))
@@ -498,7 +507,7 @@ ivf_recon_fused_dyn.penalized_launches = 0
 ivf_recon_fused_dyn.hilo_launches = 0
 ivf_recon_fused_dyn.splits = 0  # worklist splits of the last launch
 
-_PAD_COUNTERS = {}  # device -> int64 [1], K1's skipped PAD steps
+_PAD_COUNTERS = {}  # (kernel, device) -> int64 [1], skipped PAD steps
 
 
 def _pad_chunk(S, ct):
@@ -508,18 +517,21 @@ def _pad_chunk(S, ct):
     return S // ct - 1
 
 
-def _pad_counter(device):
-    if device not in _PAD_COUNTERS:
-        _PAD_COUNTERS[device] = torch.zeros(1, dtype=torch.int64, device=device)
-    return _PAD_COUNTERS[device]
+def _pad_counter(device, kernel="K1"):
+    key = (kernel, device)
+    if key not in _PAD_COUNTERS:
+        _PAD_COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _PAD_COUNTERS[key]
 
 
-def pad_steps_skipped(reset=False):
-    """PAD steps K1's launches skipped (summed over tiles) since the last
-    reset; reads the device counters (a synchronising read)."""
-    n = sum(int(c.item()) for c in _PAD_COUNTERS.values())
+def pad_steps_skipped(reset=False, kernel="K1"):
+    """PAD steps the launches of ``kernel`` ("K1", or "K5" on the tensor
+    cores) skipped (summed over tiles) since its last reset; reads the
+    device counters (a synchronising read)."""
+    mine = [c for (k, _), c in _PAD_COUNTERS.items() if k == kernel]
+    n = sum(int(c.item()) for c in mine)
     if reset:
-        for c in _PAD_COUNTERS.values():
+        for c in mine:
             c.zero_()
     return n
 
@@ -954,7 +966,7 @@ def _adc_keys(biasg, lf, codes, n2c, lidc, groups, rows):
 
 
 def adc_on_tensor_cores(M, ksub):
-    """K4's instance for a shape, as the built kernel library decides it:
+    """K4's and K5's instance for a shape, as the built kernel library decides it:
     True for the tensor-core kernel (ksub <= 16, the 16 entries of a
     sub-quantizer being one bf16 k-step, and 64 LUT rows of M * 16 entries
     that fit a block's shared memory, M <= 37), False for the shared-memory
@@ -965,7 +977,7 @@ def adc_on_tensor_cores(M, ksub):
 
 
 def _check_adc_tc(what, named, ct):
-    """What the tensor-core ADC kernel (K4, K6) needs beyond the contract:
+    """What the tensor-core ADC kernel (K4-K6) needs beyond the contract:
     TMA reads the codes, n2 and the list ids and the bias floor reads biasg
     16 bytes at a time, so the base addresses of the ``named`` (name,
     tensor) pairs 16-byte aligned; chunks of whole 128-column tiles (a tile
@@ -1010,7 +1022,7 @@ def ivfpq_fused(biasg, luts, codesT, n2, lid, *, qt: int = 256, ct: int = 1024):
         "ivfpq_adc", biasg.data_ptr(), luts.data_ptr(), codesT.data_ptr(),
         n2.data_ptr(), lid.data_ptr(), None, None, keys.data_ptr(),
         slots.data_ptr(), floor.data_ptr(), _ptr(part_key), _ptr(part_slot),
-        nq, biasg.shape[1], M, ksub, S, 0, qt, ct, splits, int(tc),
+        None, nq, biasg.shape[1], M, ksub, S, 0, qt, ct, splits, int(tc),
         _stream(luts.device),
     )
     ivfpq_fused.launches += 1
@@ -1046,8 +1058,21 @@ def ivfpq_fused_dyn(biasg, luts, codesT, n2, lid, cmap, cgroup, *, qt: int = 256
     and ``cgroup`` [S // ct] int32 group of each chunk. Returns (keys,
     slots, floor).
 
+    The last chunk of the store (``S // ct - 1``) is the PAD chunk, as for
+    K1: its n2 is all +inf, and each worklist fills the steps after its
+    tile's chunks with it. On the tensor cores the kernel stops each tile at
+    its last step that is not the PAD chunk (exact: a +inf key is never
+    selected) and counts the steps it skipped
+    (``pad_steps_skipped(kernel="K5")``); the plain version scans every
+    step.
+
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream without synchronising; any other device raises."""
+    current stream without synchronising; any other device raises. On the
+    card the instance is chosen by shape before the launch, as for K4
+    (:func:`adc_on_tensor_cores`): the tensor-core kernel, checked by
+    :func:`_check_adc_tc`, each tile's worklist steps split across blocks;
+    the lookup scan of adc_scan.cuh for ksub > 16 or M > 37. A failed
+    build or launch raises."""
     M, ksub, _ = _check_adc(biasg, luts, codesT, n2, lid, qt, ct)
     nq = luts.shape[0]
     if cmap.dtype != torch.int32 or cmap.dim() != 2 or (
@@ -1061,19 +1086,33 @@ def ivfpq_fused_dyn(biasg, luts, codesT, n2, lid, cmap, cgroup, *, qt: int = 256
     if not _route("K5", (biasg, luts, codesT, n2, lid, cmap, cgroup)):
         return ivfpq_fused_dyn_ref(biasg, luts, codesT, n2, lid, cmap, cgroup,
                                    qt=qt, ct=ct)
-    keys, slots, floor = _lane_outputs(nq, luts.device)
+    dev, msteps = luts.device, cmap.shape[1]
+    tc = adc_on_tensor_cores(M, ksub)
+    splits, skipped = 1, None
+    if tc:
+        _check_adc_tc("K5", (("biasg", biasg), ("codesT", codesT), ("n2", n2),
+                             ("lid", lid)), ct)
+        blocks = nq // qt * -(-qt // ADC_TC_BLOCK)
+        splits = _split_count(blocks, msteps, _sm_count(dev.index or 0))
+        skipped = _pad_counter(dev, "K5").data_ptr()
+    part_key, part_slot = _split_scratch(splits, nq, dev)
+    keys, slots, floor = _lane_outputs(nq, dev)
     _launch(
         "ivfpq_adc", biasg.data_ptr(), luts.data_ptr(), codesT.data_ptr(),
         n2.data_ptr(), lid.data_ptr(), cmap.data_ptr(), cgroup.data_ptr(),
-        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), None, None, nq,
-        biasg.shape[1], M, ksub, codesT.shape[1], cmap.shape[1], qt, ct, 1, 0,
-        _stream(luts.device),
+        keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), _ptr(part_key),
+        _ptr(part_slot), skipped, nq, biasg.shape[1], M, ksub, codesT.shape[1],
+        msteps, qt, ct, splits, int(tc), _stream(dev),
     )
     ivfpq_fused_dyn.launches += 1
+    ivfpq_fused_dyn.tc_launches += tc
+    ivfpq_fused_dyn.splits = splits
     return keys, slots, floor
 
 
 ivfpq_fused_dyn.launches = 0
+ivfpq_fused_dyn.tc_launches = 0  # launches of the tensor-core instance
+ivfpq_fused_dyn.splits = 0  # worklist splits of the last launch
 
 
 def ivfpq_fused_dyn_ref(biasg, luts, codesT, n2, lid, cmap, cgroup, *,
@@ -1287,20 +1326,32 @@ def recon_floor(xq, yT, n2, *, qt: int = 256, ct: int = 1024):
     bfloat16 transposed store, ``n2`` [1, S] float32 (+inf on pads).
     Returns out [nq, 128] float32.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream without synchronising; any other device raises."""
+    CPU tensors run the plain version; CUDA tensors launch the tensor-core
+    kernel on the current stream without synchronising, after the checks of
+    :func:`_check_mma_operands` (16-byte operands, d a multiple of 128),
+    which raise before the launch; any other device raises. The columns
+    split across blocks (``recon_floor.splits``) so that a launch gives
+    every block slot of the card (two an SM) a block."""
     _check_floor(xq, yT, n2, qt, ct)
     if not _route("K7", (xq, yT, n2)):
         return recon_floor_ref(xq, yT, n2, qt=qt, ct=ct)
     nq, d = xq.shape
-    out = torch.empty(nq, LANES, dtype=torch.float32, device=xq.device)
+    S, dev = yT.shape[1], xq.device
+    _check_mma_operands("K7", xq, (yT,), n2, d)
+    splits = _split_count(-(-nq // RECON_BLOCK), S // LANES,
+                          _sm_count(dev.index or 0) * RECON_FLOOR_BLOCKS_PER_SM)
+    part = None if splits == 1 else torch.empty(
+        splits, nq, LANES, dtype=torch.float32, device=dev)
+    out = torch.empty(nq, LANES, dtype=torch.float32, device=dev)
     _launch("recon_floor", xq.data_ptr(), yT.data_ptr(), n2.data_ptr(),
-            out.data_ptr(), nq, d, yT.shape[1], qt, ct, _stream(xq.device))
+            out.data_ptr(), _ptr(part), nq, d, S, qt, ct, splits, _stream(dev))
     recon_floor.launches += 1
+    recon_floor.splits = splits
     return out
 
 
 recon_floor.launches = 0
+recon_floor.splits = 0  # column splits of the last launch
 
 
 def recon_floor_ref(xq, yT, n2, *, qt: int = 256, ct: int = 1024):
