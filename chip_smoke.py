@@ -5,7 +5,9 @@ K5, with the penalized mode of K1 and the masked mode of K2), the ADC scan
 over its one-hot layout (K6, bf16 and int8 LUTs), the score-only floor of its
 decoded store (K7), its per-probe and XLA ADC scans, exact flat search (K2
 and K3), IVF4096,Flat search (K1 and K2 over hi/lo planes) and
-IndexIVFPQR IVF4096,PQ8+16: all seven kernels.
+IndexIVFPQR IVF4096,PQ8+16: all seven kernels; then Refine(SQ8) under
+IDMap2 (K1), ID selectors, IVF-Flat's mutations (K1, K2), range search and
+IVF-Flat by inner product (phases A-E).
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -186,6 +188,47 @@ median of 5, QPS and recall@10 against bench_gt_cache.npz:
      recall@10 (no limit); 64 rows of the re-rank against float64 distances
      to the refined reconstruction of their 40 candidates (within
      1e-5 * (|q|^2 + max |x|^2), ids tie-aware).
+The ported remainder of the flat and IVF families, on the same data (A and
+B's first part right after phase 14, B's second part and D's first after
+phase 22, D's second and C after phase 30, E before 31); every number they
+print stands beside the card's name and power limit:
+ A. IDMap2,IVF4096,PQ32x4fs,Refine(SQ8): IndexIDMap2(IndexRefine(
+     IndexIVFPQFastScan, IndexFlatSQ8(128))) from phase 4's coarse
+     quantizer and PQ (faiss_tpu_torch.convert), the SQ8 store trained on
+     the 200k training vectors, the 1M vectors added with seeded 64-bit ids
+     (a permutation plus 2^40); the 8192 queries at nprobe=1, soft,
+     k_factor=8, pipeline_batch=2048 must launch K1; every distance is the
+     exact squared L2 to the SQ8 reconstruction of its id within
+     1e-5 * (|q|^2 + max |y|^2); the ids equal id_map of the inner index's
+     own search; the SQ8 store holds one byte a dimension; recall@10 through
+     the id map beside phase 5's (no limit); host-clock median of 5;
+ B. an IDSelectorRange over half the external ids on A's index, 1024
+     queries (the eager path: the base by probe with the selector, then the
+     re-rank on the SQ8 codes; no kernel): no id outside the selector, and
+     on 64 rows the results are the best 10, on the SQ8 reconstruction, of
+     the best 80 by float64 ADC among the selected entries of the probed
+     list (ADC ties at that cut either side); then an IDSelectorBatch of
+     100,000 ids on IndexFlatL2 over the 1M store, 1024 queries (the masked
+     plain k-NN, no kernel): 64 rows exact against float64 over the
+     selected rows;
+ C. on phase 23's index: remove_ids of a seeded 10% of the ids, then the
+     strict (K2 masked + hi/lo) and soft (K1 soft + hi/lo) searches of the
+     8192 queries at nprobe=1, each launching its kernel and returning no
+     removed id, the strict one exact on 64 rows against float64 over the
+     probed lists without the removed rows; merge_from an index on the same
+     quantizer holding the removed rows, after which the strict search's
+     64 rows (those whose lists hold kc entries) agree tie-aware with phase
+     24's at nprobe=1; update_vectors of 1,000 ids, after which reconstruct
+     returns the new vectors;
+ D. range search of 64 queries at the median 10th-neighbour distance of
+     bench_gt_cache.npz, on IndexFlatL2 and on IVF-Flat at nprobe 16 (no
+     kernel): each query's set equals float64's (over the probed lists for
+     IVF-Flat) apart from entries within 1e-5 * (|q|^2 + max |y|^2) of the
+     radius; the lims totals printed;
+ E. IndexIVFFlat(128, 4096, METRIC_INNER_PRODUCT) trained by spherical
+     k-means on the 200k training vectors (unit-norm centroids), the 1M
+     added, 1024 queries at nprobe 16 by probe: 64 rows equal float64 over
+     the probed lists, largest first.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -228,6 +271,7 @@ D, NB, NQ, NT, NLIST, M, NBITS = 128, 1_000_000, 8192, 200_000, 4096, 32, 4
 NPROBE, K, K_FACTOR, BATCH, NITER = 1, 10, 8, 2048, 20
 RECALL_MIN = 0.95
 EXACT_ROWS = 64
+CARD = ""  # the card's name and power limit (nvidia-smi), set by main()
 
 
 def bench_data():
@@ -531,7 +575,272 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
                plain_ms, *dyn_cost(br, cmap, qt, br["yT"], (xq_p,), False))
     out, k2_ivf = strict_and_adc_phases(fused_knn, base, index, br, xb, xq,
                                         gt, dev, msteps)
-    return [k1] + out, k2_ivf
+    state = {"cent": base.quantizer.vectors(), "pq": base.pq.centroids,
+             "recall": recall}
+    return [k1] + out, k2_ivf, state
+
+
+def d64_rows(xb, xq, dev):
+    """float64 squared L2 of the first EXACT_ROWS queries to every stored
+    row, on the card: ([EXACT_ROWS, NB], max |y|^2)."""
+    y = torch.from_numpy(xb).to(dev, torch.float64)
+    q = torch.from_numpy(xq[:EXACT_ROWS]).to(dev, torch.float64)
+    yn = y.square().sum(1)
+    d = q.square().sum(1)[:, None] + yn[None] - 2.0 * (q @ y.T)
+    return d, float(yn.max())
+
+
+def range_check(what, res, xq, radius, d64, ymax, cand_of=None):
+    """Phase D: each of the first EXACT_ROWS queries' result set equals
+    float64's (rows ``d64``, over ``cand_of(q)`` where given, else every
+    row) apart from entries within 1e-5 * (|q|^2 + max |y|^2) of the
+    radius; shared entries' distances agree within it."""
+    qn = (xq[:EXACT_ROWS].astype(np.float64) ** 2).sum(1)
+    total = edge = 0
+    for q in range(EXACT_ROWS):
+        dq = d64[q]
+        if cand_of is None:
+            ids = torch.nonzero(dq < radius)[:, 0]
+        else:
+            c = torch.from_numpy(np.asarray(cand_of(q), np.int64)).to(dq.device)
+            ids = c[dq[c] < radius]
+        want = dict(zip(ids.cpu().tolist(), dq[ids].cpu().tolist()))
+        lo, hi = int(res.lims[q]), int(res.lims[q + 1])
+        got = dict(zip(res.labels[lo:hi].tolist(), res.distances[lo:hi].tolist()))
+        t = 1e-5 * (qn[q] + ymax)
+        check(len(got) == hi - lo, f"{what}: row {q} returns an id twice")
+        for a, b in ((want, got), (got, want)):
+            for i in set(a) - set(b):
+                di = float(d64[q, i])
+                check(abs(di - radius) <= t, f"{what}: row {q} id {i} at {di:.6g} "
+                                             f"is on one side only, radius {radius:.6g}")
+                edge += 1
+        for i in set(got) & set(want):
+            check(abs(got[i] - want[i]) <= t, f"{what}: row {q} id {i} distance "
+                                              f"{got[i]} vs float64 {want[i]}")
+        total += len(want)
+    print(f"{what}: {EXACT_ROWS} rows equal float64's sets ({total} entries, "
+          f"{edge} on one side only, within tolerance of the radius); lims total "
+          f"{int(res.lims[-1])}, per row min/median/max "
+          f"{np.diff(res.lims.astype(np.int64)).min()}/"
+          f"{int(np.median(np.diff(res.lims.astype(np.int64))))}/"
+          f"{np.diff(res.lims.astype(np.int64)).max()}", flush=True)
+
+
+def refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
+    """Phases A and B's IVF-PQ part: IDMap2,IVF4096,PQ32x4fs,Refine(SQ8)
+    from phase 4's trained coarse quantizer and PQ, added with seeded
+    64-bit ids; the main-path search (K1, fused re-rank on the SQ8 codes),
+    then a selector through the eager path (by probe, no kernel)."""
+    from faiss_tpu_torch.convert import ivfpq_from_arrays
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+
+    base = ivfpq_from_arrays(state["cent"], state["pq"],
+                             np.zeros((0, M), np.uint8), [], [], device=dev)
+    base.nprobe, base.strict_probe, base.pipeline_batch = NPROBE, False, BATCH
+    sq8 = ft.IndexFlatSQ8(D, device=dev)
+    ext = np.random.RandomState(7).permutation(NB).astype(np.int64) + (1 << 40)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sq8.train(xt)
+    refine = ft.IndexRefine(base, sq8)
+    refine.k_factor = K_FACTOR
+    index = ft.IndexIDMap2(refine)
+    index.add_with_ids(xb, ext)
+    codes = sq8._consolidate()
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    nbytes = codes.numel() * codes.element_size()
+    check(codes.dtype == torch.uint8 and tuple(codes.shape) == (NB, D)
+          and nbytes == NB * D, "A. the SQ8 store is not one byte a dimension")
+    print(f"A. IDMap2,IVF4096,PQ32x4fs,Refine(SQ8): SQ8 train + add of {NB} "
+          f"vectors with 64-bit ids {t_add:.2f} s; SQ8 store {nbytes / 2**20:.1f} "
+          f"MiB, {nbytes / (NB * D):.0f} byte a dimension ({CARD})", flush=True)
+
+    # the path, with the launch counts read around it
+    reset_counts(fused_knn)
+    t0 = time.time()
+    Dm, Im = index.search(xq, K)
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    n = fused_knn.ivf_recon_fused_dyn.launches
+    check(n > 0, "A. Refine(SQ8) launched K1 no time")
+    check(Dm.shape == Im.shape == (NQ, K) and np.isfinite(Dm).all()
+          and np.isin(Im, ext).all(), "A. invalid ids or distances")
+    # the ids are id_map[...] of the inner index's own search: a pair of
+    # searches with the worklist length held at the bucket the first search
+    # sized (collect widens an adaptive bucket after a dropped chunk). K1's
+    # select is exact up to ties: where its keys tie at the candidate cut
+    # (4-bit codes of one list often do) the two searches may re-rank other
+    # candidates, so the ids are held to the translation on the rows whose
+    # re-ranked distances came back equal, and those rows must be nearly all
+    ymax = float(sq8._norms.max())
+    tol = 1e-5 * ((xq.astype(np.float64) ** 2).sum(1) + ymax)
+    base.dyn_msteps = base._dyn_bucket[NPROBE]
+    Di, Ii = refine.search(xq, K)
+    Dm, Im = index.search(xq, K)
+    base.dyn_msteps = 0
+    same = (Dm == Di).all(1)
+    check(same.mean() >= 0.999 and ids_agree_tie_aware(
+        Di[same], ext[Ii[same]], Dm[same], Im[same], 0.0).all(),
+        f"A. the ids are not id_map of the inner index's search "
+        f"({int((~same).sum())} rows re-ranked other candidates)")
+    # every distance of both: the exact squared L2 to the SQ8 reconstruction
+    # of its id
+    errs = []
+    for what, Dx, Ix in (("IDMap2", Dm, Im), ("inner", Di, ext[Ii])):
+        y = index.reconstruct_batch(Ix.ravel()).reshape(NQ, K, D).astype(np.float64)
+        errs.append(np.abs(Dx - ((xq[:, None, :].astype(np.float64) - y) ** 2).sum(-1)))
+        check((errs[-1] <= tol[:, None]).all(), f"A. {what}: distances differ from "
+              f"float64 to the SQ8 reconstruction by {errs[-1].max():.3e}")
+    err = max(e.max() for e in errs)
+    recall = recall_at_k(Im, ext[gt], K)
+    med, times = host_median(lambda: index.search(xq, K))
+    print(f"A. search of {NQ} queries, nprobe=1 soft, k_factor={K_FACTOR}: K1 x{n} "
+          f"({fused_knn.ivf_recon_fused_dyn.splits} worklist splits); first call "
+          f"{first:.3f} s; distances exact to the SQ8 reconstruction (max err "
+          f"{err:.3e}); ids = id_map of the inner search on the "
+          f"{int(same.sum())} of {NQ} rows whose distances came back equal "
+          f"(the rest re-ranked other candidates tied at K1's cut); recall@10 "
+          f"{recall:.4f} (SQ8) beside phase 5's {state['recall']:.4f} (fp16); "
+          f"median {med * 1e3:.1f} ms over 5 "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> {NQ / med:.0f} QPS "
+          f"({CARD})", flush=True)
+
+    # B. a selector over half of the external ids: the eager path (the base
+    # by probe with the selector, then the re-rank on the SQ8 codes)
+    lo_id, hi_id = 1 << 40, (1 << 40) + NB // 2
+    params = ft.SearchParametersIVF(sel=ft.IDSelectorRange(lo_id, hi_id))
+    xs = xq[:1024]
+    Db, Ib = no_kernel(fused_knn, "B. IDSelectorRange on Refine(SQ8), 1024 q",
+                       lambda: index.search(xs, K, params=params))
+    check(((Ib == -1) | ((Ib >= lo_id) & (Ib < hi_id))).all(),
+          "B. an id outside the selector came back")
+    # every row against float64: its results are the best K, on the SQ8
+    # reconstruction, of kc candidates that are the best kc by ADC among the
+    # selected entries of its probed list (float64 ADC of the PQ
+    # reconstruction; candidates within the tolerance of the kc-th are
+    # either side of the cut, as 4-bit codes tie)
+    kc = K * K_FACTOR
+    lists = base._coarse_search(torch.from_numpy(xs).to(dev), 1)[1][:EXACT_ROWS]
+    lists = lists[:, 0].cpu().numpy()
+    kept = (ext >= lo_id) & (ext < hi_id)
+    pos_of = np.empty(NB, np.int64)
+    pos_of[ext - lo_id] = np.arange(NB)
+    qn = (xs.astype(np.float64) ** 2).sum(1)
+    ties = 0
+    for q in range(EXACT_ROWS):
+        pos = np.nonzero((base._listnos_host == lists[q]) & kept)[0]
+        recon = base.decode_vectors(base._codes_host[pos], base._listnos_host[pos])
+        adc = ((recon.astype(np.float64) - xs[q]) ** 2).sum(1)
+        t_adc = 1e-5 * (qn[q] + float((recon.astype(np.float64) ** 2).sum(1).max()))
+        sure = maybe = pos
+        if len(pos) > kc:
+            cut = np.sort(adc)[kc - 1]
+            sure, maybe = pos[adc < cut - t_adc], pos[adc <= cut + t_adc]
+            ties += len(maybe) > kc
+        got = Ib[q][Ib[q] >= 0]
+        gp = pos_of[got - lo_id]
+        t = 1e-5 * (qn[q] + ymax)
+        d_got = ((sq8.reconstruct_batch(gp).astype(np.float64) - xs[q]) ** 2).sum(1)
+        rest = np.setdiff1d(sure, gp)
+        d_rest = ((sq8.reconstruct_batch(rest).astype(np.float64) - xs[q]) ** 2).sum(1)
+        check(len(got) == min(K, len(pos)) and np.isin(gp, maybe).all()
+              and (np.abs(Db[q][: len(got)] - d_got) <= t).all()
+              and (len(got) < K or (d_rest >= Db[q][K - 1] - t).all()),
+              f"B. row {q} differs from float64 over its selected candidates")
+    med, _ = host_median(lambda: index.search(xs, K, params=params))
+    print(f"B. Refine(SQ8) with IDSelectorRange over half the ids: {EXACT_ROWS} "
+          f"rows agree with float64 (ADC over the selected entries of the probed "
+          f"list, top {kc}, re-ranked on the SQ8 reconstruction; {ties} rows with "
+          f"ADC ties at the candidate cut); median {med * 1e3:.1f} ms per 1024 q "
+          f"({CARD})", flush=True)
+
+
+def flat_rest_phases(ft, fused_knn, xb, xq, dev, radius):
+    """Phase B's flat part (an IDSelectorBatch of 100,000 ids, the masked
+    plain k-NN) and phase D's (range search) on IndexFlatL2 over the 1M
+    store, against float64."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    flat = ft.IndexFlatL2(D, device=dev)
+    flat.add(xb)
+    flat._consolidate()
+    d64, ymax = d64_rows(xb, xq, dev)
+    ids = np.sort(np.random.RandomState(8).choice(NB, 100_000, replace=False))
+    params = ft.SearchParameters(sel=ft.IDSelectorBatch(ids))
+    xs = xq[:1024]
+    Df, If = no_kernel(fused_knn, "B. IDSelectorBatch of 100000 ids on "
+                       "IndexFlatL2, 1024 q", lambda: flat.search(xs, K, params=params))
+    check(np.isin(If, ids).all(), "B. flat: an id outside the selector came back")
+    sub = d64[:, torch.from_numpy(ids).to(dev)]
+    vals, pos = torch.topk(sub, K, largest=False)
+    want_d, want_i = vals.cpu().numpy(), ids[pos.cpu().numpy()]
+    tol = 1e-5 * ((xs[:EXACT_ROWS].astype(np.float64) ** 2).sum(1) + ymax)
+    err = np.abs(Df[:EXACT_ROWS] - want_d)
+    check((err <= tol[:, None]).all()
+          and ids_agree_tie_aware(want_d, want_i, Df[:EXACT_ROWS], If[:EXACT_ROWS],
+                                  tol).all(),
+          "B. flat: rows differ from float64 over the selected rows")
+    med, _ = host_median(lambda: flat.search(xs, K, params=params))
+    print(f"B. flat selector: {EXACT_ROWS} rows exact vs float64 over the selected "
+          f"rows (max err {err.max():.3e}); median {med * 1e3:.1f} ms per 1024 q "
+          f"({CARD})", flush=True)
+    res = no_kernel(fused_knn, "D. IndexFlatL2 range_search, 64 queries",
+                    lambda: flat.range_search(xq[:EXACT_ROWS], radius))
+    range_check(f"D. IndexFlatL2 (radius {radius:.4f})", res, xq, radius, d64, ymax)
+    med, _ = host_median(lambda: flat.range_search(xq[:EXACT_ROWS], radius))
+    print(f"D. IndexFlatL2 range_search median {med * 1e3:.1f} ms per 64 q "
+          f"({CARD})", flush=True)
+
+
+def ivfflat_ip_phase(ft, fused_knn, xb, xt, xq, dev):
+    """Phase E: IndexIVFFlat(128, 4096, METRIC_INNER_PRODUCT), trained by
+    spherical k-means on the 200k training vectors; 1024 queries at
+    nprobe 16 by probe; 64 rows against float64 over the probed lists,
+    largest first."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    index = ft.IndexIVFFlat(None, D, NLIST, ft.METRIC_INNER_PRODUCT, device=dev)
+    took = []
+    for step in (lambda: index.train(xt), lambda: index.add(xb)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        took.append(time.time() - t0)
+    norms = np.linalg.norm(index.quantizer.vectors(), axis=1)
+    check(index.cp.spherical and np.abs(norms - 1).max() < 1e-4,
+          "E. the coarse centroids are not unit-norm")
+    index.nprobe = 16
+    xs = xq[:1024]
+    Dx, Ix = no_kernel(fused_knn, "E. IVF-Flat IP, 1024 q, nprobe=16",
+                       lambda: index.search(xs, K))
+    check(np.isfinite(Dx).all() and (Ix >= 0).all()
+          and (np.diff(Dx, axis=1) <= 0).all(), "E. invalid or unsorted results")
+    lists = index._coarse_search(torch.from_numpy(xs).to(dev), 16)[1]
+    lists = lists[:EXACT_ROWS].cpu().numpy()
+    ln = index._listnos_host
+    order = np.argsort(ln, kind="stable")
+    offs = np.concatenate([[0], np.cumsum(np.bincount(ln, minlength=NLIST))])
+    ymax = float((xb.astype(np.float64) ** 2).sum(1).max())
+    err = 0.0
+    for q in range(EXACT_ROWS):
+        ids = np.concatenate([order[offs[li] : offs[li + 1]] for li in lists[q]])
+        ip = xb[ids].astype(np.float64) @ xs[q].astype(np.float64)
+        o = np.argsort(-ip, kind="stable")[:K]
+        t = 1e-5 * (float((xs[q].astype(np.float64) ** 2).sum()) + ymax)
+        e = np.abs(Dx[q] - ip[o])
+        check((e <= t).all() and ids_agree_tie_aware(
+            -ip[o][None], ids[o][None], -Dx[q][None], Ix[q][None], t).all(),
+            f"E. row {q} differs from float64 over its probed lists")
+        err = max(err, float(e.max()))
+    med, times = host_median(lambda: index.search(xs, K))
+    print(f"E. IndexIVFFlat(128, {NLIST}, METRIC_INNER_PRODUCT): train "
+          f"{took[0]:.2f} s (spherical, {index.cp.niter} iterations), add "
+          f"{took[1]:.2f} s; {EXACT_ROWS} rows equal float64 over the probed "
+          f"lists, largest first (max err {err:.3e}); median {med * 1e3:.1f} ms "
+          f"per 1024 q over 5 -> {len(xs) / med:.0f} QPS ({CARD})", flush=True)
 
 
 def dyn_cost(br, cmap, qt, store, per_query, lid, planes=1):
@@ -1892,11 +2201,12 @@ def flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf):
     ]
 
 
-def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
-    """Phases 23-30: IndexIVFFlat(d=128, nlist=4096) on the same data
-    (BASELINE config 3). Returns the entries of K1 soft + hi/lo, K1
-    penalized + hi/lo and K2 masked + hi/lo in the kernels' JSON line, and
-    K2's unmasked hi/lo launches at nprobe = nlist."""
+def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev, radius):
+    """Phases 23-30, then D (IVF-Flat's range search) and C (mutation):
+    IndexIVFFlat(d=128, nlist=4096) on the same data (BASELINE config 3).
+    Returns the entries of K1 soft + hi/lo, K1 penalized + hi/lo and K2
+    masked + hi/lo in the kernels' JSON line (their launches those of
+    phases 24-29), and K2's unmasked hi/lo launches at nprobe = nlist."""
     from faiss_tpu_torch.models import ivf_pq as P
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
 
@@ -1917,18 +2227,24 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
           f"{took[2]:.2f} s; {br['nchunks']} chunks of {ct} slots in {G} groups, "
           f"hi/lo planes {tuple(br['yT'].shape)} bf16", flush=True)
 
-    # each grouped list column's list, and each list's slots (ids = slots)
-    sm = br["slot_map"]
-    valid = sm >= 0
-    col_of = (np.minimum(np.arange(len(sm)) // ct // br["cpg"], G - 1) * 128
-              + br["lid"][0].cpu().numpy())
-    listnos = index._listnos_host
-    list_of_col = np.full(G * 128, -1, np.int64)
-    list_of_col[col_of[valid]] = listnos[sm[valid]]
+    def layout_lists():
+        """Each grouped list column's list in the index's current big-batch
+        layout, and the column's entry count on the card."""
+        lay = index._brute
+        sm = lay["slot_map"]
+        valid = sm >= 0
+        col_of = (np.minimum(np.arange(len(sm)) // ct // lay["cpg"], G - 1) * 128
+                  + lay["lid"][0].cpu().numpy())
+        lc = np.full(G * 128, -1, np.int64)
+        lc[col_of[valid]] = index._listnos_host[sm[valid]]
+        n = np.bincount(index._listnos_host, minlength=NLIST)
+        return lc, torch.from_numpy(np.where(lc >= 0, n[np.maximum(lc, 0)], 0)).to(dev)
+
+    # each grouped list column's list, and each list's slots (ids = slots,
+    # in the add's lists: the mutations of phase C keep every vector's list)
+    listnos = index._listnos_host.copy()
     sizes = np.bincount(listnos, minlength=NLIST)
-    col_size = torch.from_numpy(
-        np.where(list_of_col >= 0, sizes[np.maximum(list_of_col, 0)], 0)
-    ).to(dev)
+    col_size = layout_lists()[1]
     order = np.argsort(listnos, kind="stable")
     offs = np.concatenate([[0], np.cumsum(sizes)])
     check((index._ids_host == np.arange(NB)).all(), "ids are not the add order")
@@ -1940,21 +2256,26 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
 
     def probed_cols(nprobe):
         """[NQ, G * 128] bool: each query's probed list columns as the big
-        batches compute them, per 4096-query sub-batch."""
+        batches compute them, per 4096-query sub-batch, in the current
+        layout."""
+        lay = index._brute
         return torch.cat([
-            P._probed(xq_all[s : s + 4096], br["centroids_g"], br["cn2g"],
+            P._probed(xq_all[s : s + 4096], lay["centroids_g"], lay["cn2g"],
                       nprobe)[1] for s in range(0, NQ, 4096)
         ])
 
-    def exact_in_lists(Dx, Ix, lists, need, what):
+    def exact_in_lists(Dx, Ix, lists, need, what, alive=None):
         """Rows 0..EXACT_ROWS-1 whose lists hold >= need slots: ids equal a
-        float64 exact search over the row's probed lists up to ties at tol,
-        distances within tol. Returns the rows checked."""
+        float64 exact search over the row's probed lists (their ``alive``
+        ids only, where given) up to ties at tol, distances within tol.
+        Returns the rows checked."""
         k, n, err = Dx.shape[1], 0, 0.0
         for q in range(EXACT_ROWS):
             ls = np.asarray(lists[q])
             slots = np.concatenate(
                 [order[offs[li] : offs[li + 1]] for li in ls[ls >= 0]])
+            if alive is not None:
+                slots = slots[alive[slots]]
             if len(slots) < need:
                 continue
             d = ((xb[slots].astype(np.float64) - xq[q].astype(np.float64)) ** 2).sum(1)
@@ -1981,7 +2302,8 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
 
     def big_lists(nprobe):
         cols = probed_cols(nprobe)[:EXACT_ROWS].cpu().numpy()
-        return [list_of_col[np.where(c)[0]] for c in cols]
+        lc = layout_lists()[0]
+        return [lc[np.where(c)[0]] for c in cols]
 
     launches = dict(k1=0, k1p=0, k2m=0, k2=0)
 
@@ -2132,7 +2454,7 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     dyn = "faiss_tpu_torch/csrc/ivf_recon_dyn.cu"
     full = "faiss_tpu_torch/csrc/ivf_recon.cu"
-    return [
+    entries = [
         entry("ivf_recon_dyn[hilo]", dyn, "faiss_tpu/ops/pallas_knn.py:1249",
               launches["k1"], *k1,
               *dyn_cost(br, cmap, qt, br["yT"], (a1[0],), False, planes=2)),
@@ -2143,7 +2465,76 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev):
               launches["k2m"], *k2m,
               *scan_cost(br["yT"], br["n2s"], len(xq4), (a2[0], mask), True,
                          planes=2)),
-    ], launches["k2"]
+    ]
+    del a1, a2, kw1, kw2, pen, mask, xs, perm, cm2, cmap, br
+
+    # D. range search at nprobe 16 on the whole index (by probe, no kernel),
+    # against float64 over each row's probed lists
+    index.nprobe = 16
+    res = no_kernel(fused_knn, "D. IVF-Flat range_search, 64 queries, nprobe=16",
+                    lambda: index.range_search(xq[:EXACT_ROWS], radius))
+    lists = index._coarse_search(xq_all[:EXACT_ROWS], 16)[1].cpu().numpy()
+    d64, ymax64 = d64_rows(xb, xq, dev)
+    range_check("D. IVF-Flat nprobe=16", res, xq, radius, d64, ymax64,
+                lambda q: np.concatenate([order[offs[li] : offs[li + 1]]
+                                          for li in lists[q]]))
+    del d64
+
+    # C. remove_ids of a seeded 10% of the ids, then the strict (K2 masked +
+    # hi/lo) and soft (K1 soft + hi/lo) searches at nprobe=1; merge_from an
+    # index on the same quantizer holding the removed rows; update_vectors
+    rs = np.random.RandomState(12)
+    gone = np.sort(rs.choice(NB, NB // 10, replace=False))
+    alive = np.ones(NB, bool)
+    alive[gone] = False
+    index.nprobe, index.strict_probe, index.dyn_engage_frac = 1, True, 0.08
+    t0 = time.time()
+    nrem = index.remove_ids(ft.IDSelectorBatch(gone))
+    t_rm = time.time() - t0
+    check(nrem == len(gone) and index.ntotal == NB - nrem and index._brute is None,
+          f"C. remove_ids removed {nrem} and kept the big-batch layout")
+    print(f"C. remove_ids of {nrem} ids: {t_rm:.3f} s ({CARD})", flush=True)
+    for mode in ("strict", "soft"):
+        index.strict_probe = mode == "strict"
+        before = dict(launches)
+        Dx, Ix, drops, _ = run(f"C. {mode} nprobe=1 after remove_ids", xq, K)
+        key = "k2m" if mode == "strict" else "k1"
+        check(launches[key] > before[key],
+              f"C. {mode}: its kernel ({key}) launched no time")
+        check(not np.isin(Ix, gone).any(), f"C. {mode}: a removed id came back")
+        if mode == "strict":
+            exact_in_lists(Dx, Ix, big_lists(1), kc, "C. strict after remove_ids",
+                           alive=alive)
+    index.strict_probe = True
+    other = ft.IndexIVFFlat(index.quantizer, D, NLIST, device=dev)
+    t0 = time.time()
+    other.add_with_ids(xb[gone], gone)
+    index.merge_from(other)
+    t_merge = time.time() - t0
+    check(index.ntotal == NB and other.ntotal == 0 and index._brute is None,
+          "C. merge_from")
+    Dx, Ix, _, _ = run("C. strict nprobe=1 after merge_from", xq, K)
+    full = ((probed_cols(1) * layout_lists()[1]).sum(1) >= kc).cpu().numpy()
+    rows = np.nonzero(full[:EXACT_ROWS])[0]
+    Ds1, Is1 = strict[1][0], strict[1][1]
+    agree = ids_agree_tie_aware(Ds1[rows], Is1[rows], Dx[rows], Ix[rows], tol[rows])
+    check(agree.all() and (np.abs(Dx[rows] - Ds1[rows]) <= tol[rows, None]).all(),
+          f"C. after merge_from: {int((~agree).sum())} of {len(rows)} rows differ "
+          "from phase 24 at nprobe=1")
+    print(f"C. merge_from of {len(gone)} rows (add + merge {t_merge:.3f} s, "
+          f"{CARD}): {len(rows)} of {EXACT_ROWS} rows whose lists hold {kc} "
+          "entries agree with phase 24 at nprobe=1, ids tie-aware", flush=True)
+    upd = rs.choice(NB, 1000, replace=False)
+    new = xt[rs.choice(len(xt), 1000, replace=False)]
+    t0 = time.time()
+    index.update_vectors(upd, new)
+    back = index.reconstruct_batch(upd)
+    check(np.array_equal(back, new), "C. reconstruct after update_vectors")
+    moved = int((index._listnos_host[index._slots_of_ids(upd)] != listnos[upd]).sum())
+    print(f"C. update_vectors of 1000 ids + reconstruct: {time.time() - t0:.3f} s "
+          f"({CARD}); {moved} moved to another list; reconstruct returns the new "
+          "vectors", flush=True)
+    return entries, launches["k2"]
 
 
 def main():
@@ -2154,10 +2545,12 @@ def main():
     import faiss_tpu_torch as ft
     from faiss_tpu_torch.ops import fused_knn
 
+    global CARD
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    CARD = card
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, card: {card}; shared-memory lookups "
           f"{lookup_rate():.4g}/s at the max SM clock", flush=True)
@@ -2241,13 +2634,23 @@ def main():
     print(f"data {time.time() - t0:.2f} s", flush=True)
 
     dev = torch.device("cuda")
-    kernels, k2_ivf = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+    # phase D's radius: the median 10th-neighbour distance of the first
+    # EXACT_ROWS queries, from the ground truth
+    radius = float(np.median(((xq[:EXACT_ROWS].astype(np.float64)
+                               - xb[gt[:EXACT_ROWS, 9]]) ** 2).sum(1)))
+    kernels, k2_ivf, state = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+    torch.cuda.empty_cache()
+    refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
     torch.cuda.empty_cache()
     kernels += flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf)
     torch.cuda.empty_cache()
-    ivfflat, k2_hilo = ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+    flat_rest_phases(ft, fused_knn, xb, xq, dev, radius)
+    torch.cuda.empty_cache()
+    ivfflat, k2_hilo = ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev, radius)
     next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_hilo
     kernels += ivfflat
+    torch.cuda.empty_cache()
+    ivfflat_ip_phase(ft, fused_knn, xb, xt, xq, dev)
     torch.cuda.empty_cache()
     ivfpqr_phase(ft, fused_knn, xb, xt, xq, gt, dev)
 

@@ -26,7 +26,20 @@ Ported so far:
     and ``reconstruct*``: big batches through the dynamic-chunk and the
     exhaustive scans over bf16 hi/lo store planes with an exact re-rank,
     strict (exact within the probed lists, the default) or soft probing;
-    everything else through the exact scan by probe.
+    everything else through the exact scan by probe;
+  - ID selectors — ``IDSelectorRange``, ``IDSelectorArray``,
+    ``IDSelectorBatch``, ``IDSelectorBitmap``, ``IDSelectorNot``/``And``/
+    ``Or``/``XOr``/``All`` in every search of the flat, IVF-Flat and IVF-PQ
+    indexes (masked k-NN, or by probe), and ``IndexIDMap``/``IndexIDMap2``
+    with the selector translated to their ids;
+  - the flat remainder — ``range_search``, ``remove_ids``, ``merge_from``,
+    ``reconstruct*`` and ``sa_*`` of ``IndexFlat``; ``IndexFlatSQ8`` (the
+    QT_8bit ``ScalarQuantizer``) and Refine(SQ8), ``IndexRefine`` over
+    IVF-PQ with an SQ8 store, on the same fused path; ``IndexFlat1D``;
+  - the IVF remainder — the inner-product metric of IVF-Flat and IVF-PQ
+    (spherical k-means for the coarse quantizer; by probe), ``remove_ids``,
+    ``merge_from``, ``update_vectors``, ``range_search``, the direct map and
+    ``IndexIVFStats``.
 """
 
 import torch
@@ -36,17 +49,49 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .base import Index, SearchParameters, query_buckets  # noqa: E402,F401
+from .base import (  # noqa: E402,F401
+    IDSelector,
+    IDSelectorAll,
+    IDSelectorAnd,
+    IDSelectorArray,
+    IDSelectorBatch,
+    IDSelectorBitmap,
+    IDSelectorNot,
+    IDSelectorOr,
+    IDSelectorRange,
+    IDSelectorXOr,
+    Index,
+    RangeSearchResult,
+    SearchParameters,
+    query_buckets,
+)
 from .clustering import Clustering, ClusteringParameters  # noqa: E402,F401
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
+from .codecs.sq import QuantizerType, RangeStat, ScalarQuantizer  # noqa: E402,F401
 from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
-from .models.flat import IndexFlat, IndexFlatIP, IndexFlatL2  # noqa: E402,F401
-from .models.ivf import IndexIVF, SearchParametersIVF  # noqa: E402,F401
+from .models.flat import (  # noqa: E402,F401
+    IndexFlat,
+    IndexFlat1D,
+    IndexFlatIP,
+    IndexFlatL2,
+    IndexFlatSQ8,
+)
+from .models.ivf import (  # noqa: E402,F401
+    IndexIVF,
+    IndexIVFStats,
+    SearchParametersIVF,
+    indexIVF_stats,
+)
 from .models.ivf_flat import IndexIVFFlat  # noqa: E402,F401
 from .models.ivf_pq import (  # noqa: E402,F401
     IndexIVFPQ,
     IndexIVFPQFastScan,
     IndexIVFPQR,
 )
-from .models.meta import IndexRefine, IndexRefineFlat  # noqa: E402,F401
+from .models.meta import (  # noqa: E402,F401
+    IndexIDMap,
+    IndexIDMap2,
+    IndexRefine,
+    IndexRefineFlat,
+)
 from .utils.evaluation import recall_at_k  # noqa: E402,F401

@@ -6,9 +6,11 @@ seeded random init, niter Lloyd iterations with empty-cluster splits, nredo
 restarts keeping the best objective, per-iteration stats. Subsampling and
 init draw from ``np.random.RandomState(seed)`` exactly as faiss_tpu does, so
 both packages start from bit-identical centroids; the Lloyd loop runs on the
-device (ops/kmeans_ops.kmeans_fused_loop). Only the "random" init and the
-plain L2 objective are ported (kmeans++, AFK-MC2, spherical, int and frozen
-centroids and weights are ROADMAP queue 1 item 9)."""
+device (ops/kmeans_ops.kmeans_fused_loop). ``spherical`` normalizes the
+centroids after the init and after each update, as faiss_tpu does
+(clustering.py:177, ops/kmeans_ops.py:290). Only the "random" init is
+ported (kmeans++, AFK-MC2, int and frozen centroids and weights are ROADMAP
+queue 1 item 9)."""
 
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ class ClusteringParameters:
     max_points_per_centroid: int = 256
     seed: int = 1234
     check_input_data_for_NaNs: bool = True
+    spherical: bool = False
 
 
 class Clustering:
@@ -81,10 +84,16 @@ class Clustering:
         return x
 
     def _init_centroids(self, x: np.ndarray, rs) -> np.ndarray:
+        """Warm start or a random sample, then normalized if spherical
+        (faiss_tpu :177)."""
         if self.centroids is not None and len(self.centroids) == self.k:
-            return np.array(self.centroids, dtype=np.float32)  # warm start
-        perm = rs.permutation(len(x))[: self.k]
-        return x[perm].astype(np.float32).copy()
+            c = np.array(self.centroids, dtype=np.float32)
+        else:
+            perm = rs.permutation(len(x))[: self.k]
+            c = x[perm].astype(np.float32).copy()
+        if self.cp.spherical:
+            c = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-30)
+        return c
 
     def train(self, x) -> float:
         x = np.ascontiguousarray(x, dtype=np.float32)
@@ -104,7 +113,7 @@ class Clustering:
             gen.manual_seed(self.cp.seed + 7919 * redo)
             c, objs, sumsq, tots, nsplits, _ = kmeans_fused_loop(
                 xd, torch.from_numpy(init).to(self.device), gen,
-                niter=self.cp.niter, chunk=chunk,
+                niter=self.cp.niter, chunk=chunk, spherical=self.cp.spherical,
             )
             centroids = c.cpu().numpy()
             objs, sumsq, tots, nsplits = (

@@ -23,17 +23,25 @@ and for a faiss_tpu ``IndexIVFPQR`` named ``pqr``::
                        pqr._codes_host, pqr._listnos_host, pqr._ids_host,
                        pqr.refine_pq.centroids, pqr._refine_codes,
                        device=...)
+
+IVF-Flat and IVF-PQ take ``metric=`` (faiss_tpu's ``index.metric_type``).
+An ``IndexFlatSQ8`` named ``sq8`` is ``flat_sq8_from_arrays(sq8.sq.trained,
+sq8._xb, sq8.metric_type, device=...)``; a Refine(SQ8) ``IndexRefine(base,
+sq8)`` over IVF-PQ is ``refine_sq8_from_arrays`` with the base's arrays and
+those two; an ``IndexIDMap`` or ``IndexIDMap2`` named ``m`` wraps the port
+of ``m.index`` as ``idmap_from_arrays(port_inner, m.id_map, two=...)``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .base import Index
 from .metric import MetricType
-from .models.flat import IndexFlat, IndexFlatL2
+from .models.flat import IndexFlat, IndexFlatSQ8
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
-from .models.meta import IndexRefineFlat
+from .models.meta import IndexIDMap, IndexIDMap2, IndexRefine, IndexRefineFlat
 
 
 def flat_from_arrays(xb, metric=MetricType.L2, *, device) -> IndexFlat:
@@ -61,7 +69,14 @@ def _ivf_arrays(centroids, listnos, ids, n):
     return centroids, listnos, ids
 
 
-def ivfflat_from_arrays(centroids, xb, listnos, ids, *, device) -> IndexIVFFlat:
+def _quantizer(centroids, metric, device) -> IndexFlat:
+    quantizer = IndexFlat(centroids.shape[1], MetricType(metric), device=device)
+    quantizer.add(centroids)
+    return quantizer
+
+
+def ivfflat_from_arrays(centroids, xb, listnos, ids, *, device,
+                        metric=MetricType.L2) -> IndexIVFFlat:
     """IndexIVFFlat from coarse centroids [nlist, d] and the lists' entries
     in add order: vectors ``xb`` [n, d], list numbers [n] and ids [n]."""
     xb = np.ascontiguousarray(xb, np.float32)
@@ -69,9 +84,8 @@ def ivfflat_from_arrays(centroids, xb, listnos, ids, *, device) -> IndexIVFFlat:
     nlist, d = centroids.shape
     if xb.ndim != 2 or xb.shape[1] != d:
         raise ValueError(f"xb must be [n, {d}], got shape {xb.shape}")
-    quantizer = IndexFlatL2(d, device=device)
-    quantizer.add(centroids)
-    index = IndexIVFFlat(quantizer, d, nlist, device=device)
+    index = IndexIVFFlat(_quantizer(centroids, metric, device), d, nlist,
+                         MetricType(metric), device=device)
     index.add_encoded(xb, listnos, ids)
     return index
 
@@ -86,15 +100,15 @@ def _pq_state(pq_centroids, codes):
     return pq_centroids, codes, ksub.bit_length() - 1
 
 
-def _ivfpq(cls, centroids, pq_centroids, codes, listnos, ids, device, *extra):
+def _ivfpq(cls, centroids, pq_centroids, codes, listnos, ids, device, *extra,
+           metric=MetricType.L2):
     """A trained ``cls`` holding the coarse and PQ state; returns
     (index, codes, listnos, ids) for the caller to add."""
     pq_centroids, codes, nbits = _pq_state(pq_centroids, codes)
     centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
     nlist, d = centroids.shape
-    quantizer = IndexFlatL2(d, device=device)
-    quantizer.add(centroids)
-    index = cls(quantizer, d, nlist, pq_centroids.shape[0], nbits, *extra,
+    index = cls(_quantizer(centroids, metric, device), d, nlist,
+                pq_centroids.shape[0], nbits, *extra, metric=MetricType(metric),
                 device=device)
     index.pq.set_centroids(pq_centroids)
     index.is_trained = True
@@ -102,7 +116,7 @@ def _ivfpq(cls, centroids, pq_centroids, codes, listnos, ids, device, *extra):
 
 
 def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device,
-                      by_residual=True) -> IndexIVFPQ:
+                      by_residual=True, metric=MetricType.L2) -> IndexIVFPQ:
     """IndexIVFPQ (IndexIVFPQFastScan when nbits = 4) from coarse centroids
     [nlist, d], PQ codebooks [M, ksub, dsub] (ksub 16 or 256), unpacked
     codes [n, M] uint8, coarse list numbers [n] and ids [n];
@@ -111,7 +125,7 @@ def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device,
     ksub = np.shape(pq_centroids)[1]
     cls = IndexIVFPQFastScan if ksub == 16 else IndexIVFPQ
     index, codes, listnos, ids = _ivfpq(cls, centroids, pq_centroids, codes,
-                                        listnos, ids, device)
+                                        listnos, ids, device, metric=metric)
     index.by_residual = bool(by_residual)
     index.add_encoded(codes, listnos, ids)
     return index
@@ -142,3 +156,43 @@ def refine_flat_from_arrays(centroids, pq_centroids, codes, listnos, ids,
         centroids, pq_centroids, codes, listnos, ids, device=device
     )
     return IndexRefineFlat(base, refine_rows, store_float16=store_float16)
+
+
+def flat_sq8_from_arrays(trained, codes, metric=MetricType.L2, *, device
+                         ) -> IndexFlatSQ8:
+    """IndexFlatSQ8 from its quantizer's ``trained`` [2, d] float32 (vmin,
+    vdiff) and its codes [n, d] uint8 in add order."""
+    trained = np.ascontiguousarray(trained, np.float32)
+    if trained.ndim != 2 or trained.shape[0] != 2:
+        raise ValueError(f"trained must be [2, d], got shape {trained.shape}")
+    index = IndexFlatSQ8(trained.shape[1], MetricType(metric), device=device)
+    index.sq.trained = trained.copy()
+    index.is_trained = True
+    index.add_codes(codes)
+    return index
+
+
+def refine_sq8_from_arrays(centroids, pq_centroids, codes, listnos, ids,
+                           sq_trained, sq_codes, *, device) -> IndexRefine:
+    """Refine(SQ8) over IVF-PQ: IndexRefine over :func:`ivfpq_from_arrays`
+    with the IndexFlatSQ8 store of :func:`flat_sq8_from_arrays`."""
+    base = ivfpq_from_arrays(
+        centroids, pq_centroids, codes, listnos, ids, device=device
+    )
+    return IndexRefine(
+        base, flat_sq8_from_arrays(sq_trained, sq_codes, base.metric_type,
+                                   device=device)
+    )
+
+
+def idmap_from_arrays(index: Index, id_map, *, two: bool = False
+                      ) -> IndexIDMap:
+    """IndexIDMap (IndexIDMap2 with ``two``) over the port index ``index``,
+    whose row i has the id ``id_map[i]``."""
+    id_map = np.ascontiguousarray(id_map, np.int64).ravel()
+    if len(id_map) != index.ntotal:
+        raise ValueError("id_map and the index differ in length")
+    out = (IndexIDMap2 if two else IndexIDMap)(index)
+    out.id_map = id_map.copy()
+    out.ntotal = index.ntotal
+    return out

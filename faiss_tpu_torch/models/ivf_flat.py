@@ -18,7 +18,12 @@ faiss_tpu's two device paths, at faiss_tpu's gates and thresholds:
     against the vectors. With strict probing the results are exact within
     the nprobe nearest lists, the contract of faiss's IndexIVFFlat;
   - **by probe** for everything else (IndexIVF.search: nq below the
-    threshold, k > 64, ``max_codes``): an exact scan of the probed lists.
+    threshold, k > 64, ``max_codes``, an ID selector, the inner-product
+    metric): an exact scan of the probed lists.
+
+``remove_ids``, ``merge_from`` and ``update_vectors`` (IndexIVF) drop the
+big-batch layout through IndexIVF._drop_caches, so the next big batch
+stages the lists as they now are.
 
 Results come back as float32 D and int64 I.
 
@@ -159,14 +164,17 @@ class IndexIVFFlat(IndexIVF):
 
     def _big_batch_gate(self, x, k, params):
         """(nprobe, use_big): faiss_tpu's one big-batch test (:726), shared
-        by ``search`` and ``search_submit``. faiss_tpu also requires a TPU
-        backend or its interpret mode; here CPU tensors run the kernels'
-        plain versions, so the gate does not look at the device."""
+        by ``search`` and ``search_submit``: L2, no selector. faiss_tpu
+        also requires a TPU backend or its interpret mode; here CPU tensors
+        run the kernels' plain versions, so the gate does not look at the
+        device."""
         nprobe, max_codes = self._search_params(params)
         d_pad = -(-self.d // 128) * 128
         use_big = bool(
             self.big_batch_threshold
             and len(x) >= self.big_batch_threshold
+            and self.metric_type == MetricType.L2
+            and (params is None or params.sel is None)
             and not max_codes
             and k <= 64
             and self.ntotal > 0

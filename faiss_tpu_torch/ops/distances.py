@@ -64,6 +64,13 @@ def _score_tile(x, y, metric, x_norms, y_norms):
     )
 
 
+def pairwise_distances(
+    x: torch.Tensor, y: torch.Tensor, metric: MetricType = MetricType.L2
+) -> torch.Tensor:
+    """The full [nx, ny] distance matrix (faiss_tpu/ops/distances.py:202)."""
+    return _score_tile(x, y, metric, None, None)
+
+
 def knn(
     x: torch.Tensor,  # [nq, d]
     y: torch.Tensor,  # [nb, d]
@@ -71,13 +78,16 @@ def knn(
     metric: MetricType = MetricType.L2,
     y_norms: Optional[torch.Tensor] = None,
     db_chunk: int = DEFAULT_DB_CHUNK,
+    y_mask: Optional[torch.Tensor] = None,  # [nb] bool: rows that may match
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact brute-force k-NN of x against y (faiss_tpu/ops/distances.py:
     220): score tiles of ``db_chunk`` rows, each reduced to its top-k and
     merged. The last tile is clamped to [nb - db_chunk, nb), and the rows the
     previous tile already scored are masked off (``col >= ci * db_chunk``).
-    Returns (D [nq, k] f32, I [nq, k] int64) best-first; when nb < k the
-    tail is filled with -1 and +inf (-inf for inner product)."""
+    ``y_mask`` (an ID selector as a score mask) excludes rows the same way.
+    Returns (D [nq, k] f32, I [nq, k] int64) best-first; where fewer than k
+    rows qualify the tail is filled with -1 and +inf (-inf for inner
+    product)."""
     nq, nb = x.shape[0], y.shape[0]
     largest = is_similarity_metric(metric)
     sentinel = float("-inf") if largest else float("inf")
@@ -93,7 +103,14 @@ def knn(
 
     if nb <= db_chunk:
         scores = _score_tile(x, y, metric, x_norms, y_norms)
+        if y_mask is not None:
+            scores = torch.where(y_mask[None, :], scores, sentinel)
         vals, ids = topk(scores, kk, largest=largest)
+        if y_mask is not None:
+            # an entry that picked a masked row (too few rows kept) is none
+            ok = y_mask[ids]
+            ids = torch.where(ok, ids, -1)
+            vals = torch.where(ok, vals, sentinel)
     else:
         vals = torch.full((nq, kk), sentinel, device=x.device)
         ids = torch.full((nq, kk), -1, dtype=torch.int64, device=x.device)
@@ -107,6 +124,8 @@ def knn(
             )
             col = cols + start
             valid = col >= ci * db_chunk  # tail-overlap rows already scored
+            if y_mask is not None:
+                valid = valid & y_mask[tile]
             scores = torch.where(valid[None, :], scores, sentinel)
             cv, cp = topk(scores, kk, largest=largest)
             cids = torch.where(valid[cp], col[cp], -1)
@@ -131,16 +150,23 @@ def assign_flat(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 assignment of a large batch against a flat centroid set, chunked
     over rows (faiss_tpu/ops/distances.py:323). Returns (dist [n] f32,
-    assign [n] int64)."""
-    if metric != MetricType.L2:
-        raise NotImplementedError("assign_flat: only METRIC_L2 is ported")
+    assign [n] int64): the nearest centroid by L2, or the largest inner
+    product for METRIC_INNER_PRODUCT."""
+    if metric not in (MetricType.L2, MetricType.INNER_PRODUCT):
+        raise NotImplementedError(
+            f"assign_flat: metric {metric!r} is ROADMAP queue 1 item 10"
+        )
     c_norms = l2_norms(centroids)
     dist, assign = [], []
     for s in range(0, len(x), chunk):
         xc = x[s : s + chunk].float()
-        key = c_norms[None, :] - 2.0 * (xc @ centroids.T)
-        best, a = key.min(dim=1)
-        dist.append((best + xc.square().sum(-1)).clamp_min(0.0))
+        ip = xc @ centroids.T
+        if metric == MetricType.INNER_PRODUCT:
+            best, a = ip.max(dim=1)
+            dist.append(best)
+        else:
+            best, a = (c_norms[None, :] - 2.0 * ip).min(dim=1)
+            dist.append((best + xc.square().sum(-1)).clamp_min(0.0))
         assign.append(a)
     return torch.cat(dist), torch.cat(assign)
 
@@ -152,17 +178,24 @@ def rerank_exact(
     k: int,
     metric: MetricType = MetricType.L2,
     xb_n2: Optional[torch.Tensor] = None,  # [nb] precomputed ||xb||^2
+    sq_scale: Optional[torch.Tensor] = None,  # [d]: xb holds SQ8 codes
+    sq_off: Optional[torch.Tensor] = None,  # [d]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact re-rank of per-query candidate lists (the IndexRefineFlat
     inner loop as one gather + batched contraction;
     faiss_tpu/ops/distances.py:372). The store is upcast after the gather
     and the products are exact float32 (elementwise multiply and sum).
+    With ``sq_scale``/``sq_off`` the store holds uint8 SQ8 codes
+    (Refine(SQ8)): the gathered rows dequantize per dimension as
+    ``row * sq_scale + sq_off`` after the gather, as faiss_tpu does.
     L2 ascending, inner product descending. Returns (D [nq, min(k, kc)]
     f32, I int64), -1 where D is the sentinel (+inf, or -inf for inner
     product)."""
     largest = metric == MetricType.INNER_PRODUCT
     safe = cand.clamp_min(0).long()
     cv = xb[safe].float()  # [nq, kc, d]
+    if sq_scale is not None:
+        cv = cv * sq_scale + sq_off
     ip = (xq[:, None, :] * cv).sum(-1)
     if metric == MetricType.L2:
         cn2 = xb_n2[safe] if xb_n2 is not None else cv.square().sum(-1)

@@ -40,9 +40,12 @@ def kmeans_fused_loop(
     *,
     niter: int,
     chunk: int,
+    spherical: bool = False,
 ):
     """All Lloyd iterations of one k-means run (the float32, unweighted path
-    of faiss_tpu's kmeans_fused_loop, :149).
+    of faiss_tpu's kmeans_fused_loop, :149). ``spherical`` normalizes the
+    centroids after each update and split (faiss_tpu :290); the assignment
+    stays by L2.
 
     Each iteration's objective is the sum of squared distances of the points
     to their nearest centroid BEFORE the update (ClusteringIterationStats.obj,
@@ -71,6 +74,8 @@ def kmeans_fused_loop(
             (counts > 0)[:, None], sums / counts.clamp_min(1e-30)[:, None], c
         )
         new_c, nsplit = _split_empty_clusters(new_c, counts, generator)
+        if spherical:
+            new_c = new_c / new_c.norm(dim=1, keepdim=True).clamp_min(1e-30)
         objs.append(obj)
         sumsq.append(counts.double().square().sum())
         tots.append(counts.double().sum())

@@ -377,16 +377,27 @@ def _ref_flat(ref, xb):
 
 @pytest.mark.parametrize("what", ["polysemous_ht", "polysemous_training", "selector"])
 def test_still_unported_options_raise(built, what):
-    _, _, xb, xq = built
-    port = port_of(built[0]["pq8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+    """The polysemous filter still raises, naming ROADMAP queue 1 item 10.
+    ID selectors now run: search_preassigned with a selector equals
+    faiss_tpu's, and returns only selected ids."""
+    refs, _, xb, xq = built
+    port = port_of(refs["pq8"])
+    if what == "selector":
+        assign = np.random.RandomState(3).randint(NLIST, size=(10, 2))
+        cdis = np.random.RandomState(4).rand(10, 2).astype(np.float32)
+        Dj, Ij = refs["pq8"].search_preassigned(
+            xq[:10], 5, assign, cdis,
+            params=ftj.SearchParametersIVF(sel=ftj.IDSelectorRange(0, NB // 2)))
+        Dt, It = port.search_preassigned(
+            xq[:10], 5, assign, cdis,
+            params=ftt.SearchParametersIVF(sel=ftt.IDSelectorRange(0, NB // 2)))
+        assert ((It >= -1) & (It < NB // 2)).all()
+        exact_agree(Dj, Ij, Dt, It, xq[:10], xb)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         if what == "polysemous_ht":
             port.polysemous_ht = 8
             port.search(xq[:10], 5)
-        elif what == "polysemous_training":
+        else:
             port.do_polysemous_training = True
             port.train(xb)
-        else:
-            port.search_preassigned(
-                xq[:10], 5, np.zeros((10, 1), np.int64), np.zeros((10, 1)),
-                params=ftt.SearchParametersIVF(sel=object()))

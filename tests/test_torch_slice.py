@@ -114,17 +114,49 @@ def test_slice_matches_reference(built, nprobe, api):
         ).mean()
 
 
-def ivfflat_unported(case, arrays, xq):
-    """Call IVF-Flat's unported option ``case`` on a port index built from
-    the slice's lists and vectors."""
+def parity(Dj, Ij, Dt, It, xq, rows, largest=False):
+    """Port (Dt, It) against faiss_tpu (Dj, Ij): distances within
+    1e-5 * (|q|^2 + max |y|^2), ids up to ties at it."""
+    tol = 1e-5 * ((xq.astype(np.float64) ** 2).sum(1)
+                  + (rows.astype(np.float64) ** 2).sum(1).max())
+    assert Dt.dtype == np.float32 and It.dtype == np.int64
+    np.testing.assert_array_equal(Ij == -1, It == -1)
+    fin = np.isfinite(Dj)
+    assert (np.abs(np.where(fin, Dt - Dj, 0)) <= tol[:, None]).all()
+    s = -1.0 if largest else 1.0
+    assert ids_agree_tie_aware(np.where(fin, s * Dj, 1e30), Ij,
+                               np.where(fin, s * Dt, 1e30), It, tol).all()
+
+
+def ivfflat_case(case, ref, arrays, xq):
+    """IVF-Flat over the slice's lists and vectors, in the port and in
+    faiss_tpu, through ``case``: a selector in search, remove_ids (then
+    search by probe), the inner-product metric. Returns both results."""
     cent, _, _, listnos, ids, rows = arrays
-    flat = ivfflat_from_arrays(cent, rows, listnos, ids, device="cpu")
+    metric = "ip" if case == "ivfflat_ip_metric" else "l2"
+    port = ivfflat_from_arrays(
+        cent, rows, listnos, ids, device="cpu",
+        metric=ftt.METRIC_INNER_PRODUCT if metric == "ip" else ftt.METRIC_L2)
+    quantizer = ref.base_index.quantizer
+    if metric == "ip":
+        quantizer = ftj.IndexFlatIP(D)
+        quantizer.add(cent)
+    jflat = ftj.IndexIVFFlat(
+        quantizer, D, NLIST,
+        ftj.METRIC_INNER_PRODUCT if metric == "ip" else ftj.METRIC_L2)
+    keep = np.ones(len(ids), bool)
+    xq = xq[:100]  # by probe on both sides
+    pj = pt = None
     if case == "ivfflat_selector":
-        flat.search(xq, K, params=ftt.SearchParametersIVF(sel=object()))
+        pj = ftj.SearchParametersIVF(sel=ftj.IDSelectorRange(0, NB // 2))
+        pt = ftt.SearchParametersIVF(sel=ftt.IDSelectorRange(0, NB // 2))
     elif case == "ivfflat_remove_ids":
-        flat.remove_ids(object())
-    else:
-        ftt.IndexIVFFlat(None, D, NLIST, ftt.METRIC_INNER_PRODUCT, device="cpu")
+        gone = np.arange(0, NB, 3)
+        assert port.remove_ids(ftt.IDSelectorArray(gone)) == len(gone)
+        keep = ~np.isin(ids, gone)
+    jflat.add_core(rows[keep], ids[keep], listnos[keep])
+    jflat.nprobe = port.nprobe = 4
+    return jflat.search(xq, K, params=pj), port.search(xq, K, params=pt), xq, metric
 
 
 @pytest.mark.parametrize(
@@ -133,40 +165,58 @@ def ivfflat_unported(case, arrays, xq):
              "ivfflat_ip_metric"]
 )
 def test_unported_branches_raise(built, case):
-    """What is still unported on each branch raises, naming its ROADMAP
-    item. Small batches, k * k_factor > 128, 8-bit PQ and IVF-PQ's
-    search_preassigned themselves now run (tests/test_torch_ivfpq_probe.py);
-    on those branches the polysemous filter and ID selectors still raise."""
-    _, arrays, xq, _ = built
+    """What was unported on each branch. The polysemous filter still raises
+    on the per-probe scan of small batches and in IVF-PQ training, naming
+    its ROADMAP item. ID selectors (on the refined search with
+    k * k_factor > 128, which searches the base by probe and re-ranks, and
+    on IVF-PQ's search_preassigned), IVF-Flat's remove_ids and its
+    inner-product metric now run, and equal faiss_tpu's on the same
+    state."""
+    ref, arrays, xq, _ = built
     index = make_port(arrays)
     index.base_index.nprobe = 1
-    sel = ftt.SearchParametersIVF(sel=object())
-    if case == "small_batch":  # the per-probe scan's polysemous filter
-        xq = xq[: index.base_index.big_batch_threshold - 1]
-        index.base_index.polysemous_ht = 4
-    elif case == "too_many_candidates":  # the base's own search + re-rank
-        index.k_factor = 13
-    elif case == "pq8_unrefined":  # faiss_tpu's unrefined XLA ADC path
-        cent, pq_cent, codes, listnos, ids, _ = arrays
-        rs = np.random.RandomState(0)
-        index = ivfpq_from_arrays(
-            cent, rs.rand(M, 256, D // M), rs.randint(256, size=codes.shape),
-            listnos, ids, device="cpu",
-        )
-        index.do_polysemous_training = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case.startswith("ivfflat"):
-            ivfflat_unported(case, arrays, xq)
-        elif case == "pq_preassigned":  # IVF-PQ's per-probe ADC scan
-            index.base_index.search_preassigned(
-                xq, K, np.zeros((len(xq), 1), np.int64),
-                np.zeros((len(xq), 1), np.float32), params=sel)
-        elif case == "pq8_unrefined":
-            index.train(xq)
-        elif case == "too_many_candidates":
-            index.search(xq, K, params=sel)
-        else:
-            index.search(xq, K)
+    if case in ("small_batch", "pq8_unrefined"):
+        if case == "small_batch":  # the per-probe scan's polysemous filter
+            xq = xq[: index.base_index.big_batch_threshold - 1]
+            index.base_index.polysemous_ht = 4
+        else:  # faiss_tpu's unrefined XLA ADC path
+            cent, pq_cent, codes, listnos, ids, _ = arrays
+            rs = np.random.RandomState(0)
+            index = ivfpq_from_arrays(
+                cent, rs.rand(M, 256, D // M), rs.randint(256, size=codes.shape),
+                listnos, ids, device="cpu",
+            )
+            index.do_polysemous_training = True
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            if case == "pq8_unrefined":
+                index.train(xq)
+            else:
+                index.search(xq, K)
+        return
+    ref.base_index.nprobe = 1  # other tests of the module set it
+    sj = ftj.SearchParametersIVF(sel=ftj.IDSelectorRange(NB // 4, NB))
+    st = ftt.SearchParametersIVF(sel=ftt.IDSelectorRange(NB // 4, NB))
+    rows = arrays[5]
+    if case == "too_many_candidates":  # the base's own search + re-rank
+        index.k_factor = ref.k_factor = 13
+        try:
+            Dj, Ij = ref.search(xq, K, params=sj)
+        finally:
+            ref.k_factor = KF
+        Dt, It = index.search(xq, K, params=st)
+        assert ((It >= NB // 4) | (It == -1)).all()
+        parity(Dj, Ij, Dt, It, xq, rows)
+    elif case == "pq_preassigned":  # IVF-PQ's per-probe ADC scan
+        assign = np.random.RandomState(1).randint(NLIST, size=(len(xq), 3))
+        cdis = np.random.RandomState(2).rand(len(xq), 3).astype(np.float32)
+        Dj, Ij = ref.base_index.search_preassigned(xq, K, assign, cdis, params=sj)
+        Dt, It = index.base_index.search_preassigned(xq, K, assign, cdis,
+                                                     params=st)
+        assert ((It >= NB // 4) | (It == -1)).all()
+        parity(Dj, Ij, Dt, It, xq, rows)
+    else:
+        (Dj, Ij), (Dt, It), xq, metric = ivfflat_case(case, ref, arrays, xq)
+        parity(Dj, Ij, Dt, It, xq, rows, largest=metric == "ip")
 
 
 def test_port_alone_adaptive_worklist_and_streaming():
