@@ -7,7 +7,9 @@ decoded store (K7), its per-probe and XLA ADC scans, exact flat search (K2
 and K3), IVF4096,Flat search (K1 and K2 over hi/lo planes) and
 IndexIVFPQR IVF4096,PQ8+16: all seven kernels; then Refine(SQ8) under
 IDMap2 (K1), ID selectors, IVF-Flat's mutations (K1, K2), range search and
-IVF-Flat by inner product (phases A-E).
+IVF-Flat by inner product (phases A-E); index files (phase G); and last
+OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory over the Deep10M-like
+10M x 96 set (K1, phase F).
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -229,6 +231,37 @@ print stands beside the card's name and power limit:
      k-means on the 200k training vectors (unit-norm centroids), the 1M
      added, 1024 queries at nprobe 16 by probe: 64 rows equal float64 over
      the probed lists, largest first.
+ G. (right after B's IVF-PQ part) write_index of phase 4's index to a
+     temporary directory and read_index onto the card: the class tree, the
+     store ("f16"), k_factor, nprobe and bbs kept, the coarse centroids, PQ
+     codebooks, codes, list numbers, ids and refine store bitwise equal;
+     its search (K1 must launch) equals phase 5's on at least 99.9% of the
+     rows, ids equal up to exact ties there, the other rows (candidates
+     tied at K1's cut) counted; then faiss_tpu's committed
+     tests/io_compat files: Flat, IVF8_Flat and IVF8_PQ4 read onto the card
+     with ntotal 1200, IVF8_PQ4 at nprobe 8 reproducing golden_ivfpq.npz
+     (D within rtol 1e-5, atol 1e-6, ids tie-aware within it), PQ4x4fs and
+     SQ8 raising NotImplementedError naming ROADMAP queue 1 item 10;
+ F. (last) the Deep10M-like set of benchs/bench_deep10m.py regenerated into
+     RAM (its generator copied: seeds 7, 1, 2, 3; 10M base, 500k training
+     and 8192 query rows of 96 dimensions), gt[:, 0] of .deep10m_gt.npz the
+     float32 brute-force minimum on the card for 32 queries;
+     index_factory(96, "OPQ32,IVF8192,PQ32x4fs,RFlat") on the card (its
+     class tree printed), 20 k-means iterations, train, add and stage
+     (seconds, peak device memory); at nprobe 8 soft and k_factor 12
+     (benchs/bench_deep10m.py:246-248) the 8192 queries at k=10 after the
+     first search sized the worklist and any sub-batch that dropped probed
+     chunks widened it: every sub-batch on K1's dynamic path (no other
+     kernel), ndropped 0, recall@10 >= 0.95 (printed beside faiss_tpu's
+     0.9784 at this point), 64 rows' distances equal to float64
+     |Aq - Ax|^2 against the float32 refine store within
+     1e-5 * (|q|^2 + |y|^2) and to the unrotated |q - x|^2 within 1e-4
+     relative, submit/collect equal to search as in G, host-clock median
+     of 5 with QPS and the rotation's share; K1 against its plain version
+     on the first real 4096-query sub-batch (keys within lane_tol, ids
+     tie-aware), timed in turns, its entry ``ivf_recon_dyn[opq,d96]`` in
+     the kernels' line bounded at d = 96, and the share of its products on
+     the 32 zero-padded dimensions printed.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -412,7 +445,7 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def ops_s(store, keys, planes=1, int8=False):
+def ops_s(store, keys, planes=1, int8=False, d=None):
     """Seconds of a scan's operations over ``keys`` (query, slot) pairs, as
     the tensor-core product that computes the same keys. A recon store
     (bf16 [d_pad, S], ``planes`` of it: 2 with hi/lo): the float32 query as
@@ -423,10 +456,11 @@ def ops_s(store, keys, planes=1, int8=False):
     ``int8``) against the M * 16 one-hot rows. The coarse bias is one
     lookup and one add a key in K4-K6 (the list ids are at hand), not the
     TPU's bf16 hi + lo contraction over 128 local-list rows, so it is not
-    counted."""
+    counted. ``d`` counts the products over d dimensions in place of the
+    store's d_pad rows."""
     if store.dtype != torch.uint8:
         products = 3 if planes == 2 else 2
-        return keys * 2 * store.shape[0] * products / PEAK_BF16
+        return keys * 2 * (d or store.shape[0]) * products / PEAK_BF16
     return keys * 2 * store.shape[0] * 16 / (PEAK_INT8 if int8 else PEAK_BF16)
 
 
@@ -576,7 +610,7 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     out, k2_ivf = strict_and_adc_phases(fused_knn, base, index, br, xb, xq,
                                         gt, dev, msteps)
     state = {"cent": base.quantizer.vectors(), "pq": base.pq.centroids,
-             "recall": recall}
+             "recall": recall, "index": index, "D": Dm, "I": Im}
     return [k1] + out, k2_ivf, state
 
 
@@ -633,7 +667,7 @@ def refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
     64-bit ids; the main-path search (K1, fused re-rank on the SQ8 codes),
     then a selector through the eager path (by probe, no kernel)."""
     from faiss_tpu_torch.convert import ivfpq_from_arrays
-    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
 
     base = ivfpq_from_arrays(state["cent"], state["pq"],
                              np.zeros((0, M), np.uint8), [], [], device=dev)
@@ -680,11 +714,9 @@ def refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
     Di, Ii = refine.search(xq, K)
     Dm, Im = index.search(xq, K)
     base.dyn_msteps = 0
-    same = (Dm == Di).all(1)
-    check(same.mean() >= 0.999 and ids_agree_tie_aware(
-        Di[same], ext[Ii[same]], Dm[same], Im[same], 0.0).all(),
-        f"A. the ids are not id_map of the inner index's search "
-        f"({int((~same).sum())} rows re-ranked other candidates)")
+    other = rows_equal_up_to_k1_ties(
+        "A. the ids against id_map of the inner index's search",
+        Di, ext[Ii], Dm, Im)
     # every distance of both: the exact squared L2 to the SQ8 reconstruction
     # of its id
     errs = []
@@ -700,7 +732,7 @@ def refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
           f"({fused_knn.ivf_recon_fused_dyn.splits} worklist splits); first call "
           f"{first:.3f} s; distances exact to the SQ8 reconstruction (max err "
           f"{err:.3e}); ids = id_map of the inner search on the "
-          f"{int(same.sum())} of {NQ} rows whose distances came back equal "
+          f"{NQ - other} of {NQ} rows whose distances came back equal "
           f"(the rest re-ranked other candidates tied at K1's cut); recall@10 "
           f"{recall:.4f} (SQ8) beside phase 5's {state['recall']:.4f} (fp16); "
           f"median {med * 1e3:.1f} ms over 5 "
@@ -843,21 +875,23 @@ def ivfflat_ip_phase(ft, fused_knn, xb, xt, xq, dev):
           f"per 1024 q over 5 -> {len(xs) / med:.0f} QPS ({CARD})", flush=True)
 
 
-def dyn_cost(br, cmap, qt, store, per_query, lid, planes=1):
+def dyn_cost(br, cmap, qt, store, per_query, lid, planes=1, d=None):
     """(operations' seconds, bytes) of a worklist scan (K1, K5) in this run:
     every query scores the vector-holding slots of its tile's non-PAD
     worklist chunks (ops_s); the store columns of the worklists' union are
     read once (``planes`` of them: 2 for hi/lo) with their n2 (and lid),
-    the per-query inputs and the worklists once; three [nq, 128] outputs."""
+    the per-query inputs and the worklists once; three [nq, 128] outputs.
+    ``d`` reckons the products and the store's bytes at d dimensions in
+    place of its d_pad rows (the queries as given)."""
     nch = br["nchunks"]
     ct = store.shape[1] // (nch + 1)
     held = torch.isfinite(br["n2s"][0]).reshape(nch + 1, ct).sum(1)
     real = cmap != nch
     keys = int(held[cmap.long()][real].sum()) * qt
     union = int(torch.unique(cmap[real]).numel()) * ct
-    per_col = planes * store.shape[0] * store.element_size() + 4 + 4 * lid
+    per_col = planes * (d or store.shape[0]) * store.element_size() + 4 + 4 * lid
     nq = cmap.shape[0] * qt
-    return (ops_s(store, keys, planes),
+    return (ops_s(store, keys, planes, d=d),
             union * per_col + nbytes(cmap, *per_query) + 3 * nq * 512)
 
 
@@ -2537,6 +2571,345 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev, radius):
     return entries, launches["k2"]
 
 
+# Deep10M-like set of benchs/bench_deep10m.py:33-34 (its two-level mixture)
+DEEP_D, DEEP_NB, DEEP_NT, DEEP_NQ = 96, 10_000_000, 500_000, 8192
+DEEP_NCOARSE, DEEP_NSUB = 1024, 64
+# the Deep10M row of benchs/bench_deep10m.py:242-248 and its operating point
+DEEP_KEY = "OPQ32,IVF8192,PQ32x4fs,RFlat"
+DEEP_NPROBE, DEEP_K_FACTOR, DEEP_RECALL_REF = 8, 12, 0.9784
+IO_COMPAT = ROOT / "tests" / "io_compat"
+
+
+def gen_deep(n, seed, coarse, subdirs, scales):
+    """Rows of the two-level mixture, L2-normalized: the generator of
+    benchs/bench_deep10m.py:42-60, copied, writing into RAM."""
+    r = np.random.RandomState(seed)
+    out = np.empty((n, DEEP_D), np.float32)
+    bs = 1_000_000
+    for s in range(0, n, bs):
+        m = min(bs, n - s)
+        ci = r.randint(DEEP_NCOARSE, size=m)
+        si = r.randint(DEEP_NSUB, size=m)
+        x = (
+            coarse[ci]
+            + 0.25 * subdirs[ci, si]
+            + r.randn(m, DEEP_D).astype(np.float32) * scales[None, :] * 0.05
+        )
+        x /= np.linalg.norm(x, axis=1, keepdims=True) + 1e-9
+        out[s : s + m] = x
+    return out
+
+
+def deep_data(nb=DEEP_NB, nt=DEEP_NT, nq=DEEP_NQ):
+    """(xb, xt, xq) of benchs/bench_deep10m.py:67-88: the mixture's modes
+    from seed 7, then the base, training and query rows from seeds 1, 2
+    and 3."""
+    rs = np.random.RandomState(7)
+    coarse = rs.randn(DEEP_NCOARSE, DEEP_D).astype(np.float32)
+    coarse /= np.linalg.norm(coarse, axis=1, keepdims=True)
+    subdirs = rs.randn(DEEP_NCOARSE, DEEP_NSUB, DEEP_D).astype(np.float32) * 0.3
+    scales = (1.0 / np.sqrt(np.arange(DEEP_D) + 1.0)).astype(np.float32)
+    return tuple(gen_deep(n, seed, coarse, subdirs, scales)
+                 for n, seed in ((nb, 1), (nt, 2), (nq, 3)))
+
+
+def deep_gt():
+    with np.load(ROOT / ".deep10m_gt.npz") as z:
+        return z["gt"]
+
+
+def class_tree(index):
+    """The index's classes from the outside in, with their shapes."""
+    parts = []
+    while index is not None:
+        name = type(index).__name__
+        if hasattr(index, "chain"):
+            name += "[" + ", ".join(
+                f"{type(vt).__name__}({vt.d_in}->{vt.d_out}"
+                + (f", M={vt.M})" if hasattr(vt, "M") else ")")
+                for vt in index.chain) + "]"
+            nxt = index.index
+        elif hasattr(index, "base_index"):
+            name += (f"(store={getattr(index, 'store', '?')}, "
+                     f"k_factor={index.k_factor})")
+            nxt = index.base_index
+        else:
+            name += f"(d={index.d}"
+            if hasattr(index, "nlist"):
+                name += (f", nlist={index.nlist}, quantizer="
+                         f"{type(index.quantizer).__name__}")
+            if hasattr(index, "pq"):
+                name += f", M={index.pq.M}, nbits={index.pq.nbits}"
+            if hasattr(index, "bbs"):
+                name += f", bbs={index.bbs}"
+            name += ")"
+            nxt = None
+        parts.append(name)
+        index = nxt
+    return " > ".join(parts)
+
+
+def rows_equal_up_to_k1_ties(what, D0, I0, D1, I1):
+    """Two searches of one index: K1's order among tied keys is not fixed
+    across launches, so where its keys tie at the candidate cut the two may
+    re-rank other candidates. Nearly every row must come back with equal
+    distances, and those rows with equal ids up to exact ties. Returns the
+    number of other rows."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    same = (D0 == D1).all(1)
+    check(same.mean() >= 0.999 and ids_agree_tie_aware(
+        D0[same], I0[same], D1[same], I1[same], 0.0).all(),
+        f"{what}: {int((~same).sum())} rows differ")
+    return int((~same).sum())
+
+
+def io_phases(ft, fused_knn, state, xq, dev):
+    """Phase G: index files on the card. write_index of phase 4's main-path
+    index, read_index onto the card: arrays bitwise equal, the search equal
+    to phase 5's up to rows tied at K1's cut; then the committed
+    tests/io_compat files of faiss_tpu."""
+    import tempfile
+
+    index = state["index"]
+    base = index.base_index
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = str(Path(tmp) / "ivf4096_pq32x4fs_rflat.npz")
+        t0 = time.time()
+        ft.write_index(index, fname)
+        t_write = time.time() - t0
+        size = Path(fname).stat().st_size
+        t0 = time.time()
+        back = ft.read_index(fname, device=dev)
+        t_read = time.time() - t0
+    rb = back.base_index
+    check(type(back) is type(index) and type(rb) is type(base)
+          and back.store == index.store == "f16" and back.k_factor == index.k_factor
+          and rb.nprobe == base.nprobe and rb.bbs == base.bbs,
+          f"G. read_index gave {class_tree(back)}")
+    pairs = (
+        ("coarse centroids", base.quantizer.vectors(), rb.quantizer.vectors()),
+        ("PQ codebooks", base.pq.centroids, rb.pq.centroids),
+        ("codes", base._codes_host, rb._codes_host),
+        ("list numbers", base._listnos_host, rb._listnos_host),
+        ("ids", base._ids_host, rb._ids_host),
+        ("refine store", index.refine_index.vectors(), back.refine_index.vectors()),
+    )
+    for what, a, b in pairs:
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and np.array_equal(a.view(np.uint8), np.asarray(b).view(np.uint8)),
+              f"G. {what} differ after the round trip")
+    # phase 5's settings (the later phases changed the written index's)
+    rb.nprobe, rb.strict_probe, rb.pipeline_batch = NPROBE, False, BATCH
+    back.k_factor = K_FACTOR
+    reset_counts(fused_knn)
+    Dr, Ir = back.search(xq, K)
+    torch.cuda.synchronize()
+    n = fused_knn.ivf_recon_fused_dyn.launches
+    check(n > 0, "G. the read index's search launched K1 no time")
+    other = rows_equal_up_to_k1_ties("G. the read index's search against phase 5's",
+                                     state["D"], state["I"], Dr, Ir)
+    print(f"G. write_index of phase 4's index ({class_tree(index)}): "
+          f"{size / 2**20:.1f} MiB in {t_write:.2f} s, read_index onto the card "
+          f"{t_read:.2f} s; {len(pairs)} arrays bitwise equal; the search (K1 "
+          f"x{n}) equals phase 5's on {NQ - other} of {NQ} rows, the other "
+          f"{other} re-ranked candidates tied at K1's cut ({CARD})", flush=True)
+    del back, rb
+
+    # the committed files of faiss_tpu 0.1.0
+    for name in ("Flat", "IVF8_Flat", "IVF8_PQ4"):
+        got = ft.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device=dev)
+        check(got.ntotal == 1200 and got.device == dev,
+              f"G. v0_1_0_{name}: ntotal {got.ntotal} on {got.device}")
+    with np.load(IO_COMPAT / "golden_ivfpq.npz") as z:
+        Dg, Ig, xg = z["D"], z["I"], z["xq"]
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    got.nprobe = 8
+    Dp, Ip = got.search(xg, Dg.shape[1])
+    # the tolerance of tests/test_io_compat.py: rtol 1e-5, atol 1e-6 (the
+    # float32 ADC sums of near-zero distances), ties within it either side
+    check(ids_agree_tie_aware(Dg, Ig, Dp, Ip, 1e-5 * np.abs(Dg[:, -1]) + 1e-6).all()
+          and np.allclose(Dp, Dg, rtol=1e-5, atol=1e-6),
+          "G. v0_1_0_IVF8_PQ4 does not reproduce golden_ivfpq.npz")
+    for name in ("PQ4x4fs", "SQ8"):
+        try:
+            ft.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device=dev)
+        except NotImplementedError as e:
+            check("item 10" in str(e), f"G. v0_1_0_{name} raised {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: G. v0_1_0_{name} did not raise")
+    print(f"G. tests/io_compat: Flat, IVF8_Flat, IVF8_PQ4 read onto the card "
+          f"(ntotal 1200 each); IVF8_PQ4 at nprobe 8 reproduces "
+          f"golden_ivfpq.npz (max |D - golden| "
+          f"{float(np.abs(Dp - Dg).max()):.3e}); PQ4x4fs and SQ8 raise "
+          f"NotImplementedError naming ROADMAP queue 1 item 10", flush=True)
+
+
+def deep10m_phases(ft, fused_knn, dev):
+    """Phase F: OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory on the
+    card over the Deep10M-like 10M x 96 set, searched at the reference's
+    Deep10M point (K1 on every sub-batch), K1 held against its plain
+    version on the first real sub-batch. Returns K1's entry of the kernels'
+    JSON line at this path's shape."""
+    from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    t0 = time.time()
+    xb, xt, xq = deep_data()
+    gt = deep_gt()
+    t_data = time.time() - t0
+    # the ground truth's nearest neighbour is the float32 brute-force
+    # minimum on the card
+    xb_d = torch.from_numpy(xb).to(dev)
+    nq_gt, exact = 32, 0
+    for q in range(nq_gt):
+        d = (xb_d - torch.from_numpy(xq[q]).to(dev)).square().sum(1)
+        dmin = float(d.min())
+        check(float(d[int(gt[q, 0])]) <= dmin + 1e-6 * (float((xq[q] ** 2).sum()) + 1.0),
+              f"F. query {q}: gt[:, 0] is not the float32 brute-force minimum")
+        exact += int(torch.argmin(d)) == int(gt[q, 0])
+    del xb_d, d
+    torch.cuda.empty_cache()
+    print(f"F. Deep10M-like data {xb.shape[0]} x {DEEP_D} (+{len(xt)} train, "
+          f"{len(xq)} queries) in RAM {t_data:.1f} s; gt[:, 0] of "
+          f".deep10m_gt.npz is the float32 brute-force minimum on {nq_gt} of "
+          f"{nq_gt} queries ({exact} the argmin itself)", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    index = ft.index_factory(DEEP_D, DEEP_KEY)
+    refine = index.index
+    base = refine.base_index
+    check(index.device == dev and base.device == dev, "F. not built on the card")
+    base.cp.niter = NITER
+    print(f"F. index_factory({DEEP_D}, {DEEP_KEY!r}): {class_tree(index)}",
+          flush=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index.train(xt)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    t0 = time.time()
+    br = base._build_brute()
+    refine.refine_index._consolidate()
+    torch.cuda.synchronize()
+    t_stage = time.time() - t0
+    check(br["yT"] is not None, "F. no decoded store: K1 cannot run")
+    print(f"F. train {t_train:.1f} s (OPQ, {NITER} k-means iterations, PQ), add "
+          f"{t_add:.1f} s, stage {t_stage:.1f} s; nchunks {br['nchunks']}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({CARD})", flush=True)
+
+    # the reference's Deep10M point, set on the inner indexes (the wrapper
+    # forwards reads only)
+    base.nprobe, base.strict_probe = DEEP_NPROBE, False
+    refine.k_factor = DEEP_K_FACTOR
+    t0 = time.time()
+    index.search(xq, K)  # sizes the worklist from its first sub-batch
+    t_first = time.time() - t0
+    sized = base._dyn_bucket[DEEP_NPROBE]
+
+    def run():
+        handle = index.search_submit(xq, K)
+        subs = [(int(out[2]), dyn) for _, _, out, dyn in handle[1]["pending"]]
+        return index.search_collect(handle), subs
+
+    # a sub-batch that drops probed chunks widens the bucket by 64 at its
+    # collect; after the widening no sub-batch may drop one
+    widen = 0
+    while True:
+        reset_counts(fused_knn)
+        (Dm, Im), subs = run()
+        torch.cuda.synchronize()
+        if all(nd == 0 for nd, _ in subs) or widen == 3:
+            break
+        widen += 1
+    launches = fused_knn.ivf_recon_fused_dyn.launches
+    msteps = base._dyn_bucket[DEEP_NPROBE]
+    check(all(nd == 0 for nd, _ in subs),
+          f"F. sub-batches dropped probed chunks after {widen} widenings: {subs}")
+    check(all(dyn for _, dyn in subs) and launches == len(subs)
+          and total_launches(fused_knn) == launches,
+          f"F. not every sub-batch took K1's dynamic path: {subs}, K1 x{launches}, "
+          f"all kernels x{total_launches(fused_knn)}")
+    check(msteps <= int(base.soft_engage_frac * br["nchunks"]),
+          f"F. msteps {msteps} past the soft engage fraction")
+    check(Dm.shape == Im.shape == (len(xq), K) and np.isfinite(Dm).all()
+          and (Im >= 0).all() and (Im < len(xb)).all(),
+          "F. non-finite distances or invalid ids")
+    recall = recall_at_k(Im, gt, K)
+    print(f"F. search of {len(xq)} queries, nprobe={DEEP_NPROBE} soft, "
+          f"k_factor={DEEP_K_FACTOR}: first call {t_first:.2f} s (sized msteps "
+          f"{sized}); {widen} widening searches; K1 x{launches} on "
+          f"{len(subs)} sub-batches, all on the dynamic path, no other kernel; "
+          f"msteps {msteps} of {br['nchunks']} chunks "
+          f"({msteps / br['nchunks']:.4f}), {fused_knn.ivf_recon_fused_dyn.splits} "
+          f"worklist splits; ndropped {[nd for nd, _ in subs]}; recall@10 "
+          f"{recall:.4f} (faiss_tpu's at this point: {DEEP_RECALL_REF}, "
+          "benchs/results/deep10m.json)", flush=True)
+    check(recall >= RECALL_MIN, f"F. recall@10 {recall:.4f} < {RECALL_MIN}")
+
+    # distances: exact to the float32 refine store, in float64 through the
+    # float64 rotation, and to the unrotated vectors (OPQ is orthonormal)
+    A = index.chain[0].A.astype(np.float64)
+    q64 = xq[:EXACT_ROWS].astype(np.float64)
+    y = refine.refine_index.reconstruct_batch(Im[:EXACT_ROWS].ravel())
+    y = y.reshape(EXACT_ROWS, K, DEEP_D).astype(np.float64)
+    d_rot = (((q64 @ A.T)[:, None, :] - y) ** 2).sum(-1)
+    tol = 1e-5 * ((q64 ** 2).sum(1)[:, None] + (y ** 2).sum(-1))
+    err_rot = np.abs(Dm[:EXACT_ROWS] - d_rot)
+    check((err_rot <= tol).all(), f"F. distances differ from float64 |Aq - Ax|^2 "
+                                  f"by {err_rot.max():.3e}")
+    d_raw = ((q64[:, None, :] - xb[Im[:EXACT_ROWS]].astype(np.float64)) ** 2).sum(-1)
+    rel = np.abs(Dm[:EXACT_ROWS] - d_raw) / np.maximum(d_raw, 1e-30)
+    check((rel <= 1e-4).all(), f"F. distances differ from the unrotated "
+                               f"|q - x|^2 by {rel.max():.3e} relative")
+    # submit / collect against search
+    Ds, Is = index.search(xq, K)
+    other = rows_equal_up_to_k1_ties("F. search_submit/collect against search",
+                                     Dm, Im, Ds, Is)
+    t_search, times = host_median(lambda: index.search(xq, K))
+    t_rot, _ = host_median(lambda: index.apply_chain(xq))
+    print(f"F. {EXACT_ROWS} rows: distances = float64 |Aq - Ax|^2 to the float32 "
+          f"store (max err {err_rot.max():.3e}) and = the unrotated |q - x|^2 "
+          f"(max rel {rel.max():.3e}); submit/collect = search on "
+          f"{len(xq) - other} of {len(xq)} rows ({other} re-ranked candidates "
+          f"tied at K1's cut); search median {t_search * 1e3:.1f} ms over 5 "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> "
+          f"{len(xq) / t_search:.0f} QPS; of it the OPQ rotation with its host "
+          f"round trip {t_rot * 1e3:.1f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})",
+          flush=True)
+
+    # K1 against its plain version on the first real sub-batch of the path
+    qt, batch = 256, base.pipeline_batch
+    xr = torch.from_numpy(index.apply_chain(xq[:batch])).to(dev)
+    perm, _, _, cmap, ndropped = _dyn_inputs(xr, br, DEEP_NPROBE, qt, msteps)
+    xq_p = _pad_dims(xr[perm], br)
+    args = (xq_p, br["yT"], br["n2s"], cmap, qt, base.FUSED_CT)
+    n2 = br["n2s"][0].cpu().numpy()
+    err, ms, plain_ms = kernel_check(
+        fused_knn, f"F. K1 [{batch} q, {msteps} steps, ndropped {int(ndropped)}]",
+        lambda: fused_knn.ivf_recon_fused_dyn(*args),
+        lambda: fused_knn.ivf_recon_fused_dyn_ref(*args),
+        (xq_p.cpu().numpy() ** 2).sum(1), n2, 3, recon="K1")
+    t_ops, nbyt = dyn_cost(br, cmap, qt, br["yT"], (xq_p,), False, d=DEEP_D)
+    d_pad = br["d_pad"]
+    pad_share = (d_pad - DEEP_D) / d_pad
+    print(f"F. K1 at d={DEEP_D} padded to d_pad={d_pad}: {pad_share:.0%} of its "
+          f"products fall on zero dimensions ({t_ops * 1e3 / (1 - pad_share) * pad_share:.3f} "
+          f"ms of the {t_ops * 1e3 / (1 - pad_share):.3f} ms the padded products "
+          f"take at the bf16 peak); bound at d={DEEP_D} "
+          f"{max(t_ops * 1e3, nbyt / PEAK_BYTES * 1e3):.3f} ms ({CARD})", flush=True)
+    return entry("ivf_recon_dyn[opq,d96]", "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
+                 "faiss_tpu/ops/pallas_knn.py:1249", launches, err, ms, plain_ms,
+                 t_ops, nbyt)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2641,6 +3014,8 @@ def main():
     kernels, k2_ivf, state = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     torch.cuda.empty_cache()
     refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
+    io_phases(ft, fused_knn, state, xq, dev)
+    del state["index"]
     torch.cuda.empty_cache()
     kernels += flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf)
     torch.cuda.empty_cache()
@@ -2653,6 +3028,9 @@ def main():
     ivfflat_ip_phase(ft, fused_knn, xb, xt, xq, dev)
     torch.cuda.empty_cache()
     ivfpqr_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+    del xb, xt, xq
+    torch.cuda.empty_cache()
+    kernels.append(deep10m_phases(ft, fused_knn, dev))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

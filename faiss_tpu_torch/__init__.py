@@ -39,7 +39,23 @@ Ported so far:
   - the IVF remainder — the inner-product metric of IVF-Flat and IVF-PQ
     (spherical k-means for the coarse quantizer; by probe), ``remove_ids``,
     ``merge_from``, ``update_vectors``, ``range_search``, the direct map and
-    ``IndexIVFStats``.
+    ``IndexIVFStats``;
+  - the meta layer — the vector transforms (``PCAMatrix``, ``OPQMatrix``,
+    ``RandomRotationMatrix``, ``HadamardRotation``, ``ITQMatrix``,
+    ``ITQTransform``, ``NormalizationTransform``, ``CenteringTransform``,
+    ``RemapDimensionsTransform``, ``LinearTransform``) and
+    ``IndexPreTransform``; ``IndexRefine`` over any base and any refine
+    store, ``IndexRefineFlat`` with an f32, f16 or SQ8 store;
+    ``IndexSplitVectors`` and ``IndexRandom``;
+  - ``index_factory`` over the classes above, and index files
+    (``write_index``, ``read_index``, ``serialize_index``,
+    ``deserialize_index``, ``IO_FLAG_MMAP``) in faiss_tpu's npz container,
+    each package reading the other's.
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+queue-1 item: the other codecs, graphs and coarse quantizers (item 10), the
+multi-device meta indexes (item 11), ``reverse_index_factory``,
+``read_index_binary`` and the reference-format reader ``io_ref`` (item 12).
 """
 
 import torch
@@ -91,7 +107,32 @@ from .models.ivf_pq import (  # noqa: E402,F401
 from .models.meta import (  # noqa: E402,F401
     IndexIDMap,
     IndexIDMap2,
+    IndexPreTransform,
+    IndexRandom,
     IndexRefine,
     IndexRefineFlat,
+    IndexSplitVectors,
+)
+from .transforms import (  # noqa: E402,F401
+    CenteringTransform,
+    HadamardRotation,
+    ITQMatrix,
+    ITQTransform,
+    LinearTransform,
+    NormalizationTransform,
+    OPQMatrix,
+    PCAMatrix,
+    RandomRotationMatrix,
+    RemapDimensionsTransform,
+    VectorTransform,
+)
+from .factory import index_factory  # noqa: E402,F401
+from .io import (  # noqa: E402,F401
+    IO_FLAG_MMAP,
+    IO_FLAG_READ_ONLY,
+    deserialize_index,
+    read_index,
+    serialize_index,
+    write_index,
 )
 from .utils.evaluation import recall_at_k  # noqa: E402,F401

@@ -37,6 +37,17 @@ def add_page_rows(d: int) -> int:
     return max(1 << 10, ADD_PAGE_BYTES // (4 * max(int(d), 1)))
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device. A CUDA device needs a card: the port's
+    entry points never fall back to the CPU on their own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card; pass device='cpu' to build the index on the CPU"
+        )
+    return dev
+
+
 def query_buckets(nq: int, max_batch: int = MAX_QUERY_BATCH):
     """Split nq into (start, padded_len, real_len) power-of-two buckets
     (faiss_tpu/base.py:93)."""

@@ -30,18 +30,34 @@ sq8._xb, sq8.metric_type, device=...)``; a Refine(SQ8) ``IndexRefine(base,
 sq8)`` over IVF-PQ is ``refine_sq8_from_arrays`` with the base's arrays and
 those two; an ``IndexIDMap`` or ``IndexIDMap2`` named ``m`` wraps the port
 of ``m.index`` as ``idmap_from_arrays(port_inner, m.id_map, two=...)``.
+
+A transform ``vt`` of a faiss_tpu ``IndexPreTransform`` named ``pre`` is
+``transform_from_arrays(type(vt).__name__, vt.d_in, vt.d_out, vt.A, vt.b,
+device=...)`` for the linear transforms (with ``mean=vt.mean`` for
+PCAMatrix), ``mean=vt.mean`` for CenteringTransform, ``vt.pca_then_itq.A``
+and ``mean=vt.mean`` for ITQTransform, ``dim_map=vt.map`` for
+RemapDimensionsTransform and ``norm=vt.norm`` for NormalizationTransform;
+``pretransform_from([...], port_inner)`` then wraps the port of
+``pre.index`` in that chain.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import transforms as T
 from .base import Index
 from .metric import MetricType
 from .models.flat import IndexFlat, IndexFlatSQ8
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
-from .models.meta import IndexIDMap, IndexIDMap2, IndexRefine, IndexRefineFlat
+from .models.meta import (
+    IndexIDMap,
+    IndexIDMap2,
+    IndexPreTransform,
+    IndexRefine,
+    IndexRefineFlat,
+)
 
 
 def flat_from_arrays(xb, metric=MetricType.L2, *, device) -> IndexFlat:
@@ -195,4 +211,67 @@ def idmap_from_arrays(index: Index, id_map, *, two: bool = False
     out = (IndexIDMap2 if two else IndexIDMap)(index)
     out.id_map = id_map.copy()
     out.ntotal = index.ntotal
+    return out
+
+
+def transform_from_arrays(cls_name, d_in, d_out, A=None, b=None, mean=None, *,
+                          device, dim_map=None, norm=2.0, eigen_power=0.0,
+                          random_rotation=False, M=None, have_bias=False):
+    """A trained transform of class ``cls_name`` (a name of
+    faiss_tpu_torch.transforms) from its arrays: ``A`` [d_out, d_in] and
+    ``b`` [d_out] of a linear transform (``b`` sets ``have_bias``), ``mean``
+    of PCAMatrix, CenteringTransform and ITQTransform (whose ``A`` is its
+    PCA-then-ITQ matrix), ``dim_map`` of RemapDimensionsTransform, ``norm``
+    of NormalizationTransform, PCAMatrix's ``eigen_power`` and
+    ``random_rotation`` and OPQMatrix's ``M``. The arrays are kept as given
+    (float32 from faiss_tpu: bitwise the same)."""
+    if cls_name == "NormalizationTransform":
+        return T.NormalizationTransform(d_in, norm, device=device)
+    if cls_name == "CenteringTransform":
+        vt = T.CenteringTransform(d_in, device=device)
+        vt.mean = mean
+        vt.is_trained = True
+        return vt
+    if cls_name == "RemapDimensionsTransform":
+        return T.RemapDimensionsTransform(d_in, d_out, np.asarray(dim_map),
+                                          device=device)
+    if cls_name == "ITQTransform":
+        vt = T.ITQTransform(d_in, d_out, device=device)
+        vt.mean = mean
+        lt = T.LinearTransform(d_in, d_out, False, device=device)
+        lt.A = A
+        vt.pca_then_itq = lt
+        vt.is_trained = True
+        return vt
+    if cls_name == "PCAMatrix":
+        vt = T.PCAMatrix(d_in, d_out, eigen_power, random_rotation,
+                         device=device)
+        vt.mean = mean
+    elif cls_name == "OPQMatrix":
+        vt = T.OPQMatrix(d_in, M, d_out, device=device)
+    elif cls_name == "RandomRotationMatrix":
+        vt = T.RandomRotationMatrix(d_in, d_out, device=device)
+    elif cls_name == "HadamardRotation":
+        vt = T.HadamardRotation(d_in, device=device)
+    elif cls_name == "ITQMatrix":
+        vt = T.ITQMatrix(d_in, device=device)
+    else:  # any other linear transform, as faiss_tpu reads one
+        vt = T.LinearTransform(d_in, d_out, have_bias, device=device)
+    if A is not None:
+        vt.A = A
+    if b is not None:
+        vt.b = b
+        vt.have_bias = True
+    vt.is_trained = True
+    vt.set_is_orthonormal()
+    return vt
+
+
+def pretransform_from(chain, index: Index) -> IndexPreTransform:
+    """IndexPreTransform of the port transforms ``chain`` (applied first to
+    last) over the port index ``index``."""
+    out = IndexPreTransform(index)
+    for vt in reversed(list(chain)):
+        out.prepend_transform(vt)
+    out.is_trained = index.is_trained and all(vt.is_trained for vt in chain)
     return out

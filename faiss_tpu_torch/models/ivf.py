@@ -123,8 +123,8 @@ class IndexIVF(Index, Level1Quantizer):
         )
         if not isinstance(self.quantizer, IndexFlat):
             raise NotImplementedError(
-                "only a flat coarse quantizer is ported (ROADMAP queue 1 "
-                "item 8)")
+                "only a flat coarse quantizer is ported; HNSW, IMI and the "
+                "other coarse quantizers are ROADMAP queue 1 item 10")
         self.nprobe = 1
         self.max_codes = 0
         self.is_trained = self.quantizer.ntotal == self.nlist

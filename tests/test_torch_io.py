@@ -1,0 +1,297 @@
+"""Port parity for index files (faiss_tpu_torch/io.py against
+faiss_tpu/io.py): one npz container, read and written by both packages.
+
+For every class the port has, IndexPreTransform over every transform
+included: faiss_tpu writes and the port reads, and the port writes and
+faiss_tpu reads; the port's file holds faiss_tpu's meta tree and arrays bit
+for bit, and the indexes search alike (ids tie-aware; distances within
+1e-5 * (|q|^2 + max |y|^2), or 1e-4 of that scale where an IVF-PQ returns
+its float32 ADC sums, which the two packages add in another order). Also
+serialize / deserialize, IO_FLAG_MMAP, faiss_tpu's committed
+tests/io_compat files and their golden results, and the refusals: classes
+the port does not have, files of the reference library's own format, and
+the card as the default device when there is none."""
+
+import io
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import faiss_tpu as ftj
+import faiss_tpu_torch as ftt
+from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+D, NB, NQ, K = 16, 1200, 40, 5
+IO_COMPAT = Path(__file__).resolve().parent / "io_compat"
+
+
+def mixture(rs, n, ncent=32, d=D):
+    cent = np.random.RandomState(98).rand(ncent, d).astype(np.float32)
+    scales = (1.0 / (np.arange(d) + 1.0)).astype(np.float32) * 0.4
+    a = rs.randint(ncent, size=n)
+    return (cent[a] + rs.randn(n, d).astype(np.float32) * scales).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rs = np.random.RandomState(71)
+    return mixture(rs, NB), mixture(rs, NQ)
+
+
+def _ivf(cls, *args, d=D):
+    index = cls(None, d, 8, *args)
+    index.cp.niter = 4
+    index.cp.min_points_per_centroid = 1
+    index.nprobe = 3
+    return index
+
+
+# a refined IVF-PQ probes one list and takes k * KF_ALL candidates, more
+# than any list holds: every entry of the list is then re-ranked, whatever
+# the order of the 4-bit ADC keys that tie at a candidate cut
+KF_ALL = 120
+
+
+def _one_list_base():
+    base = _ivf(ftj.IndexIVFPQFastScan, 4, 4)
+    base.nprobe = 1
+    return base
+
+
+def _trained(vt, xb):
+    vt.train(xb)
+    return vt
+
+
+def build_ref(case, xb):
+    """A trained, filled faiss_tpu index of ``case`` (its search relies on
+    the ADC when the bool is True)."""
+    if case == "flat_l2":
+        index, adc = ftj.IndexFlatL2(D), False
+    elif case == "flat_ip":
+        index, adc = ftj.IndexFlatIP(D), False
+    elif case == "flat_f16":
+        index, adc = ftj.IndexFlat(D, ftj.METRIC_L2), False
+        index.storage_dtype = np.float16
+    elif case == "flat_sq8":
+        index, adc = ftj.IndexFlatSQ8(D), False
+    elif case == "flat_1d":
+        index = ftj.IndexFlat1D()
+        index.add(xb[:, :1])
+        return index, False
+    elif case == "ivf_flat":
+        index, adc = _ivf(ftj.IndexIVFFlat), False
+    elif case == "ivf_pq8":
+        index, adc = _ivf(ftj.IndexIVFPQ, 4, 8), True
+    elif case == "ivf_pq4fs_bbs64":
+        index, adc = _ivf(ftj.IndexIVFPQFastScan, 4, 4, ftj.METRIC_L2, 64), True
+    elif case == "ivf_pqr":
+        index, adc = _ivf(ftj.IndexIVFPQR, 4, 8, 4, 8), False
+    elif case == "idmap_flat":
+        index, adc = ftj.IndexIDMap(ftj.IndexFlatL2(D)), False
+        index.add_with_ids(xb, np.arange(NB, dtype=np.int64) * 7 + (1 << 40))
+        return index, adc
+    elif case == "idmap2_ivf_flat":
+        index, adc = ftj.IndexIDMap2(_ivf(ftj.IndexIVFFlat)), False
+        index.train(xb)
+        index.add_with_ids(xb, np.arange(NB, dtype=np.int64)[::-1] * 3)
+        return index, adc
+    elif case == "refine_flat_f16":
+        index = ftj.IndexRefineFlat(_one_list_base(), store_float16=True)
+        index.k_factor, adc = KF_ALL, False
+    elif case == "refine_flat_sq8":
+        index = ftj.IndexRefineFlat(_one_list_base(), store="sq8")
+        index.k_factor, adc = KF_ALL, False
+    elif case == "refine_ivf_flat":
+        index = ftj.IndexRefine(_ivf(ftj.IndexIVFFlat), ftj.IndexFlatL2(D))
+        index.k_factor, adc = 2, False
+    elif case == "pre_pca":
+        index = ftj.IndexPreTransform(ftj.PCAMatrix(D, 8, -0.5, True),
+                                      ftj.IndexFlatL2(8))
+        adc = False
+    elif case == "pre_opq_refine":
+        opq = ftj.OPQMatrix(D, 4)
+        opq.niter = 3
+        refine = ftj.IndexRefineFlat(_one_list_base())
+        refine.k_factor = KF_ALL
+        index, adc = ftj.IndexPreTransform(opq, refine), False
+    elif case == "pre_rotations":
+        rr = ftj.RandomRotationMatrix(D, D)
+        rr.init(5)
+        itq = ftj.ITQMatrix(D)
+        itq.max_iter = 5
+        index = ftj.IndexPreTransform(_trained(itq, xb), ftj.IndexFlatL2(D))
+        index.prepend_transform(ftj.HadamardRotation(D))
+        index.prepend_transform(rr)
+        adc = False
+    elif case == "pre_center_norm_pad_itq":
+        itqt = ftj.ITQTransform(20, 20)
+        index = ftj.IndexPreTransform(itqt, _ivf(ftj.IndexIVFFlat, d=20))
+        index.prepend_transform(ftj.RemapDimensionsTransform(D, 20, False))
+        index.prepend_transform(ftj.NormalizationTransform(D, 2.0))
+        index.prepend_transform(ftj.CenteringTransform(D))
+        adc = False
+    else:
+        raise KeyError(case)
+    index.train(xb)
+    index.add(xb)
+    return index, adc
+
+
+CASES = ["flat_l2", "flat_ip", "flat_f16", "flat_sq8", "flat_1d", "ivf_flat",
+         "ivf_pq8", "ivf_pq4fs_bbs64", "ivf_pqr", "idmap_flat", "idmap2_ivf_flat",
+         "refine_flat_f16", "refine_flat_sq8", "refine_ivf_flat", "pre_pca",
+         "pre_opq_refine", "pre_rotations", "pre_center_norm_pad_itq"]
+
+
+def contents(blob):
+    """(meta tree, {key: array}) of a serialized index (bytes or uint8)."""
+    if not isinstance(blob, bytes):
+        blob = bytes(np.asarray(blob, np.uint8))
+    with np.load(io.BytesIO(blob)) as z:
+        arrays = {k: z[k] for k in z.files}
+    return json.loads(bytes(arrays.pop("__meta__")).decode()), arrays
+
+
+def assert_same_file(a, b, linear_as_faiss_tpu_reads=False):
+    """Equal meta trees and arrays bit for bit. faiss_tpu reads a linear
+    transform whose class it does not name in its reader (ITQMatrix) as a
+    LinearTransform, and writes it back so: with
+    ``linear_as_faiss_tpu_reads`` that renaming is allowed."""
+    ma, aa = contents(a)
+    mb, ab = contents(b)
+    if linear_as_faiss_tpu_reads:
+        ma, mb = (json.loads(json.dumps(m).replace('"ITQMatrix"', '"LinearTransform"'))
+                  for m in (ma, mb))
+    assert ma == mb
+    assert sorted(aa) == sorted(ab)
+    for key in aa:
+        x, y = aa[key], ab[key]
+        assert x.dtype == y.dtype and x.shape == y.shape, key
+        assert x.tobytes() == y.tobytes(), key
+
+
+def search_agree(ref, port, xq, xb, adc, k=K):
+    Dj, Ij = ref.search(xq, k)
+    Dt, It = port.search(xq, k)
+    assert Dt.dtype == np.float32 and It.dtype == np.int64
+    largest = int(ref.metric_type) == int(ftj.METRIC_INNER_PRODUCT)
+    tol = (1e-4 if adc else 1e-5) * ((xq.astype(np.float64) ** 2).sum(1)
+                                     + (xb.astype(np.float64) ** 2).sum(1).max())
+    np.testing.assert_array_equal(Ij == -1, It == -1)
+    assert (np.abs(Dt - Dj) <= tol[:, None]).all()
+    s = -1.0 if largest else 1.0
+    assert ids_agree_tie_aware(s * Dj, Ij, s * Dt, It, tol).all()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_files_round_trip_between_packages(data, case):
+    xb, xq = data
+    if case == "flat_1d":
+        xb, xq = xb[:, :1], xq[:, :1]
+    ref, adc = build_ref(case, xb)
+    ref_blob = ftj.serialize_index(ref)
+    # faiss_tpu writes, the port reads
+    port = ftt.deserialize_index(ref_blob, device="cpu")
+    assert type(port).__name__ == type(ref).__name__
+    assert port.ntotal == ref.ntotal and port.d == ref.d and port.is_trained
+    search_agree(ref, port, xq, xb, adc)
+    # the port writes faiss_tpu's file, bit for bit, and faiss_tpu reads it
+    port_blob = ftt.serialize_index(port)
+    assert_same_file(ref_blob, port_blob)
+    back = ftj.deserialize_index(port_blob)
+    assert type(back).__name__ == type(ref).__name__
+    assert_same_file(ref_blob, ftj.serialize_index(back),
+                     linear_as_faiss_tpu_reads=True)
+    Dj, Ij = ref.search(xq, K)
+    Db, Ib = back.search(xq, K)
+    np.testing.assert_array_equal(Ib, Ij)
+    np.testing.assert_array_equal(Db, Dj)
+
+
+def test_refine_store_and_knobs_recovered(data):
+    """IndexRefineFlat's store comes back from the refine index (faiss_tpu
+    io.py:488-503); k_factor, nprobe, bbs and the transforms' classes come
+    back from the file."""
+    xb, _ = data
+    for case, store in (("refine_flat_f16", "f16"), ("refine_flat_sq8", "sq8"),
+                        ("pre_opq_refine", "f32")):
+        ref, _ = build_ref(case, xb)
+        port = ftt.deserialize_index(ftj.serialize_index(ref), device="cpu")
+        r, p = (ref.index, port.index) if case.startswith("pre") else (ref, port)
+        assert isinstance(p, ftt.IndexRefineFlat) and p.store == r.store == store
+        assert p.store_float16 == (store == "f16") and p.k_factor == r.k_factor
+        assert p.base_index.nprobe == r.base_index.nprobe == 1
+        assert p.base_index.bbs == 32
+    ref, _ = build_ref("pre_center_norm_pad_itq", xb)
+    port = ftt.deserialize_index(ftj.serialize_index(ref), device="cpu")
+    assert [type(vt).__name__ for vt in port.chain] == [
+        "CenteringTransform", "NormalizationTransform",
+        "RemapDimensionsTransform", "ITQTransform"]
+
+
+def test_write_read_file_and_mmap(data, tmp_path):
+    """write_index to a path (the exact name given), read_index from it, with
+    IO_FLAG_MMAP the lists and vectors stay mapped read-only and search
+    alike."""
+    xb, xq = data
+    ref, _ = build_ref("refine_flat_f16", xb)
+    fname = tmp_path / "index.bin"
+    ftj.write_index(ref, str(fname))
+    plain = ftt.read_index(str(fname), device="cpu")
+    mapped = ftt.read_index(fname, ftt.IO_FLAG_MMAP | ftt.IO_FLAG_READ_ONLY,
+                            device="cpu")
+    assert isinstance(mapped.base_index._codes_host, np.memmap)
+    assert not mapped.base_index._codes_host.flags.writeable
+    for a, b in zip(plain.search(xq, K), mapped.search(xq, K)):
+        np.testing.assert_array_equal(a, b)
+    out = tmp_path / "port.idx"
+    ftt.write_index(mapped, str(out))
+    assert out.exists() and not (tmp_path / "port.idx.npz").exists()
+    assert_same_file(fname.read_bytes(), out.read_bytes())
+    with pytest.raises(ValueError, match="file path"):
+        ftt.read_index(io.BytesIO(fname.read_bytes()), ftt.IO_FLAG_MMAP, device="cpu")
+
+
+def test_io_compat_files_and_golden_results():
+    """faiss_tpu 0.1.0's committed files load in the port (ntotal 1200), and
+    IVF8_PQ4 at nprobe 8 reproduces golden_ivfpq.npz (rtol 1e-5, atol 1e-6,
+    as tests/test_io_compat.py; ids up to ties within it). The codecs the
+    port does not have raise naming ROADMAP queue 1 item 10."""
+    for name in ("Flat", "IVF8_Flat", "IVF8_PQ4"):
+        index = ftt.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device="cpu")
+        assert index.ntotal == 1200, name
+    with np.load(IO_COMPAT / "golden_ivfpq.npz") as z:
+        Dg, Ig, xq = z["D"], z["I"], z["xq"]
+    index.nprobe = 8
+    D, I = index.search(xq, 5)
+    np.testing.assert_allclose(D, Dg, rtol=1e-5, atol=1e-6)
+    assert ids_agree_tie_aware(Dg, Ig, D, I, 1e-5 * np.abs(Dg[:, -1]) + 1e-6).all()
+    for name in ("PQ4x4fs", "SQ8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+            ftt.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device="cpu")
+
+
+def test_refusals(data, tmp_path, monkeypatch):
+    xb, _ = data
+    # a faiss_tpu class the port does not have
+    pq = ftj.IndexPQ(D, 4, 8)
+    pq.train(xb)
+    with pytest.raises(NotImplementedError, match="IndexPQ .*item 10"):
+        ftt.deserialize_index(ftj.serialize_index(pq), device="cpu")
+    # the reference library's own format (io_ref)
+    ref_file = tmp_path / "ref.faissindex"
+    ref_file.write_bytes(b"IxF2" + bytes(60))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ftt.read_index(str(ref_file), device="cpu")
+    # an index class that neither package writes
+    with pytest.raises(TypeError, match="serialize"):
+        ftt.serialize_index(ftt.IndexRandom(D, 10, device="cpu"))
+    # the card is the default device: with none, read_index raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    blob = ftj.serialize_index(build_ref("flat_l2", xb)[0])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ftt.deserialize_index(blob)
