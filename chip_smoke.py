@@ -7,9 +7,11 @@ decoded store (K7), its per-probe and XLA ADC scans, exact flat search (K2
 and K3), IVF4096,Flat search (K1 and K2 over hi/lo planes) and
 IndexIVFPQR IVF4096,PQ8+16: all seven kernels; then Refine(SQ8) under
 IDMap2 (K1), ID selectors, IVF-Flat's mutations (K1, K2), range search and
-IVF-Flat by inner product (phases A-E); index files (phase G); and last
+IVF-Flat by inner product (phases A-E); index files (phase G); the
+scalar-quantizer family on the same 1M x 128 set (K2, K3; phase I);
 OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory over the Deep10M-like
-10M x 96 set (K1, phase F).
+10M x 96 set (K1, phase F); and last k-means of BASELINE row 12, 8.1M x 784
+uint8 points into 256 centroids (phase H).
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -240,9 +242,23 @@ print stands beside the card's name and power limit:
      tied at K1's cut) counted; then faiss_tpu's committed
      tests/io_compat files: Flat, IVF8_Flat and IVF8_PQ4 read onto the card
      with ntotal 1200, IVF8_PQ4 at nprobe 8 reproducing golden_ivfpq.npz
-     (D within rtol 1e-5, atol 1e-6, ids tie-aware within it), PQ4x4fs and
-     SQ8 raising NotImplementedError naming ROADMAP queue 1 item 10;
- F. (last) the Deep10M-like set of benchs/bench_deep10m.py regenerated into
+     (D within rtol 1e-5, atol 1e-6, ids tie-aware within it), SQ8 read
+     as an IndexScalarQuantizer of 1200 rows, PQ4x4fs raising
+     NotImplementedError naming ROADMAP queue 1 item 10;
+ I. (after phase 31) the scalar quantizers on the 1M x 128 set, each built
+     by index_factory on the card (trained on the 200k training rows),
+     with build seconds, host-clock median of 5, QPS and recall@10 against
+     bench_gt_cache.npz (no limit): SQ8, SQ4 and SQfp16 at k=10 on the
+     8192 queries (the flat screen over the decoded rows: K2 must launch),
+     SQ8 with flat_screen = False at k=100 on 1024 queries (K3 must
+     launch), each with 64 rows equal to a float64 search of the decoded
+     rows (1e-5 * (|q|^2 + max |y|^2), ids tie-aware); IVF4096,SQ8 at
+     nprobe 16 by probe (no kernel), 64 rows equal to float64 over their
+     probed lists' decoded rows, then write_index/read_index onto the card
+     with codes and ranges bitwise equal and the search equal on every
+     row; SuperKMeans into 4096 centroids on the 200k training rows (20
+     iterations) at most 1.05 x Clustering's objective, both timed;
+ F. the Deep10M-like set of benchs/bench_deep10m.py regenerated into
      RAM (its generator copied: seeds 7, 1, 2, 3; 10M base, 500k training
      and 8192 query rows of 96 dimensions), gt[:, 0] of .deep10m_gt.npz the
      float32 brute-force minimum on the card for 32 queries;
@@ -261,7 +277,24 @@ print stands beside the card's name and power limit:
      on the first real 4096-query sub-batch (keys within lane_tol, ids
      tie-aware), timed in turns, its entry ``ivf_recon_dyn[opq,d96]`` in
      the kernels' line bounded at d = 96, and the share of its products on
-     the 32 zero-padded dimensions printed.
+     the 32 zero-padded dimensions printed;
+ H. (last) BASELINE row 12: the 8.1M x 784 uint8 set of
+     benchs/jobs/job_kmeans_row12.py (its generator copied, seed 42)
+     generated into RAM, ``Kmeans(784, 256, niter=20, seed=1234,
+     max_points_per_centroid=10**9)`` trained on the card through the
+     uint8 branch: the loop must receive the set as uint8 on the card,
+     peak device memory under 12 GiB (no float32 copy), the objective
+     never rising by more than 1e-5 relative; the seconds to generate, to
+     train end to end, to upload, the 20-iteration loop alone by CUDA
+     events, the objective per iteration, the imbalance, one iteration's
+     centroid sums through index_add_ and through a one-hot product (each
+     timed, with its largest error against the exact float64 sums) and
+     which the loop uses; Kmeans.assign of a seeded 65,536-row sample (no
+     kernel) equal to the float64 argmin except on rows whose best two
+     float64 distances lie within 1e-5 * (|x|^2 + max |c|^2) (the float32
+     norm expansion's error), the sample's objective within 1e-4 relative
+     of float64's; the published baseline (Titan X, 2015, 140.6 s) printed
+     beside it.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -2732,17 +2765,20 @@ def io_phases(ft, fused_knn, state, xq, dev):
     check(ids_agree_tie_aware(Dg, Ig, Dp, Ip, 1e-5 * np.abs(Dg[:, -1]) + 1e-6).all()
           and np.allclose(Dp, Dg, rtol=1e-5, atol=1e-6),
           "G. v0_1_0_IVF8_PQ4 does not reproduce golden_ivfpq.npz")
-    for name in ("PQ4x4fs", "SQ8"):
-        try:
-            ft.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device=dev)
-        except NotImplementedError as e:
-            check("item 10" in str(e), f"G. v0_1_0_{name} raised {e}")
-        else:
-            raise RuntimeError(f"chip_smoke: G. v0_1_0_{name} did not raise")
-    print(f"G. tests/io_compat: Flat, IVF8_Flat, IVF8_PQ4 read onto the card "
-          f"(ntotal 1200 each); IVF8_PQ4 at nprobe 8 reproduces "
+    sq8 = ft.read_index(str(IO_COMPAT / "v0_1_0_SQ8.npz"), device=dev)
+    check(type(sq8).__name__ == "IndexScalarQuantizer" and sq8.ntotal == 1200
+          and np.array_equal(sq8.vectors(), sq8.sq.decode(sq8._codes)),
+          f"G. v0_1_0_SQ8 read as {class_tree(sq8)}, ntotal {sq8.ntotal}")
+    try:
+        ft.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"), device=dev)
+    except NotImplementedError as e:
+        check("item 10" in str(e), f"G. v0_1_0_PQ4x4fs raised {e}")
+    else:
+        raise RuntimeError("chip_smoke: G. v0_1_0_PQ4x4fs did not raise")
+    print(f"G. tests/io_compat: Flat, IVF8_Flat, IVF8_PQ4 and SQ8 read onto the "
+          f"card (ntotal 1200 each); IVF8_PQ4 at nprobe 8 reproduces "
           f"golden_ivfpq.npz (max |D - golden| "
-          f"{float(np.abs(Dp - Dg).max()):.3e}); PQ4x4fs and SQ8 raise "
+          f"{float(np.abs(Dp - Dg).max()):.3e}); PQ4x4fs raises "
           f"NotImplementedError naming ROADMAP queue 1 item 10", flush=True)
 
 
@@ -2910,6 +2946,332 @@ def deep10m_phases(ft, fused_knn, dev):
                  t_ops, nbyt)
 
 
+# BASELINE.md row 12: k-means of MNIST8m, 8.1M x 784 uint8 -> 256 centroids,
+# 20 iterations; the stand-in set is benchs/jobs/job_kmeans_row12.py's
+ROW12_N, ROW12_D, ROW12_K, ROW12_NITER = 8_100_000, 784, 256, 20
+ROW12_SAMPLE, ROW12_PEAK_GIB = 65_536, 12
+
+
+def row12_data(n=None):
+    """The MNIST8m-shaped uint8 set of benchs/jobs/job_kmeans_row12.py:33-52,
+    its generator copied, writing into RAM: 512 prototype images from seed
+    42, each row a prototype plus a uniform jitter of +-24, clipped; n rows
+    (ROW12_N unless given)."""
+    n = ROW12_N if n is None else n
+    rs = np.random.RandomState(42)
+    protos = (rs.rand(512, ROW12_D) ** 2 * 255).astype(np.int16)
+    x = np.empty((n, ROW12_D), np.uint8)
+    bs = 500_000
+    for s in range(0, n, bs):
+        m = min(bs, n - s)
+        pi = rs.randint(512, size=m)
+        jit = rs.randint(-24, 25, size=(m, ROW12_D), dtype=np.int16)
+        np.clip(protos[pi] + jit, 0, 255, out=jit)
+        x[s : s + m] = jit.astype(np.uint8)
+    return x
+
+
+def update_ms(xd, assign, k, chunk):
+    """One iteration's centroid sums over the resident uint8 set, chunk by
+    chunk with each chunk decoded, two ways: the loop's own
+    ``add_to_centroids`` (``index_add_``: float32 atomics, one point at a
+    time) and a float32 one-hot product. Returns
+    ({way: ms by CUDA events}, {way: largest error against the exact sums,
+    relative to the largest sum}). The exact sums are float64 (integers
+    below 2^53 add exactly); in float32 a big cluster's sums pass 2^24,
+    where integers stop adding exactly."""
+
+    from faiss_tpu_torch.ops.kmeans_ops import add_to_centroids
+
+    def index_add(dtype=torch.float32):
+        sums = torch.zeros(k, xd.shape[1], dtype=dtype, device=xd.device)
+        for s in range(0, len(xd), chunk):
+            add_to_centroids(sums, assign[s : s + chunk], xd[s : s + chunk].to(dtype))
+        return sums
+
+    def one_hot():
+        sums = torch.zeros(k, xd.shape[1], device=xd.device)
+        for s in range(0, len(xd), chunk):
+            a = assign[s : s + chunk]
+            oh = torch.zeros(len(a), k, device=xd.device)
+            oh[torch.arange(len(a), device=xd.device), a] = 1.0
+            sums += oh.T @ xd[s : s + chunk].float()
+        return sums
+
+    exact = index_add(torch.float64)
+    ways = (("index_add_", index_add), ("one-hot", one_hot))
+    err = {name: float((fn().double() - exact).abs().max() / exact.abs().max())
+           for name, fn in ways}
+    check(max(err.values()) <= 1e-2,
+          f"H. the centroid sums are not the exact sums: {err}")
+    ms = {name: float(np.mean([cuda_ms(fn, 1) for _ in range(2)]))
+          for name, fn in ways}
+    return ms, err
+
+
+def kmeans_row12_phase(ft, fused_knn, dev):
+    """Phase H: BASELINE row 12 on the card. The 8.1M x 784 uint8 set made
+    in RAM, Kmeans(784, 256, niter=20, seed=1234) trained through the uint8
+    branch (the set stays uint8 on the card), then the 20-iteration loop
+    alone by CUDA events, the two centroid updates timed, and the result
+    checked against float64 on a seeded sample."""
+    from faiss_tpu_torch import clustering
+    from faiss_tpu_torch.ops import kmeans_ops
+
+    t0 = time.time()
+    x = row12_data()
+    t_gen = time.time() - t0
+    print(f"H. row 12 data {x.shape[0]} x {x.shape[1]} uint8 "
+          f"({x.nbytes / 1e9:.2f} GB) generated in RAM in {t_gen:.1f} s", flush=True)
+
+    seen = []
+    real_loop = clustering.kmeans_fused_loop
+
+    def spy(xd, *args, **kw):
+        seen.append((xd.dtype, xd.device.type, tuple(xd.shape)))
+        return real_loop(xd, *args, **kw)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    km = ft.Kmeans(ROW12_D, ROW12_K, niter=ROW12_NITER, seed=1234,
+                   max_points_per_centroid=10**9)
+    clustering.kmeans_fused_loop = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        obj = km.train(x)
+        torch.cuda.synchronize()
+        t_e2e = time.time() - t0
+    finally:
+        clustering.kmeans_fused_loop = real_loop
+    peak = torch.cuda.max_memory_allocated()
+    check(km.device == dev, f"H. Kmeans ran on {km.device}")
+    check(seen == [(torch.uint8, dev.type, x.shape)],
+          f"H. the loop was given {seen}, not the uint8 set on the card")
+    check(peak < ROW12_PEAK_GIB * 2**30,
+          f"H. peak device memory {peak / 2**30:.2f} GiB, not under "
+          f"{ROW12_PEAK_GIB} GiB")
+    objs = np.asarray(km.obj, np.float64)
+    check(len(objs) == ROW12_NITER and np.isfinite(objs).all() and obj == objs[-1],
+          f"H. objectives {objs}")
+    rise = np.diff(objs) / objs[:-1]
+    check((rise <= 1e-5).all(), f"H. the objective rose by {rise.max():.3e} relative")
+    nsplit = sum(s.nsplit for s in km.iteration_stats)
+    print(f"H. Kmeans({ROW12_D}, {ROW12_K}, niter={ROW12_NITER}, seed=1234).train "
+          f"on the card: {t_e2e:.2f} s end to end (upload included); peak device "
+          f"memory {peak / 2**30:.2f} GiB (the set {x.nbytes / 2**30:.2f} GiB, "
+          f"uint8 on the card); {nsplit} splits; imbalance "
+          f"{km.iteration_stats[-1].imbalance_factor:.4f}; objective per "
+          f"iteration: {', '.join(f'{o:.8e}' for o in objs)} ({CARD})", flush=True)
+
+    # the upload and the loop alone, from the same init
+    torch.cuda.synchronize()
+    t0 = time.time()
+    xd = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize()
+    t_up = time.time() - t0
+    rs = np.random.RandomState(1234)
+    init = torch.from_numpy(
+        x[rs.permutation(len(x))[:ROW12_K]].astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    chunk = clustering._point_chunk(ROW12_K, ROW12_D)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    c, objs2, _, _, _, _ = kmeans_ops.kmeans_fused_loop(
+        xd, init, gen, niter=ROW12_NITER, chunk=chunk)
+    e1.record()
+    torch.cuda.synchronize()
+    t_loop = e0.elapsed_time(e1) / 1e3
+    # the same arithmetic, but index_add_'s float32 atomics add in no fixed
+    # order: the objectives move in their last digits from run to run
+    loop_rel = float(np.abs(objs2.cpu().numpy() / objs - 1).max())
+    check(loop_rel <= 1e-4, f"H. the loop alone differs from Kmeans.train's "
+                            f"by {loop_rel:.3e} relative")
+    # one iteration's update, both ways, at the trained centroids
+    cn = c.square().sum(1)
+    assign = torch.cat([(cn[None] - 2.0 * (xd[s : s + chunk].float() @ c.T)).argmin(1)
+                        for s in range(0, len(xd), chunk)])
+    upd, err = update_ms(xd, assign, ROW12_K, chunk)
+    del xd, assign
+    torch.cuda.empty_cache()
+    print(f"H. upload {t_up:.2f} s ({x.nbytes / 1e9 / t_up:.2f} GB/s); the "
+          f"{ROW12_NITER}-iteration loop alone {t_loop:.3f} s by CUDA events "
+          f"({t_loop / ROW12_NITER * 1e3:.1f} ms an iteration, chunks of {chunk} "
+          f"rows; its objectives within {loop_rel:.1e} relative of the "
+          f"train's); one iteration's centroid sums: index_add_ "
+          f"{upd['index_add_']:.2f} ms (largest error against the exact sums "
+          f"{err['index_add_']:.2e} of the largest sum), one-hot product "
+          f"{upd['one-hot']:.2f} ms ({err['one-hot']:.2e}); the loop uses "
+          f"index_add_ ({CARD}). BASELINE row 12 "
+          "beside it: Titan X (2015), 140.6 s, published (not a number of this "
+          "card)", flush=True)
+
+    # assignments and the objective against float64 on a seeded sample
+    sample = np.sort(np.random.RandomState(12).choice(len(x), ROW12_SAMPLE,
+                                                      replace=False))
+    xs = x[sample]
+    Dk, Ik = no_kernel(fused_knn, f"H. Kmeans.assign of {ROW12_SAMPLE} rows "
+                       "(256 centroids: the plain k-NN)", lambda: km.assign(xs))
+    c64 = torch.from_numpy(km.centroids).to(dev, torch.float64)
+    d64 = torch.cat([
+        torch.cdist(torch.from_numpy(xs[s : s + 8192]).to(dev, torch.float64),
+                    c64).square() for s in range(0, ROW12_SAMPLE, 8192)])
+    two = torch.topk(d64, 2, largest=False).values.cpu().numpy()
+    best = d64.argmin(1).cpu().numpy()
+    # a near tie: the best two within 1e-5 (|x|^2 + max |c|^2), the scale of
+    # the float32 norm expansion's error (the tolerance of the flat checks)
+    scale = (xs.astype(np.float64) ** 2).sum(1) + float(c64.square().sum(1).max())
+    near_tie = two[:, 1] - two[:, 0] <= 1e-5 * scale
+    wrong = (Ik != best) & ~near_tie
+    check(not wrong.any(), f"H. Kmeans.assign differs from float64 argmin on "
+                           f"{int(wrong.sum())} rows that are no near tie")
+    share, ref = float(Dk.astype(np.float64).sum()), float(two[:, 0].sum())
+    check(abs(share - ref) <= 1e-4 * ref,
+          f"H. the sample's objective {share:.9e} vs float64 {ref:.9e}")
+    print(f"H. Kmeans.assign of a seeded {ROW12_SAMPLE}-row sample equals the "
+          f"float64 argmin on {int((Ik == best).sum())} rows, the other "
+          f"{int((Ik != best).sum())} within 1e-5 (|x|^2 + max |c|^2) of a tie "
+          f"({int(near_tie.sum())} near ties); the sample's objective "
+          f"{share:.9e} vs float64 {ref:.9e} (rel {abs(share - ref) / ref:.2e}); "
+          f"per point {share / ROW12_SAMPLE:.6e} beside the last iteration's "
+          f"{objs[-1] / len(x):.6e}", flush=True)
+
+
+def exact_in_lists(index, xq, Dp, Ip, k, what):
+    """EXACT_ROWS rows of a search by probe against float64 over the decoded
+    rows of the row's probed lists: distances per rank within
+    1e-5 * (|q|^2 + max |y|^2), ids tie-aware. Returns the largest error."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    rows = index.decode_vectors(index._codes_host, index._listnos_host)
+    ymax = float((rows.astype(np.float64) ** 2).sum(1).max())
+    q = torch.from_numpy(xq[:EXACT_ROWS]).to(index.device)
+    probes = index._coarse_search(q, index.nprobe)[1].cpu().numpy()
+    err = 0.0
+    for r in range(EXACT_ROWS):
+        mask = np.isin(index._listnos_host, probes[r])
+        d = ((xq[r].astype(np.float64) - rows[mask].astype(np.float64)) ** 2).sum(1)
+        o = np.argsort(d, kind="stable")[:k]
+        tol = 1e-5 * (float((xq[r].astype(np.float64) ** 2).sum()) + ymax)
+        e = np.abs(Dp[r, : len(o)] - d[o])
+        check((e <= tol).all() and ids_agree_tie_aware(
+            d[o][None], index._ids_host[mask][o][None], Dp[r : r + 1, : len(o)],
+            Ip[r : r + 1, : len(o)], np.array([tol])).all(),
+            f"{what}: row {r} differs from float64 over its probed lists")
+        err = max(err, float(e.max()))
+    return err
+
+
+def sq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+    """Phase I: the scalar-quantizer family on the 1M x 128 set, each index
+    built by index_factory on the card: SQ8, SQ4 and SQfp16 at k = 10 (the
+    flat screen, K2), SQ8 with flat_screen off at k = 100 (K3), IVF4096,SQ8
+    at nprobe 16 (by probe, no kernel) with a write_index/read_index round
+    trip, and SuperKMeans into 4096 centroids on the 200k training rows
+    against Clustering. Returns the launches of K2 and of K3 (k_lanes
+    128)."""
+    import tempfile
+
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+
+    k2 = k3 = 0
+    for desc in ("SQ8", "SQ4", "SQfp16"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        index = ft.index_factory(D, desc)
+        index.train(xt)
+        index.add(xb)
+        index._screen_dev()
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        check(type(index).__name__ == "IndexScalarQuantizer" and index.device == dev,
+              f"I. {desc}: {class_tree(index)}")
+        Dp, Ip, n = flat_search(fused_knn, f"I. {desc} k={K}",
+                                lambda: index.search(xq, K),
+                                fused_knn.ivf_recon_fused, NQ, K)
+        k2 += n
+        exact = Exact(index.vectors(), dev)
+        err = exact.check(xq, Dp, Ip, K, True, f"I. {desc}", ids_agree_tie_aware)
+        med, _ = host_median(lambda: index.search(xq, K))
+        print(f"I. {desc} ({index.sq.code_size} B codes a row): build "
+              f"{t_build:.2f} s; search of {NQ} queries at k={K} (flat screen, K2 "
+              f"x{n}): median {med * 1e3:.1f} ms over 5 -> {NQ / med:.0f} QPS; "
+              f"recall@10 {recall_at_k(Ip, gt, K):.4f} against the float32 set; "
+              f"{EXACT_ROWS} rows exact to the decoded rows (max err {err:.3e}) "
+              f"({CARD})", flush=True)
+        if desc == "SQ8":
+            index.flat_screen = False
+            nq = min(1024, NQ)
+            Dp, Ip, n = flat_search(fused_knn, "I. SQ8 flat_screen=False k=100",
+                                    lambda: index.search(xq[:nq], 100),
+                                    fused_knn.knn_fused, nq, 100)
+            k3 += n
+            err = exact.check(xq, Dp, Ip, 100, True, "I. SQ8 k=100 (K3)",
+                              ids_agree_tie_aware)
+            med, _ = host_median(lambda: index.search(xq[:nq], 100))
+            print(f"I. SQ8 with flat_screen=False: {nq} queries at k=100 (K3 x{n}): "
+                  f"median {med * 1e3:.1f} ms over 5 -> {nq / med:.0f} QPS; "
+                  f"{EXACT_ROWS} rows exact (max err {err:.3e}) ({CARD})", flush=True)
+        del index, exact
+        torch.cuda.empty_cache()
+
+    desc = f"IVF{NLIST},SQ8"
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index = ft.index_factory(D, desc)
+    index.train(xt)
+    index.add(xb)
+    index._build_device()
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    index.nprobe = 16
+    Dp, Ip = no_kernel(fused_knn, f"I. {desc} nprobe 16 (by probe)",
+                       lambda: index.search(xq, K))
+    err = exact_in_lists(index, xq, Dp, Ip, K, f"I. {desc}")
+    med, _ = host_median(lambda: index.search(xq, K))
+    print(f"I. {desc}: build {t_build:.2f} s ({index.cp.niter} k-means "
+          f"iterations); search of {NQ} queries at nprobe 16, k={K} by probe: "
+          f"median {med * 1e3:.1f} ms over 5 -> {NQ / med:.0f} QPS; recall@10 "
+          f"{recall_at_k(Ip, gt, K):.4f}; {EXACT_ROWS} rows exact over their "
+          f"probed lists' decoded rows (max err {err:.3e}) ({CARD})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = str(Path(tmp) / "ivf_sq8.npz")
+        ft.write_index(index, fname)
+        back = ft.read_index(fname)
+    check(type(back) is type(index) and back.nprobe == 16 and back.device == dev
+          and np.array_equal(back._codes_host, index._codes_host)
+          and np.array_equal(back.sq.trained, index.sq.trained),
+          f"I. {desc} read back differs")
+    Db, Ib = back.search(xq, K)
+    check(np.array_equal(Db, Dp) and np.array_equal(Ib, Ip),
+          f"I. the read {desc} searches differently")
+    print(f"I. {desc} write_index/read_index onto the card: codes and ranges "
+          "bitwise equal, the search equal on every row", flush=True)
+    del index, back
+    torch.cuda.empty_cache()
+
+    skm = ft.SuperKMeans(D, NLIST, ft.SuperKMeansParameters(niter=NITER))
+    clus = ft.Clustering(D, NLIST, ft.ClusteringParameters(niter=NITER))
+    took = []
+    for c in (skm, clus):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c.train(xt)
+        torch.cuda.synchronize()
+        took.append(time.time() - t0)
+    o_s, o_e = skm.iteration_stats[-1].obj, clus.iteration_stats[-1].obj
+    check(o_s <= 1.05 * o_e, f"I. SuperKMeans objective {o_s:.6e} above 1.05 x "
+                             f"Clustering's {o_e:.6e}")
+    print(f"I. SuperKMeans({D}, {NLIST}, niter={NITER}) on the {len(xt)} training "
+          f"rows: {took[0]:.2f} s, objective {o_s:.6e}, pruned share per "
+          f"iteration {', '.join(f'{f:.3f}' for f in skm.pruning_fractions)}; "
+          f"Clustering: {took[1]:.2f} s, objective {o_e:.6e}; ratio "
+          f"{o_s / o_e:.5f} ({CARD})", flush=True)
+    return k2, k3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3028,9 +3390,15 @@ def main():
     ivfflat_ip_phase(ft, fused_knn, xb, xt, xq, dev)
     torch.cuda.empty_cache()
     ivfpqr_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+    torch.cuda.empty_cache()
+    k2_sq, k3_sq = sq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+    next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_sq
+    next(e for e in kernels if e["name"] == "knn_fused[k_lanes=128]")["launches"] += k3_sq
     del xb, xt, xq
     torch.cuda.empty_cache()
     kernels.append(deep10m_phases(ft, fused_knn, dev))
+    torch.cuda.empty_cache()
+    kmeans_row12_phase(ft, fused_knn, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -33,9 +33,17 @@ Ported so far:
     indexes (masked k-NN, or by probe), and ``IndexIDMap``/``IndexIDMap2``
     with the selector translated to their ids;
   - the flat remainder — ``range_search``, ``remove_ids``, ``merge_from``,
-    ``reconstruct*`` and ``sa_*`` of ``IndexFlat``; ``IndexFlatSQ8`` (the
-    QT_8bit ``ScalarQuantizer``) and Refine(SQ8), ``IndexRefine`` over
-    IVF-PQ with an SQ8 store, on the same fused path; ``IndexFlat1D``;
+    ``reconstruct*`` and ``sa_*`` of ``IndexFlat``; ``IndexFlatSQ8`` and
+    Refine(SQ8), ``IndexRefine`` over IVF-PQ with an SQ8 store, on the same
+    fused path; ``IndexFlat1D``;
+  - training — ``Clustering`` with weights, every init (random, k-means++,
+    AFK-MC2), integer and frozen centroids and uint8 points kept uint8 on
+    the device; ``SuperKMeans``, ``kmeans_clustering``, ``Kmeans``,
+    ``kmeans1d`` and ``ProgressiveDimClustering``;
+  - the scalar quantizers — ``ScalarQuantizer`` with every quantizer type
+    and range statistic, ``IndexScalarQuantizer`` (the flat search over the
+    decoded rows) and ``IndexIVFScalarQuantizer`` (by probe, L2 or inner
+    product, by residual or not);
   - the IVF remainder — the inner-product metric of IVF-Flat and IVF-PQ
     (spherical k-means for the coarse quantizer; by probe), ``remove_ids``,
     ``merge_from``, ``update_vectors``, ``range_search``, the direct map and
@@ -53,9 +61,11 @@ Ported so far:
     each package reading the other's.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue-1 item: the other codecs, graphs and coarse quantizers (item 10), the
-multi-device meta indexes (item 11), ``reverse_index_factory``,
-``read_index_binary`` and the reference-format reader ``io_ref`` (item 12).
+queue-1 item: the other codecs (IndexPQ, polysemous, binary, LSH,
+additive, RaBitQ and the rest), the graphs and the coarse quantizers other
+than flat (item 10), the multi-device meta indexes (item 11),
+``reverse_index_factory``, ``read_index_binary`` and the reference-format
+reader ``io_ref`` (item 12).
 """
 
 import torch
@@ -81,7 +91,17 @@ from .base import (  # noqa: E402,F401
     SearchParameters,
     query_buckets,
 )
-from .clustering import Clustering, ClusteringParameters  # noqa: E402,F401
+from .clustering import (  # noqa: E402,F401
+    Clustering,
+    ClusteringParameters,
+    Kmeans,
+    ProgressiveDimClustering,
+    ProgressiveDimClusteringParameters,
+    SuperKMeans,
+    SuperKMeansParameters,
+    kmeans1d,
+    kmeans_clustering,
+)
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
 from .codecs.sq import QuantizerType, RangeStat, ScalarQuantizer  # noqa: E402,F401
 from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
@@ -99,6 +119,7 @@ from .models.ivf import (  # noqa: E402,F401
     indexIVF_stats,
 )
 from .models.ivf_flat import IndexIVFFlat  # noqa: E402,F401
+from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer  # noqa: E402,F401
 from .models.ivf_pq import (  # noqa: E402,F401
     IndexIVFPQ,
     IndexIVFPQFastScan,

@@ -28,8 +28,15 @@ IVF-Flat and IVF-PQ take ``metric=`` (faiss_tpu's ``index.metric_type``).
 An ``IndexFlatSQ8`` named ``sq8`` is ``flat_sq8_from_arrays(sq8.sq.trained,
 sq8._xb, sq8.metric_type, device=...)``; a Refine(SQ8) ``IndexRefine(base,
 sq8)`` over IVF-PQ is ``refine_sq8_from_arrays`` with the base's arrays and
-those two; an ``IndexIDMap`` or ``IndexIDMap2`` named ``m`` wraps the port
-of ``m.index`` as ``idmap_from_arrays(port_inner, m.id_map, two=...)``.
+those two; an ``IndexScalarQuantizer`` named ``sq`` is
+``sq_from_arrays(sq.d, sq.sq.qtype, sq.sq.trained, sq._codes,
+sq.metric_type, device=...)`` and an ``IndexIVFScalarQuantizer`` named
+``ivfsq`` is ``ivfsq_from_arrays(ivfsq.quantizer.vectors(), ivfsq.sq.qtype,
+ivfsq.sq.trained, ivfsq._codes_host, ivfsq._listnos_host, ivfsq._ids_host,
+by_residual=ivfsq.by_residual, metric=ivfsq.metric_type, device=...)``
+(both take ``tq_seed=`` where it is not 123); an ``IndexIDMap`` or
+``IndexIDMap2`` named ``m`` wraps the port of ``m.index`` as
+``idmap_from_arrays(port_inner, m.id_map, two=...)``.
 
 A transform ``vt`` of a faiss_tpu ``IndexPreTransform`` named ``pre`` is
 ``transform_from_arrays(type(vt).__name__, vt.d_in, vt.d_out, vt.A, vt.b,
@@ -51,6 +58,7 @@ from .metric import MetricType
 from .models.flat import IndexFlat, IndexFlatSQ8
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
+from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -199,6 +207,47 @@ def refine_sq8_from_arrays(centroids, pq_centroids, codes, listnos, ids,
         base, flat_sq8_from_arrays(sq_trained, sq_codes, base.metric_type,
                                    device=device)
     )
+
+
+def _sq_trained(sq, trained, tq_seed):
+    """Set a ScalarQuantizer's state: ``trained`` [2, d] or [2, 1] float32
+    (vmin, vdiff) as faiss_tpu holds it, None for an untrained one."""
+    if trained is not None:
+        trained = np.ascontiguousarray(trained, np.float32)
+        if trained.ndim != 2 or trained.shape[0] != 2:
+            raise ValueError(f"trained must be [2, w], got shape {trained.shape}")
+        sq.trained = trained.copy()
+    sq.tq_seed = int(tq_seed)
+
+
+def sq_from_arrays(d, qtype, trained, codes, metric=MetricType.L2, *,
+                   device, tq_seed=123) -> IndexScalarQuantizer:
+    """IndexScalarQuantizer(d, qtype) from its quantizer's ``trained``
+    array and its codes [n, code_size] uint8 in add order."""
+    index = IndexScalarQuantizer(d, qtype, metric, device=device)
+    _sq_trained(index.sq, trained, tq_seed)
+    index.is_trained = index.sq.is_trained
+    index.add_codes(codes)
+    return index
+
+
+def ivfsq_from_arrays(centroids, qtype, trained, codes, listnos, ids, *,
+                      device, by_residual=False, metric=MetricType.L2,
+                      tq_seed=123) -> IndexIVFScalarQuantizer:
+    """IndexIVFScalarQuantizer from coarse centroids [nlist, d], the
+    quantizer type and its ``trained`` array, and the lists' entries in add
+    order: codes [n, code_size] uint8, list numbers [n] and ids [n];
+    ``by_residual`` as the index was trained."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
+    nlist, d = centroids.shape
+    index = IndexIVFScalarQuantizer(
+        _quantizer(centroids, metric, device), d, nlist, qtype,
+        MetricType(metric), by_residual=bool(by_residual), device=device)
+    _sq_trained(index.sq, trained, tq_seed)
+    index.is_trained = True
+    index.add_encoded(codes.reshape(len(codes), index.code_size), listnos, ids)
+    return index
 
 
 def idmap_from_arrays(index: Index, id_map, *, two: bool = False

@@ -9,8 +9,10 @@ everything. The port builds:
   - pretransforms ``PCA[W][R]n``, ``OPQm[_d]``, ``RR[n]``, ``ITQ[n]``,
     ``Padn`` and ``L2norm``;
   - ``IVFn`` over a flat coarse quantizer with the encodings ``Flat``,
-    ``PQmx4fs[_bbs]``, ``PQmxn``, ``PQm+n`` (IndexIVFPQR) and ``PQm``;
-  - the flat encodings ``Flat`` and ``Flat1D``;
+    ``PQmx4fs[_bbs]``, ``PQmxn``, ``PQm+n`` (IndexIVFPQR), ``PQm`` and the
+    scalar quantizers ``SQ*`` (IndexIVFScalarQuantizer);
+  - the flat encodings ``Flat``, ``Flat1D`` and ``SQ*``
+    (IndexScalarQuantizer);
   - ``RFlat`` and ``Refine(Flat)`` (IndexRefineFlat), ``Refine(SQ8)``
     (IndexRefineFlat with an SQ8 store) and ``Refine(<any string>)``
     (IndexRefine over the index that string builds).
@@ -29,6 +31,7 @@ from .metric import MetricType
 from .models.flat import IndexFlat, IndexFlat1D
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
+from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -36,14 +39,38 @@ from .models.meta import (
     IndexRefine,
     IndexRefineFlat,
 )
+from .codecs.sq import QuantizerType
 from . import transforms as T
 
 _ITEM10 = "ROADMAP queue 1 item 10"
 
-# faiss_tpu's tokens for the codecs, graphs and quantizers the port does not
+# the scalar-quantizer tokens (faiss_tpu/factory.py:31-48;
+# index_factory.cpp:160-179 sq_types)
+_SQ_TYPES = {
+    "SQ8": QuantizerType.QT_8bit,
+    "SQ4": QuantizerType.QT_4bit,
+    "SQ6": QuantizerType.QT_6bit,
+    "SQfp16": QuantizerType.QT_fp16,
+    "SQbf16": QuantizerType.QT_bf16,
+    "SQ8_direct_signed": QuantizerType.QT_8bit_direct_signed,
+    "SQ8_direct": QuantizerType.QT_8bit_direct,
+    "SQ0": QuantizerType.QT_0bit,
+    "SQtqmse1": QuantizerType.QT_1bit_tqmse,
+    "SQtqmse2": QuantizerType.QT_2bit_tqmse,
+    "SQtqmse3": QuantizerType.QT_3bit_tqmse,
+    "SQtqmse4": QuantizerType.QT_4bit_tqmse,
+    "SQtqmse8": QuantizerType.QT_8bit_tqmse,
+    "SQtq2": QuantizerType.QT_2bit_tq,
+    "SQtq3": QuantizerType.QT_3bit_tq,
+    "SQtq4": QuantizerType.QT_4bit_tq,
+    "SQtq5": QuantizerType.QT_5bit_tq,
+}
+
+# faiss_tpu's tokens for the other codecs, the graphs (with their SQ
+# variants, HNSWn,SQx and NSGn,SQx) and the quantizers the port does not
 # have yet (ROADMAP queue 1 item 10): they parse, then raise
 _UNPORTED_CODECS = (
-    r"SQ\w*", r"(RQ|LSQ)\d+x(4fs|\d+)(_\w+)?", r"(PRQ|PLSQ)\d+x\d+x(4fs|\d+)(_\w+)?",
+    r"(RQ|LSQ)\d+x(4fs|\d+)(_\w+)?", r"(PRQ|PLSQ)\d+x\d+x(4fs|\d+)(_\w+)?",
     r"RaBitQ(fs)?\d?(_\d+)?", r"EDEN[1-8]?(BIASED|BIAS)?", r"FlatPanorama(\d+)?(_\d+)?",
     r"ZnLattice\d+x\d+_\d+", r"LSHr?t?",
     r"(HNSW|NSG|NNDescent)(\d+)?",
@@ -111,6 +138,9 @@ def _parse_ivf_encoding(tok: str, d: int, nlist: int, metric, device):
     if m := re.fullmatch(r"PQ(\d+)", tok):
         return IndexIVFPQ(None, d, nlist, int(m.group(1)), 8, metric,
                           device=device)
+    if tok in _SQ_TYPES:
+        return IndexIVFScalarQuantizer(None, d, nlist, _SQ_TYPES[tok], metric,
+                                       device=device)
     if any(re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
         _unported(tok, "the IVF encoding")
     return None
@@ -122,6 +152,8 @@ def _parse_flat_encoding(tok: str, d: int, metric, device):
         return IndexFlat(d, metric, device=device)
     if tok == "Flat1D":
         return IndexFlat1D(device=device)
+    if tok in _SQ_TYPES:
+        return IndexScalarQuantizer(d, _SQ_TYPES[tok], metric, device=device)
     if re.fullmatch(r"PQ\d+(x4fs(_\d+)?|x\d+)?", tok) or any(
             re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
         _unported(tok, "the encoding")

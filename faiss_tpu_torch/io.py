@@ -6,10 +6,11 @@ The container is faiss_tpu's: one uncompressed ``.npz`` holding a
 hierarchical ``root/...`` keys. The port reads what faiss_tpu writes and
 faiss_tpu reads what the port writes, for the classes the port has:
 IndexFlat (L2 / IP, with ``storage_dtype``), IndexFlatSQ8, IndexFlat1D,
-IndexIVFFlat, IndexIVFPQ, IndexIVFPQFastScan (with ``bbs``), IndexIVFPQR,
-IndexIDMap / IndexIDMap2, IndexRefine / IndexRefineFlat (its ``store``
-recovered from the refine index) and IndexPreTransform over every transform
-of faiss_tpu_torch.transforms. A class tag of faiss_tpu that the port does
+IndexScalarQuantizer, IndexIVFScalarQuantizer, IndexIVFFlat, IndexIVFPQ,
+IndexIVFPQFastScan (with ``bbs``), IndexIVFPQR, IndexIDMap / IndexIDMap2,
+IndexRefine / IndexRefineFlat (its ``store`` recovered from the refine
+index) and IndexPreTransform over every transform of
+faiss_tpu_torch.transforms. A class tag of faiss_tpu that the port does
 not have raises NotImplementedError naming its ROADMAP queue-1 item.
 
 ``read_index`` builds the index on ``device`` (the card unless the caller
@@ -33,6 +34,8 @@ from .models.flat import IndexFlat, IndexFlat1D, IndexFlatIP, IndexFlatL2, Index
 from .models.ivf import IndexIVF
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
+from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
+from .codecs.sq import QuantizerType
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -49,8 +52,7 @@ IO_FLAG_READ_ONLY = 2
 # faiss_tpu's class tags whose classes the port does not have yet: the
 # codecs, graphs, binary indexes and quantizers of ROADMAP queue 1 item 10
 _ITEM10_CLASSES = frozenset((
-    "IndexPQ", "IndexPQFastScan", "IndexScalarQuantizer",
-    "IndexIVFScalarQuantizer", "IndexLSH", "IndexHNSW", "IndexHNSWFlat",
+    "IndexPQ", "IndexPQFastScan", "IndexLSH", "IndexHNSW", "IndexHNSWFlat",
     "IndexHNSWPQ", "IndexHNSWSQ", "IndexHNSW2Level", "IndexHNSWFlatPanorama",
     "IndexNSGFlat", "IndexNNDescentFlat", "IndexNSGPQ", "IndexNSGSQ",
     "IndexFlatPanorama", "IndexIVFFlatPanorama", "MultiIndexQuantizer",
@@ -145,6 +147,21 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
                 arrays[f"{path}/refine_codes"] = index._refine_codes
         if isinstance(index, IndexIVFPQFastScan):
             meta["bbs"] = index.bbs
+        if isinstance(index, IndexIVFScalarQuantizer):
+            meta["qtype"] = int(index.sq.qtype)
+            meta["sq_by_residual"] = bool(index.by_residual)
+            meta["tq_seed"] = int(index.sq.tq_seed)
+            if index.sq.trained is not None:
+                arrays[f"{path}/sq_trained"] = index.sq.trained
+        return meta
+    if isinstance(index, IndexScalarQuantizer):
+        meta.update(d=index.d, metric=int(index.metric_type),
+                    qtype=int(index.sq.qtype), is_trained=index.is_trained,
+                    tq_seed=int(index.sq.tq_seed))
+        if index.sq.trained is not None:
+            arrays[f"{path}/sq_trained"] = index.sq.trained
+        if index._codes is not None:
+            arrays[f"{path}/codes"] = index._codes
         return meta
     if isinstance(index, IndexFlatSQ8):
         meta.update(d=index.d, metric=int(index.metric_type),
@@ -208,8 +225,18 @@ def _load(meta, arrays, path: str, device):
         index.ntotal = base.ntotal
         return index
     if cls in ("IndexIVFFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
-               "IndexIVFPQR"):
+               "IndexIVFPQR", "IndexIVFScalarQuantizer"):
         return _load_ivf(meta, arrays, path, device)
+    if cls == "IndexScalarQuantizer":
+        index = IndexScalarQuantizer(meta["d"], QuantizerType(meta["qtype"]),
+                                     MetricType(meta["metric"]), device=device)
+        index.sq.tq_seed = int(meta.get("tq_seed", 123))
+        if f"{path}/sq_trained" in arrays:
+            index.sq.trained = arrays[f"{path}/sq_trained"]
+        index.is_trained = meta["is_trained"]
+        if f"{path}/codes" in arrays:
+            index.add_codes(arrays[f"{path}/codes"])
+        return index
     if cls == "IndexFlatSQ8":
         index = IndexFlatSQ8(meta["d"], MetricType(meta["metric"]), device=device)
         if meta.get("trained"):
@@ -246,6 +273,14 @@ def _load_ivf(meta, arrays, path, device):
     d, nlist, metric = meta["d"], meta["nlist"], MetricType(meta["metric"])
     if cls == "IndexIVFFlat":
         index = IndexIVFFlat(quantizer, d, nlist, metric, device=device)
+    elif cls == "IndexIVFScalarQuantizer":
+        index = IndexIVFScalarQuantizer(
+            quantizer, d, nlist, QuantizerType(meta["qtype"]), metric,
+            by_residual=bool(meta.get("sq_by_residual", False)), device=device)
+        index.sq.tq_seed = int(meta.get("tq_seed", 123))
+        if f"{path}/sq_trained" in arrays:
+            index.sq.trained = arrays[f"{path}/sq_trained"]
+        index.by_residual = meta["by_residual"]
     else:
         pq = meta["pq"]
         if cls == "IndexIVFPQFastScan":

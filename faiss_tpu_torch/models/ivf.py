@@ -344,14 +344,20 @@ class IndexIVF(Index, Level1Quantizer):
         self._device = self._stage_codes(slot_ids, lengths, max_len)
         return self._device
 
+    def _stage_rows(self) -> np.ndarray:
+        """The float32 rows [ntotal, d] of the padded layout, in slot order:
+        IVF-Flat's vectors (a codec that scans decoded rows overrides
+        this)."""
+        return self._codes_host
+
     def _stage_codes(self, slot_ids, lengths, max_len):
-        """Device tensors of the per-probe scan; the IVF-Flat default: the
-        padded raw vectors [nlist, max_len, d] float32 (zeros on pads),
+        """Device tensors of the per-probe scan; the default: the padded
+        rows of ``_stage_rows`` [nlist, max_len, d] float32 (zeros on pads),
         gathered on the device through ``slot_ids``, and their norms."""
         dev = self.device
         sid = torch.from_numpy(slot_ids).to(dev)
         xb = torch.from_numpy(
-            np.ascontiguousarray(self._codes_host, np.float32)
+            np.ascontiguousarray(self._stage_rows(), np.float32)
         ).to(dev) if self.ntotal else torch.zeros(1, self.d, device=dev)
         codes = torch.where(
             (sid >= 0)[..., None], xb[sid.clamp_min(0).long()], 0.0

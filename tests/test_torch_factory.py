@@ -56,6 +56,8 @@ def tree(index):
         out["bbs"] = index.bbs
     if hasattr(index, "pq"):
         out["by_residual"] = index.by_residual
+    if hasattr(index, "sq"):
+        out["sq"] = (int(index.sq.qtype), index.sq.code_size)
     return out
 
 
@@ -72,6 +74,8 @@ SUPPORTED = [
     (32, "IDMap2,IVF32,PQ4x4fs,Refine(SQ8)", "l2"), (32, "IVF16,PQ8x4fs,Refine(Flat)", "l2"),
     (32, "IVF16,PQ8,Refine(IVF8,Flat)", "l2"), (32, "IDMap,OPQ8,IVF16,PQ8,RFlat", "l2"),
     (96, "OPQ32,IVF8192,PQ32x4fs,RFlat", "l2"),
+    (32, "SQ8", "l2"), (32, "IVF16,SQ8", "l2"), (32, "IVF16,SQfp16", "l2"),
+    (32, "IVF16,Flat,Refine(SQ4)", "l2"),
 ]
 
 
@@ -90,10 +94,10 @@ def test_factory_tree_matches_reference(d, desc, metric):
 
 
 UNPORTED = [
-    "PQ4,RFlat", "PQ8", "PQ8x4fs", "SQ8", "IVF16,SQ8", "IVF16,SQfp16", "HNSW32",
+    "PQ4,RFlat", "PQ8", "PQ8x4fs", "HNSW32,SQ8", "NSG32,SQ8", "HNSW32",
     "HNSW32,PQ8", "NSG32", "IVF16(PQ4),Flat", "IVF16_HNSW32,Flat", "IMI2x4,PQ8",
     "IVF16,RQ4x4", "IVF16,LSQ4x4fs", "RQ4x4", "IVF16,PRQ2x4x4fs", "LSH", "IVF16,RaBitQ", "RaBitQfs",
-    "EDEN4", "IVF16,FlatPanorama", "IVF16,Flat,Refine(SQ4)", "IVF16,Flat,Refine(PQ4)",
+    "EDEN4", "IVF16,FlatPanorama", "IVF16,Flat,Refine(PQ4)",
 ]
 
 

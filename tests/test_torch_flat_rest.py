@@ -238,12 +238,16 @@ def test_sq8_trained_codes_and_norms_match_reference(data, sq8):
     a.add(xb[:700])
     b.add(xb[:700])
     np.testing.assert_array_equal(b.sq.trained, a.sq.trained)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        ftt.ScalarQuantizer(D, ftt.QuantizerType.QT_4bit)
-    other = ftt.ScalarQuantizer(D)
-    other.rangestat = ftt.RangeStat.RS_quantiles
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        other.train(xb)
+    # the other quantizer types and range statistics, bit for bit
+    q4j = ftj.ScalarQuantizer(D, ftj.QuantizerType.QT_4bit)
+    q4t = ftt.ScalarQuantizer(D, ftt.QuantizerType.QT_4bit)
+    qj, qt = ftj.ScalarQuantizer(D), ftt.ScalarQuantizer(D)
+    qj.rangestat, qt.rangestat = ftj.RangeStat.RS_quantiles, ftt.RangeStat.RS_quantiles
+    for a, b in ((q4j, q4t), (qj, qt)):
+        a.train(xb)
+        b.train(xb)
+        assert np.array_equal(b.trained, a.trained)
+        assert np.array_equal(b.compute_codes(xb), a.compute_codes(xb))
 
 
 @pytest.mark.parametrize("metric", ["L2", "IP"])

@@ -259,8 +259,9 @@ def test_write_read_file_and_mmap(data, tmp_path):
 def test_io_compat_files_and_golden_results():
     """faiss_tpu 0.1.0's committed files load in the port (ntotal 1200), and
     IVF8_PQ4 at nprobe 8 reproduces golden_ivfpq.npz (rtol 1e-5, atol 1e-6,
-    as tests/test_io_compat.py; ids up to ties within it). The codecs the
-    port does not have raise naming ROADMAP queue 1 item 10."""
+    as tests/test_io_compat.py; ids up to ties within it); SQ8 loads and
+    searches as faiss_tpu's reading of it. The codec the port does not have
+    (PQ4x4fs, an IndexPQFastScan) raises naming ROADMAP queue 1 item 10."""
     for name in ("Flat", "IVF8_Flat", "IVF8_PQ4"):
         index = ftt.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device="cpu")
         assert index.ntotal == 1200, name
@@ -270,9 +271,12 @@ def test_io_compat_files_and_golden_results():
     D, I = index.search(xq, 5)
     np.testing.assert_allclose(D, Dg, rtol=1e-5, atol=1e-6)
     assert ids_agree_tie_aware(Dg, Ig, D, I, 1e-5 * np.abs(Dg[:, -1]) + 1e-6).all()
-    for name in ("PQ4x4fs", "SQ8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            ftt.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device="cpu")
+    sq8 = ftt.read_index(str(IO_COMPAT / "v0_1_0_SQ8.npz"), device="cpu")
+    ref = ftj.read_index(str(IO_COMPAT / "v0_1_0_SQ8.npz"))
+    assert isinstance(sq8, ftt.IndexScalarQuantizer) and sq8.ntotal == 1200
+    search_agree(ref, sq8, xq, ref.reconstruct_n(0, ref.ntotal), False)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        ftt.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"), device="cpu")
 
 
 def test_refusals(data, tmp_path, monkeypatch):
