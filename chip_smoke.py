@@ -8,7 +8,9 @@ and K3), IVF4096,Flat search (K1 and K2 over hi/lo planes) and
 IndexIVFPQR IVF4096,PQ8+16: all seven kernels; then Refine(SQ8) under
 IDMap2 (K1), ID selectors, IVF-Flat's mutations (K1, K2), range search and
 IVF-Flat by inner product (phases A-E); index files (phase G); the
-scalar-quantizer family on the same 1M x 128 set (K2, K3; phase I);
+scalar-quantizer family on the same 1M x 128 set (K2, K3; phase I); the
+PQ and Hamming family there (BASELINE rows 1-3, K2 under
+IndexBinaryFromFloat; phase J);
 OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory over the Deep10M-like
 10M x 96 set (K1, phase F); and last k-means of BASELINE row 12, 8.1M x 784
 uint8 points into 256 centroids (phase H).
@@ -243,8 +245,11 @@ print stands beside the card's name and power limit:
      tests/io_compat files: Flat, IVF8_Flat and IVF8_PQ4 read onto the card
      with ntotal 1200, IVF8_PQ4 at nprobe 8 reproducing golden_ivfpq.npz
      (D within rtol 1e-5, atol 1e-6, ids tie-aware within it), SQ8 read
-     as an IndexScalarQuantizer of 1200 rows, PQ4x4fs raising
-     NotImplementedError naming ROADMAP queue 1 item 10;
+     as an IndexScalarQuantizer of 1200 rows, PQ4x4fs read as an
+     IndexPQFastScan of 1200 rows with its codes bitwise the file's, its
+     search of the golden file's 10 queries equal to a float64 ADC of its
+     bf16-rounded tables (within 1e-5 of each row's sum over m of its
+     largest table entry, the float32 sum's error), ids tie-aware;
  I. (after phase 31) the scalar quantizers on the 1M x 128 set, each built
      by index_factory on the card (trained on the 200k training rows),
      with build seconds, host-clock median of 5, QPS and recall@10 against
@@ -258,6 +263,45 @@ print stands beside the card's name and power limit:
      with codes and ranges bitwise equal and the search equal on every
      row; SuperKMeans into 4096 centroids on the 200k training rows (20
      iterations) at most 1.05 x Clustering's objective, both timed;
+ J. (after I) the PQ and Hamming family on the 1M x 128 set, none of it a
+     kernel but IndexBinaryFromFloat's K2; every number beside the card's
+     name and power limit, every search a host-clock median of 3:
+     J1. BASELINE row 1: index_factory(128, "PQ64") (IndexPQ(128, 64, 8))
+       trained on the 200k rows with do_polysemous_training (the k-means
+       and the host annealing timed apart: the ADC does not depend on the
+       codewords' labels, so one index serves rows 1-3), the 1M added, the
+       8192 queries at k=10 by ADC: recall@1 and @10 against
+       bench_gt_cache.npz (SIFT1M's published R@1 0.4474 printed beside
+       it, no limit), and 64 rows against a float64 ADC brute force over
+       every code (distances within 1e-5 of the row's sum over m of its
+       largest table entry, ids tie-aware); ST_SDC on 1024 queries, 64
+       rows against a float64 scan of the symmetric table;
+     J2. rows 2-3: ST_polysemous at ht = 512 (the whole code) returns J1's
+       results bit for bit; at ht = 54 and 30 the recall@1 (beside the
+       published 0.4478 and 0.1794), the search time beside J1's, the
+       share of the (query, code) pairs filtered over all queries, and 64
+       rows against float64 over exactly the codes that pass;
+     J3-J4. PQ32x4fs (IndexPQFastScan, the bf16 one-hot product) and
+       PQ16x12 (ksub 4096, int32 codes on the card) through index_factory:
+       train and add seconds, recall@1 and @10, 64 rows against float64 of
+       the scan's own tables (bf16-rounded at 4 bits);
+     J5. phase 4's coarse quantizer and PQ (IVF4096,PQ32x4fs) with the 1M
+       vectors added, nprobe 16, polysemous_ht 40 of 128 bits, 1024
+       queries by probe: the share of the probed slots filtered and 64 rows
+       against float64 over the probed lists' surviving slots (1e-5 *
+       (|q|^2 + max |y|^2));
+     J6. IndexLSH(128, 256, rotate_data, train_thresholds) over the 1M set,
+       then its codes (1M x 32 B) in IndexBinaryFlat(256) (the int8
+       product and the SWAR routes, timed; equal distances),
+       IndexBinaryFromFloat(IndexFlatL2(256)) (K2 must launch; counted in
+       the kernels' line; IndexBinaryFlat's distances),
+       IndexBinaryIVF(256, 1024) trained on the 200k rows' codes, nprobe 16,
+       and IndexBinaryHash(256, 16) with nflip 1 and
+       IndexBinaryMultiHash(256, 4, 16) on 1024 queries: recall@1 and @10,
+       and 64 rows of each against the bits set of each byte value (from
+       numpy's unpackbits) over the row's candidates (every code, the
+       probed lists, the probed buckets): distances per rank equal, every
+       id a candidate at its own count, ids tie-aware;
  F. the Deep10M-like set of benchs/bench_deep10m.py regenerated into
      RAM (its generator copied: seeds 7, 1, 2, 3; 10M base, 500k training
      and 8192 query rows of 96 dimensions), gt[:, 0] of .deep10m_gt.npz the
@@ -2769,17 +2813,25 @@ def io_phases(ft, fused_knn, state, xq, dev):
     check(type(sq8).__name__ == "IndexScalarQuantizer" and sq8.ntotal == 1200
           and np.array_equal(sq8.vectors(), sq8.sq.decode(sq8._codes)),
           f"G. v0_1_0_SQ8 read as {class_tree(sq8)}, ntotal {sq8.ntotal}")
-    try:
-        ft.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"), device=dev)
-    except NotImplementedError as e:
-        check("item 10" in str(e), f"G. v0_1_0_PQ4x4fs raised {e}")
-    else:
-        raise RuntimeError("chip_smoke: G. v0_1_0_PQ4x4fs did not raise")
-    print(f"G. tests/io_compat: Flat, IVF8_Flat, IVF8_PQ4 and SQ8 read onto the "
-          f"card (ntotal 1200 each); IVF8_PQ4 at nprobe 8 reproduces "
+    fs = ft.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"), device=dev)
+    with np.load(IO_COMPAT / "v0_1_0_PQ4x4fs.npz") as z:
+        fs_codes = z["root/codes"]
+    check(type(fs).__name__ == "IndexPQFastScan" and fs.ntotal == 1200
+          and fs.device == dev and np.array_equal(fs.codes_host, fs_codes),
+          f"G. v0_1_0_PQ4x4fs read as {class_tree(fs)}, ntotal {fs.ntotal}")
+    from faiss_tpu_torch.ops import pq_ops
+
+    Df, If = fs.search(xg, 10)
+    luts = pq_ops.pq_distance_tables(torch.from_numpy(xg).to(dev), fs.pq._dev())
+    luts = luts.to(torch.bfloat16).float()  # the FastScan scan's own tables
+    err = adc_rows_check("G. v0_1_0_PQ4x4fs", Df, If, adc64(luts, fs._codes),
+                         lut_tol(luts))
+    print(f"G. tests/io_compat: Flat, IVF8_Flat, IVF8_PQ4, SQ8 and PQ4x4fs read onto "
+          f"the card (ntotal 1200 each); IVF8_PQ4 at nprobe 8 reproduces "
           f"golden_ivfpq.npz (max |D - golden| "
-          f"{float(np.abs(Dp - Dg).max()):.3e}); PQ4x4fs raises "
-          f"NotImplementedError naming ROADMAP queue 1 item 10", flush=True)
+          f"{float(np.abs(Dp - Dg).max()):.3e}); PQ4x4fs (IndexPQFastScan) equals "
+          f"a float64 ADC of its bf16 tables on all {len(xg)} queries (max err "
+          f"{err:.3e})", flush=True)
 
 
 def deep10m_phases(ft, fused_knn, dev):
@@ -3272,6 +3324,392 @@ def sq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     return k2, k3
 
 
+def adc64(luts, codes, keep=None):
+    """float64 ADC [r, nb] on the card: the tables ``luts`` [r, M, ksub] (as
+    given) summed at the codes [nb, M]; +inf where ``keep`` [r, nb] is
+    False."""
+    l64 = luts.double()
+    out = torch.zeros(l64.shape[0], codes.shape[0], dtype=torch.float64,
+                      device=luts.device)
+    for m in range(l64.shape[1]):
+        out += l64[:, m, :][:, codes[:, m].long()]
+    return out if keep is None else torch.where(keep, out, float("inf"))
+
+
+def adc_rows_check(what, Dp, Ip, ref64, tol, ids_of=None):
+    """Rows of a search against a float64 scan ``ref64`` [r, n] (+inf = not
+    a candidate): per rank distances within ``tol`` [r] of its top-k, each
+    returned id at its own float64 value within ``tol``, ids tie-aware; -1
+    exactly where the candidates run out. ``ids_of`` maps columns to ids.
+    Returns the largest difference."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    r, k = ref64.shape[0], Dp.shape[1]
+    vals, cols = torch.topk(ref64, min(k, ref64.shape[1]), dim=1, largest=False)
+    vals, cols = vals.cpu().numpy(), cols.cpu().numpy()
+    ids = cols if ids_of is None else ids_of[cols]
+    ids = np.where(np.isfinite(vals), ids, -1)
+    Dp, Ip = Dp[:r, : vals.shape[1]], Ip[:r, : vals.shape[1]]
+    fin = np.isfinite(vals)
+    check(np.array_equal(fin, Ip >= 0) and np.array_equal(fin, np.isfinite(Dp)),
+          f"{what}: -1 ids where float64 has candidates, or the reverse")
+    err = np.abs(np.where(fin, Dp, 0.0) - np.where(fin, vals, 0.0))
+    check((err <= tol[:, None]).all(),
+          f"{what}: distances differ from float64 by {err.max():.3e}")
+    own = ref64.cpu().numpy() if ids_of is None else None
+    if own is not None:
+        mine = own[np.arange(r)[:, None], np.maximum(Ip, 0)]
+        check((np.abs(np.where(fin, mine, 0.0) - np.where(fin, Dp, 0.0))
+               <= tol[:, None]).all(),
+              f"{what}: a returned id's float64 distance differs")
+    big = 1e30
+    agree = ids_agree_tie_aware(np.where(fin, vals, big), ids,
+                                np.where(fin, Dp, big), Ip, tol)
+    check(agree.all(), f"{what}: ids differ from float64 on "
+                       f"{int((~agree).sum())} of {r} rows")
+    return float(err.max())
+
+
+def lut_tol(luts):
+    """1e-5 of each row's sum over m of its largest table entry: the scale of
+    a float32 ADC sum's error."""
+    return 1e-5 * luts.abs().amax(dim=2).sum(1).double().cpu().numpy()
+
+
+def hamming_rows_check(what, Dp, Ip, qcodes, codes, cand=None, k=K):
+    """EXACT_ROWS rows of a Hamming search whose ids are row numbers of
+    ``codes`` [n, nbytes] (a tensor on the card), against the count of
+    numpy's unpackbits (a table of the bits set in each byte value) over
+    the row's candidates (``cand``: every code, or one array of row numbers
+    per row): distances per rank equal, each returned id a candidate at its
+    own distance, ids tie-aware."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    dev = codes.device
+    table = torch.from_numpy(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
+                                           axis=1).sum(1).astype(np.int32)).to(dev)
+    q = torch.from_numpy(np.ascontiguousarray(qcodes[:EXACT_ROWS])).to(dev)
+
+    def count(r, rows):
+        return table[(codes[rows] ^ q[r]).long()].sum(1).cpu().numpy()
+
+    for r in range(EXACT_ROWS):
+        ci = np.arange(len(codes)) if cand is None else cand[r]
+        d = count(r, torch.from_numpy(ci).to(dev))
+        o = np.argpartition(d, min(k, len(d) - 1))[:k] if len(d) > k else np.arange(len(d))
+        o = o[np.argsort(d[o], kind="stable")]
+        n = len(o)
+        got = Ip[r, :n]
+        check(np.array_equal(Dp[r, :n], d[o]) and (Ip[r, n:] == -1).all(),
+              f"{what}: row {r} distances differ from numpy's count")
+        check(np.isin(got, ci).all() and np.array_equal(
+            count(r, torch.from_numpy(got).to(dev)), Dp[r, :n]),
+            f"{what}: row {r} returns a non-candidate or an id at another distance")
+        check(n == 0 or ids_agree_tie_aware(d[o][None], ci[o][None],
+                                            Dp[r : r + 1, :n], Ip[r : r + 1, :n], 0).all(),
+              f"{what}: row {r} ids differ from numpy's beyond ties")
+
+
+def timed(what, fn, n, reps=3):
+    """Host-clock median of ``reps`` calls of a search of n queries, printed
+    with the card."""
+    med, times = host_median(fn, reps)
+    print(f"{what}: median {med * 1e3:.1f} ms over {reps} "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> {n / med:.0f} QPS "
+          f"({CARD})", flush=True)
+    return med
+
+
+def j_recalls(I, gt, nq):
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    return (f"recall@1 {recall_at_k(I, gt[:nq], 1):.4f}, "
+            f"recall@10 {recall_at_k(I, gt[:nq], 10):.4f}")
+
+
+def pq_hamming_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
+    """Phase J: the PQ and Hamming family on the 1M x 128 set. Returns the
+    K2 launches of IndexBinaryFromFloat's search."""
+    from faiss_tpu_torch.ops import hamming as hops
+    from faiss_tpu_torch.ops import pq_ops
+
+    def recalls(I, nq):
+        return j_recalls(I, gt, nq)
+
+    xq64 = torch.from_numpy(xq[:EXACT_ROWS]).to(dev)
+
+    # J1 / J2: PQ64 (BASELINE rows 1-3), trained once with the polysemous
+    # permutation: the ADC of row 1 does not depend on the codewords' labels
+    index = ft.index_factory(D, "PQ64")
+    check(type(index).__name__ == "IndexPQ" and index.pq.nbits == 8
+          and index.device == dev, f"J1. PQ64 built as {class_tree(index)}")
+    index.do_polysemous_training = True
+    pt = ft.PolysemousTraining()
+    anneal = []
+    optimize = pt.optimize_pq_for_hamming
+
+    def timed_optimize(pq):
+        t = time.time()
+        optimize(pq)
+        anneal.append(time.time() - t)
+
+    pt.optimize_pq_for_hamming = timed_optimize
+    index.polysemous_training = pt
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index.train(xt)
+    t_train = time.time() - t0
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    D1, I1 = no_kernel(fused_knn, "J1. PQ64 ADC", lambda: index.search(xq, K))
+    med1 = timed(f"J1. PQ64 ADC search of {NQ} queries at k={K}",
+                 lambda: index.search(xq, K), NQ)
+    codes = index._codes
+    luts = pq_ops.pq_distance_tables(xq64, index.pq._dev())
+    err1 = adc_rows_check("J1. PQ64", D1, I1, adc64(luts, codes), lut_tol(luts))
+    print(f"J1. PQ64 (IndexPQ(128, 64, 8)): train {t_train:.2f} s (k-means "
+          f"{t_train - anneal[0]:.2f} s, polysemous annealing {anneal[0]:.2f} s on "
+          f"the host), add {t_add:.2f} s; {recalls(I1, NQ)} (published on the real "
+          f"SIFT1M: R@1 0.4474); {EXACT_ROWS} rows equal a float64 ADC brute force "
+          f"(max err {err1:.3e}) ({CARD})", flush=True)
+    nq_sdc = min(1024, NQ)
+    index.search_type = index.ST_SDC
+    Ds, Is = no_kernel(fused_knn, "J1. PQ64 SDC",
+                       lambda: index.search(xq[:nq_sdc], K))
+    med = timed(f"J1. PQ64 SDC search of {nq_sdc} queries", lambda: index.search(
+        xq[:nq_sdc], K), nq_sdc)
+    sdc = torch.from_numpy(index.pq.compute_sdc_table()).to(dev)
+    qc = pq_ops.pq_encode(xq64, index.pq._dev())
+    sl = sdc[torch.arange(64, device=dev)[None, :], qc]
+    err = adc_rows_check("J1. PQ64 SDC", Ds, Is, adc64(sl, codes), lut_tol(sl))
+    print(f"J1. PQ64 ST_SDC: {recalls(Is, nq_sdc)}; {EXACT_ROWS} rows equal a "
+          f"float64 scan of the symmetric table (max err {err:.3e}) ({CARD})",
+          flush=True)
+
+    index.search_type = index.ST_polysemous
+    qbits_all = hops.code_bits(pq_ops.pq_encode(torch.from_numpy(xq).to(dev),
+                                                index.pq._dev()), 8)
+    for ht in (512, 54, 30):
+        index.polysemous_ht = ht
+        Dh, Ih = no_kernel(fused_knn, f"J2. PQ64 polysemous ht={ht}",
+                           lambda: index.search(xq, K))
+        if ht == 512:
+            check(np.array_equal(Dh, D1) and np.array_equal(Ih, I1),
+                  "J2. polysemous ht=512 (the whole code) differs from J1's ADC")
+            print("J2. PQ64 polysemous at ht=512: J1's results bit for bit",
+                  flush=True)
+            continue
+        med = timed(f"J2. PQ64 polysemous ht={ht} search of {NQ} queries",
+                    lambda: index.search(xq, K), NQ)
+        dropped = 0
+        for c0 in range(0, len(codes), 1 << 16):
+            ham = hops.hamming_product(qbits_all, hops.code_bits(codes[c0 : c0 + (1 << 16)], 8))
+            dropped += int((ham >= ht).sum())
+        keep = hops.hamming_product(qbits_all[:EXACT_ROWS], hops.code_bits(codes, 8)) < ht
+        err = adc_rows_check(f"J2. ht={ht}", Dh, Ih, adc64(luts, codes, keep),
+                             lut_tol(luts))
+        print(f"J2. PQ64 polysemous (BASELINE row {2 if ht == 54 else 3}) ht={ht}: "
+              f"{recalls(Ih, NQ)} (published R@1 {0.4478 if ht == 54 else 0.1794}); "
+              f"{dropped / (NQ * len(codes)):.6f} of the (query, code) pairs filtered; "
+              f"{int((Ih >= 0).sum())} of {NQ * K} result slots filled; "
+              f"search {med * 1e3:.1f} ms against ADC's {med1 * 1e3:.1f} ms; "
+              f"{EXACT_ROWS} rows equal float64 over the codes that pass (max err "
+              f"{err:.3e}) ({CARD})", flush=True)
+    del index, codes, qbits_all
+    torch.cuda.empty_cache()
+
+    # J3, J4: PQ32x4fs (IndexPQFastScan, the bf16 one-hot product) and PQ16x12
+    for desc, cls in (("PQ32x4fs", "IndexPQFastScan"), ("PQ16x12", "IndexPQ")):
+        index = ft.index_factory(D, desc)
+        check(type(index).__name__ == cls, f"J. {desc} built as {class_tree(index)}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        index.train(xt)
+        t_train = time.time() - t0
+        index.add(xb)
+        torch.cuda.synchronize()
+        t_add = time.time() - t0 - t_train
+        Dp, Ip = no_kernel(fused_knn, f"J. {desc}", lambda: index.search(xq, K))
+        med = timed(f"J. {desc} search of {NQ} queries at k={K}",
+                    lambda: index.search(xq, K), NQ)
+        luts = pq_ops.pq_distance_tables(xq64, index.pq._dev())
+        if index.pq.ksub <= 16:  # the scan's own bf16-rounded tables
+            luts = luts.to(torch.bfloat16).float()
+        err = adc_rows_check(f"J. {desc}", Dp, Ip, adc64(luts, index._codes),
+                             lut_tol(luts))
+        print(f"J{3 if cls == 'IndexPQFastScan' else 4}. {desc} "
+              f"({index.pq.code_size} B codes, ksub {index.pq.ksub}, codes "
+              f"{str(index._codes.dtype)[6:]} on the card): train {t_train:.2f} s, "
+              f"add {t_add:.2f} s; {recalls(Ip, NQ)}; {EXACT_ROWS} rows equal float64 "
+              f"of {'the bf16-rounded' if index.pq.ksub <= 16 else 'the float32'} "
+              f"tables (max err {err:.3e}) ({CARD})", flush=True)
+        del index
+        torch.cuda.empty_cache()
+
+    # J5: the IVF-PQ polysemous filter on phase 4's IVF4096,PQ32x4fs base
+    j5_phase(ft, fused_knn, state, xb, xq, dev)
+    return binary_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+
+
+def j5_phase(ft, fused_knn, state, xb, xq, dev):
+    """J5: phase 4's IVF4096,PQ32x4fs coarse quantizer and PQ with the 1M
+    vectors added, searched by probe with the polysemous filter."""
+    from faiss_tpu_torch.convert import ivfpq_from_arrays
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    base = ivfpq_from_arrays(state["cent"], state["pq"],
+                             np.zeros((0, M), np.uint8), [], [], device=dev)
+    base.add(xb)
+    base.nprobe, base.polysemous_ht = 16, 40
+    nq = min(1024, NQ)
+    Dp, Ip = no_kernel(fused_knn, f"J5. IVF{NLIST},PQ{M}x4fs polysemous_ht=40",
+                       lambda: base.search(xq[:nq], K))
+    med = timed(f"J5. IVF{NLIST},PQ{M}x4fs nprobe 16, polysemous_ht 40 (of "
+                f"{M * NBITS} bits), {nq} queries by probe",
+                lambda: base.search(xq[:nq], K), nq)
+    q = torch.from_numpy(xq[:EXACT_ROWS]).to(dev)
+    probes = base._coarse_search(q, base.nprobe)[1]
+    qcodes = base._query_residual_codes(q, probes).cpu().numpy()
+    probes = probes.cpu().numpy()
+    codes, listnos = base._codes_host, base._listnos_host
+    rows = base.decode_vectors(codes, listnos).astype(np.float64)
+    ymax = float((rows**2).sum(1).max())
+    pop = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1)
+    err, kept, seen = 0.0, 0, 0
+    for r in range(EXACT_ROWS):
+        cand = []
+        for p in range(base.nprobe):
+            sl = np.nonzero(listnos == probes[r, p])[0]
+            ham = pop[codes[sl] ^ qcodes[r, p].astype(np.uint8)].sum(1)
+            cand.append(sl[ham < base.polysemous_ht])
+            seen += len(sl)
+        cand = np.concatenate(cand)
+        kept += len(cand)
+        x64 = xq[r].astype(np.float64)
+        d = ((x64 - rows[cand]) ** 2).sum(1)
+        o = np.argsort(d, kind="stable")[:K]
+        tol = 1e-5 * (float((x64**2).sum()) + ymax)
+        n = len(o)
+        e = np.abs(Dp[r, :n] - d[o])
+        check((e <= tol).all() and (Ip[r, n:] == -1).all() and (n == 0 or ids_agree_tie_aware(
+            d[o][None], base._ids_host[cand][o][None], Dp[r : r + 1, :n],
+            Ip[r : r + 1, :n], np.array([tol])).all()),
+            f"J5: row {r} differs from float64 over its probed lists' surviving slots")
+        err = max(err, float(e.max()) if n else 0.0)
+    print(f"J5. IVF{NLIST},PQ{M}x4fs polysemous_ht=40 at nprobe 16: "
+          f"{1 - kept / seen:.4f} of the probed slots filtered on {EXACT_ROWS} rows; "
+          f"{int((Ip >= 0).sum())} of {nq * K} result slots filled; {EXACT_ROWS} rows "
+          f"equal float64 over the surviving slots (max err {err:.3e}); search "
+          f"{med * 1e3:.1f} ms ({CARD})", flush=True)
+    del base
+    torch.cuda.empty_cache()
+
+
+def binary_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+    """J6: IndexLSH(128, 256) over the 1M set, then its codes through
+    IndexBinaryFlat (both Hamming routes), IndexBinaryFromFloat over
+    IndexFlatL2(256) (K2), IndexBinaryIVF, IndexBinaryHash and
+    IndexBinaryMultiHash. Returns the K2 launches."""
+    from faiss_tpu_torch.ops import hamming as hops
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    def recalls(I, nq):
+        return j_recalls(I, gt, nq)
+
+    lsh = ft.IndexLSH(D, 256, rotate_data=True, train_thresholds=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lsh.train(xt)
+    lsh.add(xb)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    Dl, Il = no_kernel(fused_knn, "J6. IndexLSH", lambda: lsh.search(xq, K))
+    timed(f"J6. IndexLSH(128, 256, rotate, thresholds) search of {NQ} queries",
+          lambda: lsh.search(xq, K), NQ)
+    codes, qcodes = lsh.codes_host, lsh.sa_encode(xq)
+    codes_dev = lsh._codes
+    check(Dl.dtype == np.float32, "J6. LSH distances are not float32")
+    hamming_rows_check("J6. IndexLSH", Dl.astype(np.int64), Il, qcodes, codes_dev)
+    print(f"J6. IndexLSH: build {t_build:.2f} s ({NB} x {codes.shape[1]} B codes); "
+          f"{recalls(Il, NQ)}; {EXACT_ROWS} rows equal numpy's count ({CARD})",
+          flush=True)
+
+    bf = ft.IndexBinaryFlat(256)
+    bf.add(codes)
+    Db, Ib = no_kernel(fused_knn, "J6. IndexBinaryFlat", lambda: bf.search(qcodes, K))
+    t_product = timed(f"J6. IndexBinaryFlat(256) (the int8 product route), {NQ} "
+                      "queries", lambda: bf.search(qcodes, K), NQ)
+    hamming_rows_check("J6. IndexBinaryFlat", Db, Ib, qcodes, codes_dev)
+    qdev = torch.from_numpy(qcodes).to(dev)
+
+    def swar():
+        d, i = hops.hamming_knn(qdev, bf._xb, K, "swar")
+        return d.cpu().numpy(), i.cpu().numpy()
+
+    Dw, Iw = no_kernel(fused_knn, "J6. hamming_knn by SWAR", swar)
+    t_swar = timed(f"J6. hamming_knn over the same codes by the SWAR route, {NQ} "
+                   "queries", swar, NQ)
+    check(np.array_equal(Db, Dw) and ids_agree_tie_aware(Db, Ib, Dw, Iw, 0).all(),
+          "J6. the product and SWAR routes differ beyond ties")
+    print(f"J6. the int8 product route {t_product * 1e3:.1f} ms, SWAR "
+          f"{t_swar * 1e3:.1f} ms ({t_swar / t_product:.1f}x), equal distances "
+          f"({CARD})", flush=True)
+
+    ff = ft.IndexBinaryFromFloat(ft.IndexFlatL2(256, device=dev))
+    ff.add(codes)
+    Df, If, n_k2 = flat_search(fused_knn, "J6. IndexBinaryFromFloat(IndexFlatL2(256))",
+                               lambda: ff.search(qcodes, K), fused_knn.ivf_recon_fused,
+                               NQ, K)
+    check(np.array_equal(Df, Db) and ids_agree_tie_aware(Db, Ib, Df, If, 0).all(),
+          "J6. IndexBinaryFromFloat differs from IndexBinaryFlat")
+    timed(f"J6. IndexBinaryFromFloat(IndexFlatL2(256)) (K2 x{n_k2}), {NQ} queries",
+          lambda: ff.search(qcodes, K), NQ)
+    del ff
+    torch.cuda.empty_cache()
+
+    ivf = ft.IndexBinaryIVF(ft.IndexBinaryFlat(256), 256, 1024)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ivf.train(lsh.sa_encode(xt))
+    ivf.add(codes)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    ivf.nprobe = 16
+    Di, Ii = no_kernel(fused_knn, "J6. IndexBinaryIVF", lambda: ivf.search(qcodes, K))
+    timed(f"J6. IndexBinaryIVF(256, 1024) nprobe 16, {NQ} queries",
+          lambda: ivf.search(qcodes, K), NQ)
+    probes = ivf.quantizer.search(qcodes[:EXACT_ROWS], ivf.nprobe)[1]
+    cand = [np.nonzero(np.isin(ivf._listnos, probes[r]))[0] for r in range(EXACT_ROWS)]
+    hamming_rows_check("J6. IndexBinaryIVF", Di, Ii, qcodes, codes_dev, cand)
+    sizes = np.bincount(ivf._listnos, minlength=1024)
+    print(f"J6. IndexBinaryIVF: build {t_build:.2f} s (lists {sizes.min()}-"
+          f"{sizes.max()} codes); {recalls(Ii, NQ)}; {EXACT_ROWS} rows equal numpy "
+          f"over their probed lists ({CARD})", flush=True)
+    del ivf
+
+    nq = min(1024, NQ)
+    for desc, index in (("IndexBinaryHash(256, 16), nflip 1", ft.IndexBinaryHash(256, 16)),
+                        ("IndexBinaryMultiHash(256, 4, 16)",
+                         ft.IndexBinaryMultiHash(256, 4, 16))):
+        index.nflip = 1 if "nflip" in desc else 0
+        t0 = time.time()
+        index.add(codes)
+        index._tables()
+        t_build = time.time() - t0
+        Dh, Ih = no_kernel(fused_knn, f"J6. {desc}", lambda: index.search(qcodes[:nq], K))
+        timed(f"J6. {desc}, {nq} queries (host buckets)",
+              lambda: index.search(qcodes[:nq], K), nq)
+        cand = [index._candidates(qcodes[r]) for r in range(EXACT_ROWS)]
+        hamming_rows_check(f"J6. {desc}", Dh, Ih, qcodes, codes_dev, cand)
+        print(f"J6. {desc}: buckets {t_build:.2f} s; {recalls(Ih, nq)}; "
+              f"{np.mean([len(c) for c in cand]):.0f} candidates per query on "
+              f"{EXACT_ROWS} rows, which equal numpy over their buckets ({CARD})",
+              flush=True)
+    return n_k2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3393,6 +3831,9 @@ def main():
     torch.cuda.empty_cache()
     k2_sq, k3_sq = sq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_sq
+    torch.cuda.empty_cache()
+    k2_j = pq_hamming_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
+    next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_j
     next(e for e in kernels if e["name"] == "knn_fused[k_lanes=128]")["launches"] += k3_sq
     del xb, xt, xq
     torch.cuda.empty_cache()

@@ -55,17 +55,26 @@ Ported so far:
     ``IndexPreTransform``; ``IndexRefine`` over any base and any refine
     store, ``IndexRefineFlat`` with an f32, f16 or SQ8 store;
     ``IndexSplitVectors`` and ``IndexRandom``;
+  - the PQ and Hamming family — ``ProductQuantizer`` at any nbits from 1
+    to 16 (``Train_shared``, the ADC and SDC tables, ``search``),
+    ``IndexPQ`` and ``IndexPQFastScan`` (ADC, SDC and polysemous search,
+    ``range_search``, ``sa_*``, ``merge_from``), ``PolysemousTraining``
+    with ``SimulatedAnnealingParameters``, the polysemous filter and
+    ``do_polysemous_training`` of IVF-PQ, IVF-PQ at any nbits;
+    ``IndexLSH``; the binary indexes ``IndexBinaryFlat``,
+    ``IndexBinaryFlat1Bit``, ``IndexBinaryIVF``, ``IndexBinaryFromFloat``,
+    ``IndexBinaryHash`` and ``IndexBinaryMultiHash``;
   - ``index_factory`` over the classes above, and index files
     (``write_index``, ``read_index``, ``serialize_index``,
-    ``deserialize_index``, ``IO_FLAG_MMAP``) in faiss_tpu's npz container,
-    each package reading the other's.
+    ``deserialize_index``, ``write_index_binary``, ``read_index_binary``,
+    ``IO_FLAG_MMAP``) in faiss_tpu's npz container, each package reading
+    the other's.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue-1 item: the other codecs (IndexPQ, polysemous, binary, LSH,
-additive, RaBitQ and the rest), the graphs and the coarse quantizers other
-than flat (item 10), the multi-device meta indexes (item 11),
-``reverse_index_factory``, ``read_index_binary`` and the reference-format
-reader ``io_ref`` (item 12).
+queue-1 item: the other codecs (additive, RaBitQ and the rest), the graphs
+(with ``IndexBinaryHNSW``) and the coarse quantizers other than flat (item
+10), the multi-device meta indexes (item 11), ``reverse_index_factory``
+and the reference-format reader ``io_ref`` (item 12).
 """
 
 import torch
@@ -102,6 +111,10 @@ from .clustering import (  # noqa: E402,F401
     kmeans1d,
     kmeans_clustering,
 )
+from .codecs.polysemous import (  # noqa: E402,F401
+    PolysemousTraining,
+    SimulatedAnnealingParameters,
+)
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
 from .codecs.sq import QuantizerType, RangeStat, ScalarQuantizer  # noqa: E402,F401
 from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
@@ -119,6 +132,18 @@ from .models.ivf import (  # noqa: E402,F401
     indexIVF_stats,
 )
 from .models.ivf_flat import IndexIVFFlat  # noqa: E402,F401
+from .models.binary import (  # noqa: E402,F401
+    IndexBinary,
+    IndexBinaryFlat,
+    IndexBinaryFlat1Bit,
+    IndexBinaryFromFloat,
+    IndexBinaryHash,
+    IndexBinaryHNSW,
+    IndexBinaryIVF,
+    IndexBinaryMultiHash,
+)
+from .models.lsh import IndexLSH  # noqa: E402,F401
+from .models.pq import IndexPQ, IndexPQFastScan  # noqa: E402,F401
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer  # noqa: E402,F401
 from .models.ivf_pq import (  # noqa: E402,F401
     IndexIVFPQ,
@@ -153,7 +178,9 @@ from .io import (  # noqa: E402,F401
     IO_FLAG_READ_ONLY,
     deserialize_index,
     read_index,
+    read_index_binary,
     serialize_index,
     write_index,
+    write_index_binary,
 )
 from .utils.evaluation import recall_at_k  # noqa: E402,F401

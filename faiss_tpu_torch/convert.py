@@ -34,7 +34,15 @@ sq.metric_type, device=...)`` and an ``IndexIVFScalarQuantizer`` named
 ``ivfsq`` is ``ivfsq_from_arrays(ivfsq.quantizer.vectors(), ivfsq.sq.qtype,
 ivfsq.sq.trained, ivfsq._codes_host, ivfsq._listnos_host, ivfsq._ids_host,
 by_residual=ivfsq.by_residual, metric=ivfsq.metric_type, device=...)``
-(both take ``tq_seed=`` where it is not 123); an ``IndexIDMap`` or
+(both take ``tq_seed=`` where it is not 123); an ``IndexPQ`` named ``pq``
+is ``pq_from_arrays(pq.d, pq.pq.M, pq.pq.nbits, pq.pq.centroids,
+pq._codes_host, pq.metric_type, fastscan=..., device=...)``; an
+``IndexLSH`` named ``lsh`` is ``lsh_from_arrays(lsh.d, lsh.nbits,
+lsh.rrot.A, lsh.thresholds, lsh._codes, rotate_data=...,
+train_thresholds=..., device=...)``; an ``IndexBinaryFlat`` named ``bf`` is
+``binary_flat_from_arrays(bf.xb, device=...)`` and an ``IndexBinaryIVF``
+named ``bi`` is ``binary_ivf_from_arrays(bi.quantizer.xb, bi._codes,
+bi._listnos, bi._ids, bi.nprobe, device=...)``; an ``IndexIDMap`` or
 ``IndexIDMap2`` named ``m`` wraps the port of ``m.index`` as
 ``idmap_from_arrays(port_inner, m.id_map, two=...)``.
 
@@ -59,6 +67,9 @@ from .models.flat import IndexFlat, IndexFlatSQ8
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
+from .models.binary import IndexBinaryFlat, IndexBinaryIVF
+from .models.lsh import IndexLSH
+from .models.pq import IndexPQ, IndexPQFastScan
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -115,13 +126,15 @@ def ivfflat_from_arrays(centroids, xb, listnos, ids, *, device,
 
 
 def _pq_state(pq_centroids, codes):
-    """(codebooks float32 [M, ksub, dsub], codes uint8 [n, M], nbits)."""
+    """(codebooks float32 [M, ksub, dsub], codes [n, M] uint8 up to 8 bits
+    and uint16 above, nbits)."""
     pq_centroids = np.ascontiguousarray(pq_centroids, np.float32)
-    codes = np.ascontiguousarray(codes, np.uint8)
     M, ksub, _ = pq_centroids.shape
+    nbits = ksub.bit_length() - 1
+    codes = np.ascontiguousarray(codes, np.uint8 if nbits <= 8 else np.uint16)
     if codes.ndim != 2 or codes.shape[1] != M:
         raise ValueError(f"codes must be [n, M={M}], got shape {codes.shape}")
-    return pq_centroids, codes, ksub.bit_length() - 1
+    return pq_centroids, codes, nbits
 
 
 def _ivfpq(cls, centroids, pq_centroids, codes, listnos, ids, device, *extra,
@@ -142,8 +155,9 @@ def _ivfpq(cls, centroids, pq_centroids, codes, listnos, ids, device, *extra,
 def ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids, *, device,
                       by_residual=True, metric=MetricType.L2) -> IndexIVFPQ:
     """IndexIVFPQ (IndexIVFPQFastScan when nbits = 4) from coarse centroids
-    [nlist, d], PQ codebooks [M, ksub, dsub] (ksub 16 or 256), unpacked
-    codes [n, M] uint8, coarse list numbers [n] and ids [n];
+    [nlist, d], PQ codebooks [M, ksub, dsub] (ksub = 2^nbits, nbits 1 to
+    16, as given: polysemous-permuted codebooks too), unpacked codes [n, M]
+    (uint8, uint16 above 8 bits), coarse list numbers [n] and ids [n];
     ``by_residual`` as the index was trained (faiss_tpu's
     ``index.by_residual``)."""
     ksub = np.shape(pq_centroids)[1]
@@ -247,6 +261,54 @@ def ivfsq_from_arrays(centroids, qtype, trained, codes, listnos, ids, *,
     _sq_trained(index.sq, trained, tq_seed)
     index.is_trained = True
     index.add_encoded(codes.reshape(len(codes), index.code_size), listnos, ids)
+    return index
+
+
+def pq_from_arrays(d, M, nbits, pq_centroids, codes, metric=MetricType.L2, *,
+                   fastscan=False, bbs=32, device) -> IndexPQ:
+    """IndexPQ (IndexPQFastScan with ``fastscan``) from its codebooks
+    [M, 2^nbits, d / M] and unpacked codes [n, M] in add order."""
+    index = (IndexPQFastScan(d, M, nbits, metric, bbs, device=device) if fastscan
+             else IndexPQ(d, M, nbits, metric, device=device))
+    cb, codes, _ = _pq_state(pq_centroids, codes)
+    index.pq.set_centroids(cb)
+    index.is_trained = True
+    index.add_codes_int(codes)
+    return index
+
+
+def lsh_from_arrays(d, nbits, A, thresholds, codes, *, rotate_data=True,
+                    train_thresholds=False, device) -> IndexLSH:
+    """IndexLSH from its rotation ``A`` [nbits, d] (None without one), its
+    per-bit ``thresholds`` [nbits] (None if untrained) and its codes
+    [n, (nbits + 7) / 8] uint8."""
+    index = IndexLSH(d, nbits, rotate_data, train_thresholds, device=device)
+    if A is not None and index.rrot is not None:
+        index.rrot.A = np.ascontiguousarray(A, np.float32)
+    if thresholds is not None:
+        index.thresholds = np.ascontiguousarray(thresholds, np.float32)
+    index.is_trained = True
+    index.add_codes(codes)
+    return index
+
+
+def binary_flat_from_arrays(codes, *, device) -> IndexBinaryFlat:
+    """IndexBinaryFlat over the codes [n, d / 8] uint8."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    index = IndexBinaryFlat(codes.shape[1] * 8, device=device)
+    index.add(codes)
+    return index
+
+
+def binary_ivf_from_arrays(quantizer_codes, codes, listnos, ids, nprobe=1, *,
+                           device) -> IndexBinaryIVF:
+    """IndexBinaryIVF from its coarse centroids' codes [nlist, d / 8] and
+    the lists' entries in add order: codes [n, d / 8], list numbers [n] and
+    ids [n]."""
+    q = binary_flat_from_arrays(quantizer_codes, device=device)
+    index = IndexBinaryIVF(q, q.d, q.ntotal, device=device)
+    index.nprobe = int(nprobe)
+    index.add_encoded(codes, listnos, ids)
     return index
 
 

@@ -11,8 +11,10 @@ everything. The port builds:
   - ``IVFn`` over a flat coarse quantizer with the encodings ``Flat``,
     ``PQmx4fs[_bbs]``, ``PQmxn``, ``PQm+n`` (IndexIVFPQR), ``PQm`` and the
     scalar quantizers ``SQ*`` (IndexIVFScalarQuantizer);
-  - the flat encodings ``Flat``, ``Flat1D`` and ``SQ*``
-    (IndexScalarQuantizer);
+  - the flat encodings ``Flat``, ``Flat1D``, ``SQ*``
+    (IndexScalarQuantizer), ``PQm``, ``PQmxn`` (IndexPQ), ``PQmx4fs[_bbs]``
+    (IndexPQFastScan) and ``LSH[r][t]`` (IndexLSH with d bits, rotated
+    with ``r``, trained thresholds with ``t``);
   - ``RFlat`` and ``Refine(Flat)`` (IndexRefineFlat), ``Refine(SQ8)``
     (IndexRefineFlat with an SQ8 store) and ``Refine(<any string>)``
     (IndexRefine over the index that string builds).
@@ -31,6 +33,8 @@ from .metric import MetricType
 from .models.flat import IndexFlat, IndexFlat1D
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
+from .models.lsh import IndexLSH
+from .models.pq import IndexPQ, IndexPQFastScan
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
 from .models.meta import (
     IndexIDMap,
@@ -72,7 +76,7 @@ _SQ_TYPES = {
 _UNPORTED_CODECS = (
     r"(RQ|LSQ)\d+x(4fs|\d+)(_\w+)?", r"(PRQ|PLSQ)\d+x\d+x(4fs|\d+)(_\w+)?",
     r"RaBitQ(fs)?\d?(_\d+)?", r"EDEN[1-8]?(BIASED|BIAS)?", r"FlatPanorama(\d+)?(_\d+)?",
-    r"ZnLattice\d+x\d+_\d+", r"LSHr?t?",
+    r"ZnLattice\d+x\d+_\d+",
     r"(HNSW|NSG|NNDescent)(\d+)?",
 )
 
@@ -154,8 +158,17 @@ def _parse_flat_encoding(tok: str, d: int, metric, device):
         return IndexFlat1D(device=device)
     if tok in _SQ_TYPES:
         return IndexScalarQuantizer(d, _SQ_TYPES[tok], metric, device=device)
-    if re.fullmatch(r"PQ\d+(x4fs(_\d+)?|x\d+)?", tok) or any(
-            re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
+    if m := re.fullmatch(r"PQ(\d+)x4fs(?:_(\d+))?", tok):
+        return IndexPQFastScan(d, int(m.group(1)), 4, metric,
+                               int(m.group(2) or 32), device=device)
+    if m := re.fullmatch(r"PQ(\d+)x(\d+)", tok):
+        return IndexPQ(d, int(m.group(1)), int(m.group(2)), metric, device=device)
+    if m := re.fullmatch(r"PQ(\d+)", tok):
+        return IndexPQ(d, int(m.group(1)), 8, metric, device=device)
+    if m := re.fullmatch(r"LSH(r?)(t?)", tok):
+        return IndexLSH(d, d, rotate_data=bool(m.group(1)),
+                        train_thresholds=bool(m.group(2)), device=device)
+    if any(re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
         _unported(tok, "the encoding")
     return None
 

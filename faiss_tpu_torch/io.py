@@ -6,8 +6,10 @@ The container is faiss_tpu's: one uncompressed ``.npz`` holding a
 hierarchical ``root/...`` keys. The port reads what faiss_tpu writes and
 faiss_tpu reads what the port writes, for the classes the port has:
 IndexFlat (L2 / IP, with ``storage_dtype``), IndexFlatSQ8, IndexFlat1D,
-IndexScalarQuantizer, IndexIVFScalarQuantizer, IndexIVFFlat, IndexIVFPQ,
-IndexIVFPQFastScan (with ``bbs``), IndexIVFPQR, IndexIDMap / IndexIDMap2,
+IndexScalarQuantizer, IndexIVFScalarQuantizer, IndexPQ, IndexPQFastScan
+(with ``bbs``), IndexLSH, IndexBinaryFlat, IndexBinaryIVF, IndexIVFFlat,
+IndexIVFPQ, IndexIVFPQFastScan (with ``bbs``), IndexIVFPQR, IndexIDMap /
+IndexIDMap2,
 IndexRefine / IndexRefineFlat (its ``store`` recovered from the refine
 index) and IndexPreTransform over every transform of
 faiss_tpu_torch.transforms. A class tag of faiss_tpu that the port does
@@ -34,6 +36,9 @@ from .models.flat import IndexFlat, IndexFlat1D, IndexFlatIP, IndexFlatL2, Index
 from .models.ivf import IndexIVF
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
+from .models.binary import IndexBinaryFlat, IndexBinaryIVF
+from .models.lsh import IndexLSH
+from .models.pq import IndexPQ, IndexPQFastScan
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
 from .codecs.sq import QuantizerType
 from .models.meta import (
@@ -50,13 +55,13 @@ IO_FLAG_MMAP = 0x646F0000  # map the array payloads in place
 IO_FLAG_READ_ONLY = 2
 
 # faiss_tpu's class tags whose classes the port does not have yet: the
-# codecs, graphs, binary indexes and quantizers of ROADMAP queue 1 item 10
+# codecs, graphs and quantizers of ROADMAP queue 1 item 10
 _ITEM10_CLASSES = frozenset((
-    "IndexPQ", "IndexPQFastScan", "IndexLSH", "IndexHNSW", "IndexHNSWFlat",
+    "IndexHNSW", "IndexHNSWFlat",
     "IndexHNSWPQ", "IndexHNSWSQ", "IndexHNSW2Level", "IndexHNSWFlatPanorama",
     "IndexNSGFlat", "IndexNNDescentFlat", "IndexNSGPQ", "IndexNSGSQ",
     "IndexFlatPanorama", "IndexIVFFlatPanorama", "MultiIndexQuantizer",
-    "MultiIndexQuantizer2", "IndexBinaryFlat", "IndexBinaryIVF", "IndexEDEN",
+    "MultiIndexQuantizer2", "IndexEDEN",
     "IndexIVFEDEN", "IndexRaBitQ", "IndexRaBitQFastScan", "IndexIVFRaBitQ",
     "IndexIVFRaBitQFastScan", "IndexLattice", "IndexAdditiveQuantizer",
     "IndexResidualQuantizer", "IndexLocalSearchQuantizer",
@@ -154,6 +159,38 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
             if index.sq.trained is not None:
                 arrays[f"{path}/sq_trained"] = index.sq.trained
         return meta
+    if isinstance(index, IndexLSH):  # faiss_tpu io.py:146
+        meta.update(d=index.d, nbits=index.nbits, rotate_data=index.rotate_data,
+                    train_thresholds=index.train_thresholds,
+                    is_trained=index.is_trained)
+        arrays[f"{path}/codes"] = index.codes_host
+        if index.rrot is not None:
+            arrays[f"{path}/rrot_A"] = index.rrot.A
+        if index.thresholds is not None:
+            arrays[f"{path}/thresholds"] = index.thresholds
+        return meta
+    if isinstance(index, IndexPQ):  # faiss_tpu io.py:247
+        meta.update(d=index.d, metric=int(index.metric_type),
+                    is_trained=index.is_trained, pq=_pq_meta(index.pq))
+        if isinstance(index, IndexPQFastScan):
+            meta["bbs"] = index.bbs
+        if index.pq.centroids is not None:
+            arrays[f"{path}/pq_centroids"] = index.pq.centroids
+        if index._codes is not None:
+            arrays[f"{path}/codes"] = index.codes_host
+        return meta
+    if isinstance(index, IndexBinaryFlat):  # faiss_tpu io.py:307
+        meta.update(d=index.d)
+        arrays[f"{path}/xb"] = index.xb
+        return meta
+    if isinstance(index, IndexBinaryIVF):
+        meta.update(d=index.d, nlist=index.nlist, nprobe=index.nprobe,
+                    is_trained=index.is_trained)
+        meta["quantizer"] = _dump(index.quantizer, arrays, f"{path}/quantizer")
+        arrays[f"{path}/codes"] = index._codes
+        arrays[f"{path}/listnos"] = index._listnos
+        arrays[f"{path}/ids"] = index._ids
+        return meta
     if isinstance(index, IndexScalarQuantizer):
         meta.update(d=index.d, metric=int(index.metric_type),
                     qtype=int(index.sq.qtype), is_trained=index.is_trained,
@@ -227,6 +264,41 @@ def _load(meta, arrays, path: str, device):
     if cls in ("IndexIVFFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
                "IndexIVFPQR", "IndexIVFScalarQuantizer"):
         return _load_ivf(meta, arrays, path, device)
+    if cls == "IndexLSH":  # faiss_tpu io.py:537
+        index = IndexLSH(meta["d"], meta["nbits"], meta["rotate_data"],
+                         meta["train_thresholds"], device=device)
+        if f"{path}/rrot_A" in arrays and index.rrot is not None:
+            index.rrot.A = np.ascontiguousarray(arrays[f"{path}/rrot_A"])
+        if f"{path}/thresholds" in arrays:
+            index.thresholds = np.ascontiguousarray(arrays[f"{path}/thresholds"])
+        index.add_codes(np.asarray(arrays[f"{path}/codes"]))
+        index.is_trained = meta["is_trained"]
+        return index
+    if cls in ("IndexPQ", "IndexPQFastScan"):  # faiss_tpu io.py:724
+        pq, metric = meta["pq"], MetricType(meta["metric"])
+        if cls == "IndexPQFastScan":
+            index = IndexPQFastScan(meta["d"], pq["M"], pq["nbits"], metric,
+                                    meta["bbs"], device=device)
+        else:
+            index = IndexPQ(meta["d"], pq["M"], pq["nbits"], metric, device=device)
+        if f"{path}/pq_centroids" in arrays:
+            index.pq.set_centroids(arrays[f"{path}/pq_centroids"])
+        index.is_trained = meta["is_trained"]
+        if f"{path}/codes" in arrays:
+            index.add_codes_int(arrays[f"{path}/codes"])
+        return index
+    if cls == "IndexBinaryFlat":  # faiss_tpu io.py:797
+        index = IndexBinaryFlat(meta["d"], device=device)
+        index.add(arrays[f"{path}/xb"])
+        return index
+    if cls == "IndexBinaryIVF":
+        quantizer = _load(meta["quantizer"], arrays, f"{path}/quantizer", device)
+        index = IndexBinaryIVF(quantizer, meta["d"], meta["nlist"], device=device)
+        index.nprobe = meta["nprobe"]
+        index.add_encoded(arrays[f"{path}/codes"], arrays[f"{path}/listnos"],
+                          arrays[f"{path}/ids"])
+        index.is_trained = meta["is_trained"]
+        return index
     if cls == "IndexScalarQuantizer":
         index = IndexScalarQuantizer(meta["d"], QuantizerType(meta["qtype"]),
                                      MetricType(meta["metric"]), device=device)
@@ -393,3 +465,9 @@ def serialize_index(index: Index) -> np.ndarray:
 def deserialize_index(data, *, device="cuda") -> Index:
     return read_index(_io.BytesIO(bytes(np.asarray(data, np.uint8))),
                       device=device)
+
+
+# the binary-index entry points (index_io.h write_index_binary; faiss_tpu
+# io.py:1094)
+write_index_binary = write_index
+read_index_binary = read_index

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..metric import MetricType
+from .hamming import popcount32
 from .topk import merge_topk
 
 # Bytes of one probe's [rows, max_len, d] float32 gather: the queries are
@@ -94,6 +95,15 @@ def pq_probe_dists(luts, ln, bias, codes, term2=None):
     return dist + bias[:, None]
 
 
+def pq_probe_hamming(qcodes, ln, codes):
+    """[nq, max_len] int32 Hamming distances between each query's code
+    ``qcodes`` [nq, M] and every code of its list ``ln``: the bits of
+    qcode_m ^ code_m counted and summed over m (faiss_tpu ivf_ops.py:183)."""
+    cl = codes[ln.clamp_min(0).long()].to(torch.int32)  # [nq, max_len, M]
+    x = qcodes.to(torch.int32)[:, None, :] ^ cl
+    return popcount32(x).sum(-1, dtype=torch.int32)
+
+
 def _scan_rows(xq, probes, codes, slot_ids, lengths, k, metric, code_norms,
                sel_mask):
     nq = xq.shape[0]
@@ -115,13 +125,15 @@ def ivf_pq_scan(
     luts: torch.Tensor,  # [nq, M, ksub] query-side ADC tables
     probes: torch.Tensor,  # [nq, nprobe] int (-1 = no probe)
     bias: torch.Tensor,  # [nq, nprobe] float32 per-(query, probe) term
-    codes: torch.Tensor,  # [nlist, max_len, M] uint8 padded lists
+    codes: torch.Tensor,  # [nlist, max_len, M] padded lists (uint8, int32)
     slot_ids: torch.Tensor,  # [nlist, max_len] int32 (-1 on pads)
     lengths: torch.Tensor,  # [nlist] int
     k: int,
     term2: Optional[torch.Tensor] = None,  # [nlist, M, ksub] list-side tables
     sel_mask: Optional[torch.Tensor] = None,  # [ntotal] bool over slots
     largest: bool = False,
+    qcodes: Optional[torch.Tensor] = None,  # [nq, nprobe, M] residual codes
+    ht: int = 0,  # polysemous Hamming threshold (0 = off)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """IVF-PQ ADC scan of each query's probed lists, the decomposition of
     IndexIVFPQ's precomputed tables (IndexIVFPQ.cpp:407):
@@ -133,23 +145,30 @@ def ivf_pq_scan(
     distance tables. Inner product (``largest``): luts = q_m . y_m, bias =
     q . c by residual (else 0), no term2. The M table entries are summed in
     order of m, then the bias added, as faiss_tpu does. ``sel_mask`` (an ID
-    selector over slots) drops the slots it clears. Returns (dists [nq, k]
+    selector over slots) drops the slots it clears; with ``ht`` and
+    ``qcodes`` (the codes of the query's residual to each probed list) the
+    polysemous filter drops every slot whose code lies at Hamming distance
+    ``ht`` or more from the query's (IndexIVFPQ.h:47, faiss_tpu
+    ivf_ops.py:183), before the merge. Returns (dists [nq, k]
     float32 best-first, slots [nq, k] int32), the sentinel (+inf, -inf for
     ``largest``) and -1 where a query has fewer than k candidates."""
     nq = luts.shape[0]
     max_len, M = codes.shape[1], codes.shape[2]
     rows = max(1, SCAN_GATHER_BYTES // max(1, max_len * M * 8))
+    if not ht:
+        qcodes = None
     parts = [
         _pq_scan_rows(luts[r : r + rows], probes[r : r + rows],
                       bias[r : r + rows], codes, slot_ids, lengths, k, term2,
-                      sel_mask, largest)
+                      sel_mask, largest,
+                      None if qcodes is None else qcodes[r : r + rows], ht)
         for r in range(0, max(nq, 1), rows)
     ]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 def _pq_scan_rows(luts, probes, bias, codes, slot_ids, lengths, k, term2,
-                  sel_mask, largest):
+                  sel_mask, largest, qcodes, ht):
     nq = luts.shape[0]
     sentinel = float("-inf") if largest else float("inf")
     vals = torch.full((nq, k), sentinel, device=luts.device)
@@ -158,6 +177,9 @@ def _pq_scan_rows(luts, probes, bias, codes, slot_ids, lengths, k, term2,
         ln = probes[:, p].long()
         dist = pq_probe_dists(luts, ln, bias[:, p], codes, term2)
         valid, sl = probe_slots(ln, slot_ids, lengths, sel_mask)
+        if qcodes is not None:
+            valid = valid & (pq_probe_hamming(qcodes[:, p], ln, codes) < ht)
+            sl = torch.where(valid, sl, -1)
         dist = torch.where(valid, dist, sentinel)
         vals, ids = merge_topk(vals, ids, dist, sl, k, largest=largest)
     return vals, ids

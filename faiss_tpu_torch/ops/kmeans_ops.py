@@ -226,6 +226,10 @@ def superkm_assign_update(
     )
 
 
+# elements of one batched_kmeans assignment tile
+BATCHED_TILE = 1 << 28
+
+
 def batched_kmeans(
     xs: torch.Tensor,  # [M, n, dsub] — M independent clustering problems
     init: torch.Tensor,  # [M, k, dsub] initial centroids
@@ -238,13 +242,18 @@ def batched_kmeans(
     k = init.shape[1]
     x_norms = xs.square().sum(-1)  # [M, n]
     c = init.clone()
+    # rows of one assignment tile [M, rows, k] (PQ at up to 16 bits)
+    rows = max(1, BATCHED_TILE // (M * k))
+    assign = torch.empty(M, n, dtype=torch.int64, device=xs.device)
     for _ in range(niter):
-        d2 = (
-            x_norms[..., None]
-            + c.square().sum(-1)[:, None, :]
-            - 2.0 * torch.bmm(xs, c.transpose(1, 2))
-        )
-        assign = d2.argmin(dim=-1)  # [M, n]
+        c_norms = c.square().sum(-1)[:, None, :]
+        for r in range(0, n, rows):
+            d2 = (
+                x_norms[:, r : r + rows, None]
+                + c_norms
+                - 2.0 * torch.bmm(xs[:, r : r + rows], c.transpose(1, 2))
+            )
+            assign[:, r : r + rows] = d2.argmin(dim=-1)
         sums = torch.zeros_like(c).scatter_add_(
             1, assign[..., None].expand(M, n, dsub), xs
         )

@@ -8,23 +8,42 @@ import torch
 from .topk import merge_topk
 
 
+# elements of one encode tile [rows, M, centroids]: the rows and, at large
+# ksub, the centroids are tiled so that the distance tile stays bounded
+ENCODE_TILE = 1 << 26
+
+
 def pq_encode(
     x: torch.Tensor,  # [n, d] float32
     codebooks: torch.Tensor,  # [M, ksub, dsub] float32
     chunk: int = 1 << 15,
 ) -> torch.Tensor:
     """Nearest codeword per subspace -> codes [n, M] int64
-    (ProductQuantizer::compute_codes as a batched GEMM + argmin)."""
+    (ProductQuantizer::compute_codes as a batched GEMM + argmin,
+    faiss_tpu/ops/pq_ops.py:31). Rows go in chunks of at most ``chunk``
+    and the codewords in tiles of ``ENCODE_TILE // (rows * M)``; a running
+    minimum keeps the first of equal distances, as one argmin would."""
     n, d = x.shape
     M, ksub, dsub = codebooks.shape
     if d != M * dsub:
         raise ValueError(f"d={d} != M*dsub={M * dsub}")
     c_norms = codebooks.square().sum(-1)  # [M, ksub]
+    rows = max(1, min(chunk, ENCODE_TILE // (M * min(ksub, 1 << 10))))
+    kc = max(1, ENCODE_TILE // (rows * M))
     out = []
-    for s in range(0, n, chunk):
-        xc = x[s : s + chunk].float().reshape(-1, M, dsub)
-        ip = torch.einsum("cmd,mkd->cmk", xc, codebooks)
-        out.append((c_norms[None] - 2.0 * ip).argmin(dim=-1))
+    for s in range(0, n, rows):
+        xc = x[s : s + rows].float().reshape(-1, M, dsub)
+        best = best_i = None
+        for k0 in range(0, ksub, kc):
+            ip = torch.einsum("cmd,mkd->cmk", xc, codebooks[:, k0 : k0 + kc])
+            v, i = (c_norms[None, :, k0 : k0 + kc] - 2.0 * ip).min(dim=-1)
+            if best is None:
+                best, best_i = v, i
+            else:
+                take = v < best
+                best = torch.where(take, v, best)
+                best_i = torch.where(take, i + k0, best_i)
+        out.append(best_i)
     if not out:
         return torch.zeros(0, M, dtype=torch.int64, device=x.device)
     return torch.cat(out)
@@ -72,7 +91,7 @@ def adc_scores_gather(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     nq, M, ksub = luts.shape
     acc = torch.zeros((nq,) + tuple(codes.shape[:-1]), device=luts.device)
     for m in range(M):
-        acc = acc + luts[:, m, :][:, codes[..., m].long()]
+        acc += luts[:, m, :][:, codes[..., m].long()]
     return acc
 
 
@@ -80,6 +99,100 @@ def codes_onehot(codes: torch.Tensor, ksub: int, dtype=torch.bfloat16) -> torch.
     """[..., M] codes -> [..., M * ksub] one-hot (faiss_tpu/ops/pq_ops.py:153)."""
     oh = torch.nn.functional.one_hot(codes.long(), ksub).to(dtype)
     return oh.reshape(*codes.shape[:-1], codes.shape[-1] * ksub)
+
+
+def _select_chunk(vals, ids, scores, c0, k, largest):
+    """Merge one column chunk's scores [nq, n] (columns c0..) into the
+    running top-k; +-inf scores come back as id -1."""
+    v, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1, largest=largest)
+    cids = torch.where(torch.isinf(v), -1, pos + c0)
+    return merge_topk(vals, ids, v, cids, k, largest=largest)
+
+
+def _knn_init(nq, k, largest, device):
+    sentinel = float("-inf") if largest else float("inf")
+    return (torch.full((nq, k), sentinel, device=device),
+            torch.full((nq, k), -1, dtype=torch.int64, device=device))
+
+
+def pq_adc_knn(
+    luts: torch.Tensor,  # [nq, M, ksub] float32
+    codes: torch.Tensor,  # [nb, M] integer codes
+    k: int,
+    largest: bool = False,
+    db_chunk: int = 1 << 16,
+):
+    """Flat PQ ADC search (faiss_tpu/ops/pq_ops.py:160; IndexPQ::search):
+    per chunk of ``db_chunk`` codes the scores, then ``torch.topk`` and a
+    merge. At ksub <= 16 the scores are faiss_tpu's one-hot product: the
+    LUTs rounded to bf16 against a one-hot of the codes, summed in float32
+    (a float32 product of the bf16 values); above, float32 table gathers
+    summed in order of m. The select is exact, where faiss_tpu's
+    ``approx_min_k`` is exact on the CPU. Returns (D [nq, k] float32,
+    ids [nq, k] int64), the sentinel and -1 past nb."""
+    nq, M, ksub = luts.shape
+    nb = codes.shape[0]
+    vals, ids = _knn_init(nq, min(k, nb), largest, luts.device)
+    flat = luts.to(torch.bfloat16).float().reshape(nq, M * ksub) if ksub <= 16 else None
+    for c0 in range(0, nb, db_chunk):
+        cc = codes[c0 : c0 + db_chunk]
+        if flat is not None:
+            scores = flat @ codes_onehot(cc, ksub, torch.float32).T
+        else:
+            scores = adc_scores_gather(luts, cc)
+        vals, ids = _select_chunk(vals, ids, scores, c0, min(k, nb), largest)
+    if nb < k:
+        pad_v, pad_i = _knn_init(nq, k - nb, largest, luts.device)
+        vals, ids = torch.cat([vals, pad_v], 1), torch.cat([ids, pad_i], 1)
+    return vals, ids
+
+
+# pairs (query, code) up to which a polysemous chunk scores only the codes
+# that pass the Hamming filter (gathers per pair) instead of every code
+POLY_SPARSE_PAIRS = 1 << 24
+
+
+def pq_polysemous_knn(
+    luts: torch.Tensor,  # [nq, M, ksub] float32 ADC tables
+    qcodes: torch.Tensor,  # [nq, M] query PQ codes
+    codes: torch.Tensor,  # [nb, M] PQ codes
+    k: int,
+    ht: int,
+    db_chunk: int = 1 << 16,
+):
+    """Polysemous-filtered ADC search (faiss_tpu/ops/pq_ops.py:222;
+    IndexPQ ST_polysemous): codes whose Hamming distance to the query's
+    code (over all M * nbits bits) is >= ``ht`` are dropped, the rest
+    ranked by float32 table gathers summed in order of m, smallest first.
+    The Hamming distances come from ops/hamming.hamming_product over the
+    codes' bits. A chunk with at most POLY_SPARSE_PAIRS surviving pairs
+    scores those pairs alone, with the same additions in the same order,
+    so its values are those of the full scan. Returns (D, ids) as
+    :func:`pq_adc_knn`; -1 and +inf where fewer than k codes pass."""
+    from .hamming import code_bits, hamming_product
+
+    nq, M, ksub = luts.shape
+    nb = codes.shape[0]
+    nbits = ksub.bit_length() - 1
+    kk = min(k, nb)
+    vals, ids = _knn_init(nq, kk, False, luts.device)
+    qbits = code_bits(qcodes, nbits)
+    flat = luts.reshape(nq, M * ksub)
+    for c0 in range(0, nb, db_chunk):
+        cc = codes[c0 : c0 + db_chunk]
+        keep = hamming_product(qbits, code_bits(cc, nbits)) < ht
+        npass = int(keep.sum())
+        if npass <= POLY_SPARSE_PAIRS:
+            qi, ci = keep.nonzero(as_tuple=True)
+            acc = torch.zeros(npass, device=luts.device)
+            for m in range(M):
+                acc = acc + flat[qi, cc[ci, m].long() + m * ksub]
+            scores = torch.full(keep.shape, float("inf"), device=luts.device)
+            scores[qi, ci] = acc
+        else:
+            scores = torch.where(keep, adc_scores_gather(luts, cc), float("inf"))
+        vals, ids = _select_chunk(vals, ids, scores, c0, kk, False)
+    return vals, ids
 
 
 def ivfpq_brute_adc_knn(

@@ -55,7 +55,10 @@ def tree(index):
     if hasattr(index, "bbs"):
         out["bbs"] = index.bbs
     if hasattr(index, "pq"):
-        out["by_residual"] = index.by_residual
+        out["by_residual"] = getattr(index, "by_residual", None)
+    for name in ("nbits", "rotate_data", "train_thresholds"):  # IndexLSH
+        if hasattr(index, name):
+            out[name] = getattr(index, name)
     if hasattr(index, "sq"):
         out["sq"] = (int(index.sq.qtype), index.sq.code_size)
     return out
@@ -76,6 +79,10 @@ SUPPORTED = [
     (96, "OPQ32,IVF8192,PQ32x4fs,RFlat", "l2"),
     (32, "SQ8", "l2"), (32, "IVF16,SQ8", "l2"), (32, "IVF16,SQfp16", "l2"),
     (32, "IVF16,Flat,Refine(SQ4)", "l2"),
+    (32, "PQ4,RFlat", "l2"), (32, "PQ8", "l2"), (32, "PQ8", "ip"), (32, "PQ8x4fs", "l2"),
+    (32, "PQ16x12", "l2"), (128, "PQ64", "l2"), (32, "PQ32x4fs_64", "l2"),
+    (32, "OPQ8,PQ8", "l2"), (32, "IVF16,Flat,Refine(PQ4)", "l2"), (32, "LSH", "l2"),
+    (32, "LSHrt", "l2"), (32, "IVF16,PQ8x6", "l2"),
 ]
 
 
@@ -94,10 +101,10 @@ def test_factory_tree_matches_reference(d, desc, metric):
 
 
 UNPORTED = [
-    "PQ4,RFlat", "PQ8", "PQ8x4fs", "HNSW32,SQ8", "NSG32,SQ8", "HNSW32",
+    "HNSW32,SQ8", "NSG32,SQ8", "HNSW32",
     "HNSW32,PQ8", "NSG32", "IVF16(PQ4),Flat", "IVF16_HNSW32,Flat", "IMI2x4,PQ8",
-    "IVF16,RQ4x4", "IVF16,LSQ4x4fs", "RQ4x4", "IVF16,PRQ2x4x4fs", "LSH", "IVF16,RaBitQ", "RaBitQfs",
-    "EDEN4", "IVF16,FlatPanorama", "IVF16,Flat,Refine(PQ4)",
+    "IVF16,RQ4x4", "IVF16,LSQ4x4fs", "RQ4x4", "IVF16,PRQ2x4x4fs", "IVF16,RaBitQ", "RaBitQfs",
+    "EDEN4", "IVF16,FlatPanorama",
 ]
 
 

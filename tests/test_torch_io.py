@@ -259,9 +259,8 @@ def test_write_read_file_and_mmap(data, tmp_path):
 def test_io_compat_files_and_golden_results():
     """faiss_tpu 0.1.0's committed files load in the port (ntotal 1200), and
     IVF8_PQ4 at nprobe 8 reproduces golden_ivfpq.npz (rtol 1e-5, atol 1e-6,
-    as tests/test_io_compat.py; ids up to ties within it); SQ8 loads and
-    searches as faiss_tpu's reading of it. The codec the port does not have
-    (PQ4x4fs, an IndexPQFastScan) raises naming ROADMAP queue 1 item 10."""
+    as tests/test_io_compat.py; ids up to ties within it); SQ8 and PQ4x4fs
+    (an IndexPQFastScan) load and search as faiss_tpu's readings of them."""
     for name in ("Flat", "IVF8_Flat", "IVF8_PQ4"):
         index = ftt.read_index(str(IO_COMPAT / f"v0_1_0_{name}.npz"), device="cpu")
         assert index.ntotal == 1200, name
@@ -275,17 +274,18 @@ def test_io_compat_files_and_golden_results():
     ref = ftj.read_index(str(IO_COMPAT / "v0_1_0_SQ8.npz"))
     assert isinstance(sq8, ftt.IndexScalarQuantizer) and sq8.ntotal == 1200
     search_agree(ref, sq8, xq, ref.reconstruct_n(0, ref.ntotal), False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        ftt.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"), device="cpu")
+    fs = ftt.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"), device="cpu")
+    ref = ftj.read_index(str(IO_COMPAT / "v0_1_0_PQ4x4fs.npz"))
+    assert isinstance(fs, ftt.IndexPQFastScan) and fs.ntotal == 1200
+    search_agree(ref, fs, xq, ref.reconstruct_n(0, ref.ntotal), True)
 
 
 def test_refusals(data, tmp_path, monkeypatch):
     xb, _ = data
     # a faiss_tpu class the port does not have
-    pq = ftj.IndexPQ(D, 4, 8)
-    pq.train(xb)
-    with pytest.raises(NotImplementedError, match="IndexPQ .*item 10"):
-        ftt.deserialize_index(ftj.serialize_index(pq), device="cpu")
+    with pytest.raises(NotImplementedError, match="IndexRaBitQ .*item 10"):
+        ftt.deserialize_index(ftj.serialize_index(ftj.index_factory(D, "RaBitQ")),
+                              device="cpu")
     # the reference library's own format (io_ref)
     ref_file = tmp_path / "ref.faissindex"
     ref_file.write_bytes(b"IxF2" + bytes(60))

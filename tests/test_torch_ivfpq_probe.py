@@ -376,10 +376,13 @@ def _ref_flat(ref, xb):
 
 
 @pytest.mark.parametrize("what", ["polysemous_ht", "polysemous_training", "selector"])
-def test_still_unported_options_raise(built, what):
-    """The polysemous filter still raises, naming ROADMAP queue 1 item 10.
-    ID selectors now run: search_preassigned with a selector equals
-    faiss_tpu's, and returns only selected ids."""
+def test_still_unported_options_raise(built, what, monkeypatch):
+    """The options that once raised now run. The polysemous filter of the
+    per-probe scan equals faiss_tpu's (and drops candidates);
+    do_polysemous_training permutes the port's trained codebooks exactly as
+    faiss_tpu's PolysemousTraining permutes the same codebooks; ID
+    selectors: search_preassigned with a selector equals faiss_tpu's, and
+    returns only selected ids."""
     refs, _, xb, xq = built
     port = port_of(refs["pq8"])
     if what == "selector":
@@ -394,10 +397,29 @@ def test_still_unported_options_raise(built, what):
         assert ((It >= -1) & (It < NB // 2)).all()
         exact_agree(Dj, Ij, Dt, It, xq[:10], xb)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        if what == "polysemous_ht":
-            port.polysemous_ht = 8
-            port.search(xq[:10], 5)
-        else:
-            port.do_polysemous_training = True
-            port.train(xb)
+    if what == "polysemous_ht":
+        set_both(monkeypatch, refs["pq8"], port, nprobe=4, polysemous_ht=13)
+        Dj, Ij = refs["pq8"].search(xq[:10], 5)
+        Dt, It = port.search(xq[:10], 5)
+        exact_agree(Dj, Ij, Dt, It, xq[:10], xb)
+        port.polysemous_ht = 0
+        assert not np.array_equal(port.search(xq[:10], 5)[1], It)
+        return
+    from faiss_tpu.codecs.polysemous import PolysemousTraining as PolyJ
+    from faiss_tpu.codecs.pq import ProductQuantizer as PQJ
+
+    trained = []
+    for poly in (False, True):
+        index = port_of(refs["pq8"])
+        index.do_polysemous_training = poly
+        index.polysemous_training = ftt.PolysemousTraining()
+        index.polysemous_training.n_iter = 300
+        index.train(xb)
+        trained.append(index.pq.centroids)
+    pj = PQJ(D, M, 8)
+    pj.centroids = trained[0].copy()
+    pt = PolyJ()
+    pt.n_iter = 300
+    pt.optimize_pq_for_hamming(pj)
+    assert not np.array_equal(trained[1], trained[0])
+    np.testing.assert_array_equal(trained[1], pj.centroids)

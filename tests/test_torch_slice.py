@@ -165,33 +165,51 @@ def ivfflat_case(case, ref, arrays, xq):
              "ivfflat_ip_metric"]
 )
 def test_unported_branches_raise(built, case):
-    """What was unported on each branch. The polysemous filter still raises
-    on the per-probe scan of small batches and in IVF-PQ training, naming
-    its ROADMAP item. ID selectors (on the refined search with
-    k * k_factor > 128, which searches the base by probe and re-ranks, and
-    on IVF-PQ's search_preassigned), IVF-Flat's remove_ids and its
-    inner-product metric now run, and equal faiss_tpu's on the same
-    state."""
+    """What was unported on each branch now runs, and equals faiss_tpu's on
+    the same state: the polysemous filter on the per-probe scan of small
+    batches (under the refine); IVF-PQ training with the polysemous
+    permutation (the port's codebooks permuted as faiss_tpu's
+    PolysemousTraining permutes them); ID selectors (on the refined search
+    with k * k_factor > 128, which searches the base by probe and re-ranks,
+    and on IVF-PQ's search_preassigned), IVF-Flat's remove_ids and its
+    inner-product metric."""
     ref, arrays, xq, _ = built
     index = make_port(arrays)
     index.base_index.nprobe = 1
-    if case in ("small_batch", "pq8_unrefined"):
-        if case == "small_batch":  # the per-probe scan's polysemous filter
-            xq = xq[: index.base_index.big_batch_threshold - 1]
-            index.base_index.polysemous_ht = 4
-        else:  # faiss_tpu's unrefined XLA ADC path
-            cent, pq_cent, codes, listnos, ids, _ = arrays
-            rs = np.random.RandomState(0)
+    if case == "small_batch":  # the per-probe scan's polysemous filter
+        xq = xq[: index.base_index.big_batch_threshold - 1]
+        index.base_index.polysemous_ht = ref.base_index.polysemous_ht = 6
+        ref.base_index.nprobe = 1
+        try:
+            Dj, Ij = ref.search(xq, K)
+        finally:
+            ref.base_index.polysemous_ht = 0
+        Dt, It = index.search(xq, K)
+        parity(Dj, Ij, Dt, It, xq, arrays[5])
+        return
+    if case == "pq8_unrefined":  # IVF-PQ training with the permutation
+        from faiss_tpu.codecs.polysemous import PolysemousTraining as PolyJ
+        from faiss_tpu.codecs.pq import ProductQuantizer as PQJ
+
+        cent, pq_cent, codes, listnos, ids, _ = arrays
+        rs = np.random.RandomState(0)
+        trained = []
+        for poly in (False, True):
             index = ivfpq_from_arrays(
                 cent, rs.rand(M, 256, D // M), rs.randint(256, size=codes.shape),
                 listnos, ids, device="cpu",
             )
-            index.do_polysemous_training = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if case == "pq8_unrefined":
-                index.train(xq)
-            else:
-                index.search(xq, K)
+            index.do_polysemous_training = poly
+            index.polysemous_training = ftt.PolysemousTraining()
+            index.polysemous_training.n_iter = 300
+            index.train(xq)
+            trained.append(index.pq.centroids)
+        pj = PQJ(D, M, 8)
+        pj.centroids = trained[0].copy()
+        pt = PolyJ()
+        pt.n_iter = 300
+        pt.optimize_pq_for_hamming(pj)
+        np.testing.assert_array_equal(trained[1], pj.centroids)
         return
     ref.base_index.nprobe = 1  # other tests of the module set it
     sj = ftj.SearchParametersIVF(sel=ftj.IDSelectorRange(NB // 4, NB))
