@@ -339,6 +339,39 @@ print stands beside the card's name and power limit:
      norm expansion's error), the sample's objective within 1e-4 relative
      of float64's; the published baseline (Titan X, 2015, 140.6 s) printed
      beside it.
+ K. (K-a, K-b, K-d after J on the 1M x 128 set; K-c right after F on F's
+     rows, generated once) the graph indexes and the coarse quantizers
+     other than flat. K-a: ``index_factory(128,
+     "IVF4096_HNSW32,PQ32x4fs,RFlat")`` on the card, its quantizer an HNSW
+     graph over the 4096 centroids (host C++, built by g++ at first use;
+     its build timed inside train), the 1M rows assigned through the graph
+     at efSearch 32; the main path's point (nprobe=1 soft, k_factor=8,
+     2048-query batches) must launch K1 and no other kernel and reach
+     recall@10 >= 0.95 (distances exact to the store); the unrefined
+     search must launch K4 and the strict one K2 masked or K1 penalized;
+     64 queries by probe through the graph (no kernel) against float64
+     over the probed lists. K-a's launches go into the kernels' line as
+     ``k_a_launches`` of the K1, K1 penalized, K2 masked and K4 entries,
+     beside their own phases' ``launches``. K-b, faiss's bench_hnsw.py configuration:
+     IndexHNSWFlat(128, M=32), efConstruction 40, efSearch 16-256 over the
+     first 50k rows (a 100k build took 20-28 s on the chip host), then
+     HNSW32,SQ8 and HNSW32,PQ16 (their storage trained on the card's
+     codecs) over 25k, NSG32 and NNDescent32 over 10k, each's recall@1 and
+     @10 against float64 over its rows; NSG32 over 3k built in a process
+     of its own with OMP_NUM_THREADS=1 and here with every thread: the
+     graphs must be byte-identical. K-c: ``IMI2x10,PQ16`` (BASELINE row 4's
+     IMI2x12,PQ16 over SIFT1B, its 2^24 cells cut to 2^20 for 10M rows)
+     over the Deep10M-like set, the IMI trained on the card, the PQ with
+     polysemous training; its 2^20 skewed lists held as one CSR (the padded
+     layout's size printed); the 8192 queries by probe at nprobe 16,
+     max_codes 10,000, with the polysemous filter at ht 47 and without (no
+     kernel), 1-recall@1/10/100 against .deep10m_gt.npz; 64 rows of each
+     against float64 over the lists each probed (max_codes cut, filter
+     applied). K-d: IndexBinaryHNSW(256, 16) over 10k of phase J6's
+     IndexLSH(128, 256) codes, 64 rows against numpy's bit counts, recall
+     against IndexBinaryFlat. Every time stands beside the card's name and
+     power limit. ``python3 chip_smoke.py --only K`` runs phases 1-3 and
+     phase K alone.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -1351,7 +1384,15 @@ def strict_and_adc_phases(fused_knn, base, index, br, xb, xq, gt, dev, msteps):
                         br["n2s"][0].cpu().numpy(), recon="K5")
         print(f"{what}: max_abs_err {e:.3e}, ids agree on all rows", flush=True)
         k5_err = max(k5_err, e)
-    del a5
+    # a note beside K5 (not its library_ms): its products, the LUTs against
+    # the one-hot rows over the mean tile's real worklist columns
+    real_cols = int((cmap != br["nchunks"]).sum(1).float().mean()) * ct
+    oh_cols = torch.zeros(a5[1].shape[1], real_cols, dtype=a5[1].dtype, device=dev)
+    print(f"note: cuBLAS bf16 torch.mm of K5's products ({BATCH} queries' "
+          f"LUTs with the {a5[1].shape[1]} one-hot rows over the mean tile's "
+          f"real worklist columns, {real_cols}), no bias, no select: "
+          f"{onehot_products_ms(a5[1], oh_cols):.3f} ms ({CARD})", flush=True)
+    del a5, oh_cols
     dyn_lookup_check(fused_knn, dev, ct, ids_agree_tie_aware)
     time_search("refined soft, no decoded store (K5)", lambda: index.search(xq, K), NQ)
     base.strict_probe = True
@@ -1744,6 +1785,10 @@ def floor_phase(fused_knn, base, br, xq_all, dev):
           f"{tt[2]:.2f} ms on the same {BATCH} queries: K2 (the same products "
           f"and the exact select) takes K2/K7 = {k2ms / k7ms:.3f} of K7 (the "
           f"products and per-lane minima, no select)", flush=True)
+    print(f"note: cuBLAS bf16 torch.mm of K7's two products (K2 one plane's) "
+          f"over the same {BATCH} q x {yT.shape[1]} columns, no minima: "
+          f"{tc_products_ms(xp, yT, None, yT.shape[1], 3):.3f} ms ({CARD})",
+          flush=True)
     held = int(torch.isfinite(n2s).sum())
     return entry("recon_floor", "faiss_tpu_torch/csrc/recon_floor.cu",
                  "benchs/archive/exp_r3c.py:106", launches, err, ms, plain_ms,
@@ -2834,7 +2879,7 @@ def io_phases(ft, fused_knn, state, xq, dev):
           f"{err:.3e})", flush=True)
 
 
-def deep10m_phases(ft, fused_knn, dev):
+def deep10m_phases(ft, fused_knn, dev, only_k=False):
     """Phase F: OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory on the
     card over the Deep10M-like 10M x 96 set, searched at the reference's
     Deep10M point (K1 on every sub-batch), K1 held against its plain
@@ -2864,6 +2909,9 @@ def deep10m_phases(ft, fused_knn, dev):
           f".deep10m_gt.npz is the float32 brute-force minimum on {nq_gt} of "
           f"{nq_gt} queries ({exact} the argmin itself)", flush=True)
 
+    if only_k:
+        imi_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+        return None
     torch.cuda.reset_peak_memory_stats()
     index = ft.index_factory(DEEP_D, DEEP_KEY)
     refine = index.index
@@ -2993,9 +3041,16 @@ def deep10m_phases(ft, fused_knn, dev):
           f"ms of the {t_ops * 1e3 / (1 - pad_share):.3f} ms the padded products "
           f"take at the bf16 peak); bound at d={DEEP_D} "
           f"{max(t_ops * 1e3, nbyt / PEAK_BYTES * 1e3):.3f} ms ({CARD})", flush=True)
-    return entry("ivf_recon_dyn[opq,d96]", "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
-                 "faiss_tpu/ops/pallas_knn.py:1249", launches, err, ms, plain_ms,
-                 t_ops, nbyt)
+    k1 = entry("ivf_recon_dyn[opq,d96]", "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
+               "faiss_tpu/ops/pallas_knn.py:1249", launches, err, ms, plain_ms,
+               t_ops, nbyt)
+    # K-c on the same rows (generated once): phase F's index freed first
+    del index, refine, base, br, xr, xq_p, args
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    imi_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+    print(f"K. K-c {time.time() - t0:.1f} s", flush=True)
+    return k1
 
 
 # BASELINE.md row 12: k-means of MNIST8m, 8.1M x 784 uint8 -> 256 centroids,
@@ -3710,7 +3765,447 @@ def binary_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     return n_k2
 
 
+# Phase K: the graph indexes and the coarse quantizers other than flat
+GRAPH_KEY = "IVF4096_HNSW32,PQ32x4fs,RFlat"
+HNSW_M, HNSW_EFC, HNSW_EFS = 32, 40, (16, 32, 64, 128, 256)
+# K-b's rows: the prefix of the 1M set each graph is built over, cut so
+# that phase K stays near 150 s (hnsw_add is sequential: a 100k HNSW32
+# build took 20-28 s on the chip host; NN-descent pulls every 2-hop pair
+# of each node), and the prefix of K-b's two NSG32 builds whose graphs
+# must be byte-identical (one of them on one thread)
+HNSW_NB, HNSW_CODEC_NB, NSG_NB, NSG_DET_NB = 50_000, 25_000, 10_000, 3_000
+BIN_NB = 10_000  # K-d's rows
+# the coarse graph's efSearch while the 1M rows are assigned (faiss_tpu's
+# default 16 puts ~1% of the rows in a farther list)
+ASSIGN_EF = 32
+# BASELINE row 4's IMI2x12,PQ16, its 2^24 cells cut to 2^20 for 10M rows
+IMI_NBITS = 10
+IMI_KEY = f"IMI2x{IMI_NBITS},PQ16"
+IMI_NPROBE, IMI_MAX_CODES, IMI_HT = 16, 10_000, 47
+
+
+def gt64_prefix(xb_d, xq, k, dev):
+    """float64 exact k-NN ids of ``xq`` over the device rows ``xb_d``."""
+    yn = xb_d.double().square().sum(1)
+    out = []
+    for q0 in range(0, len(xq), 1024):
+        q = torch.from_numpy(xq[q0 : q0 + 1024]).to(dev).double()
+        d2 = q.square().sum(1)[:, None] + yn[None, :] - 2.0 * (q @ xb_d.double().T)
+        out.append(torch.topk(d2, k, dim=1, largest=False)[1].cpu().numpy())
+    return np.concatenate(out)
+
+
+def recall_1_10(I, gt):
+    r1 = float((I[:, 0] == gt[:, 0]).mean())
+    r10 = float(np.mean([len(set(a[:10]) & set(b[:10])) / 10 for a, b in zip(I, gt)]))
+    return r1, r10
+
+
+def graph_ivf_phase(ft, fused_knn, xb, xt, xq, gt, dev):
+    """K-a: IVF4096_HNSW32,PQ32x4fs,RFlat by index_factory on the card, its
+    coarse quantizer an HNSW graph over the 4096 centroids (host), searched
+    at the main path's point (K1; the big batches take exact coarse
+    distances over the graph's rows, as faiss_tpu does), unrefined (K4) and
+    strict (K2 masked or K1 penalized); 64 queries by probe through the
+    graph. Returns the launches of each kernel on K-a's paths, by the name
+    of its entry in the kernels line."""
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    index = ft.index_factory(D, GRAPH_KEY)
+    base = index.base_index
+    q = base.quantizer
+    check(type(q).__name__ == "IndexHNSWFlat" and q.hnsw.M == HNSW_M
+          and base.device == dev, f"K-a. {class_tree(index)}")
+    base.cp.niter = NITER
+    base.nprobe, base.strict_probe, base.pipeline_batch = NPROBE, False, BATCH
+    index.k_factor = K_FACTOR
+    # the graph's build over the centroids, timed inside train()
+    graph_s = []
+    add_graph = q.add
+
+    def timed_add(x):
+        t0 = time.time()
+        add_graph(x)
+        graph_s.append(time.time() - t0)
+
+    q.add = timed_add
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index.train(xt)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    del q.add
+    check(len(graph_s) == 1 and q.ntotal == NLIST, "K-a. the graph was not "
+          "built over the centroids")
+    t_graph = graph_s[0]
+    q.hnsw.efSearch = ASSIGN_EF
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    br = base._build_brute()
+    index.refine_index._consolidate()
+    torch.cuda.synchronize()
+    print(f"K-a. index_factory({D}, {GRAPH_KEY!r}): {class_tree(index)}; train "
+          f"{t_train:.2f} s (k-means {NITER} it., the graph, PQ); HNSW{HNSW_M} "
+          f"build over {q.ntotal} centroids {t_graph * 1e3:.1f} ms; add {t_add:.2f} s ({NB} rows assigned through the "
+          f"graph, efSearch {q.hnsw.efSearch}) ({CARD})", flush=True)
+
+    reset_counts(fused_knn)
+    Dm, Im = index.search(xq, K)
+    torch.cuda.synchronize()
+    k1 = fused_knn.ivf_recon_fused_dyn.launches
+    check(k1 > 0 and total_launches(fused_knn) == k1,
+          f"K-a. the main point launched K1 x{k1}, all kernels "
+          f"x{total_launches(fused_knn)}")
+    check(Dm.shape == Im.shape == (NQ, K) and np.isfinite(Dm).all()
+          and (Im >= 0).all() and (Im < NB).all(), "K-a. invalid results")
+    recall = recall_at_k(Im, gt, K)
+    check(recall >= RECALL_MIN, f"K-a. recall@10 {recall:.4f} < {RECALL_MIN}")
+    d_chk = ((xq[:256, None, :].astype(np.float64) - xb[Im[:256]]) ** 2).sum(-1)
+    check(np.allclose(Dm[:256], d_chk, rtol=1e-4, atol=1e-4),
+          "K-a. distances are not the exact L2 to the store")
+    t_search, times = host_median(lambda: index.search(xq, K))
+    print(f"K-a. {NQ} queries at nprobe={NPROBE} soft, k_factor={K_FACTOR}, "
+          f"batches of {BATCH}: K1 x{k1}, no other kernel; recall@10 "
+          f"{recall:.4f}; median {t_search * 1e3:.1f} ms per {NQ} queries "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> "
+          f"{NQ / t_search:.0f} QPS ({CARD})", flush=True)
+
+    # unrefined (K4) and strict refined (K2 masked) on the same index
+    reset_counts(fused_knn)
+    Du, Iu = base.search(xq, K)
+    torch.cuda.synchronize()
+    k4 = fused_knn.ivfpq_fused.launches
+    check(k4 > 0, "K-a. the unrefined search launched K4 no time")
+    base.strict_probe = True
+    reset_counts(fused_knn)
+    Ds, Is = index.search(xq, K)
+    torch.cuda.synchronize()
+    k2m = fused_knn.ivf_recon_fused.masked_launches
+    k1p = fused_knn.ivf_recon_fused_dyn.penalized_launches
+    check(k2m + k1p > 0, "K-a. the strict search launched neither K2 masked "
+                         "nor K1 penalized")
+    base.strict_probe = False
+    print(f"K-a. unrefined: K4 x{k4}, recall@10 {recall_at_k(Iu, gt, K):.4f}; "
+          f"strict: K2 masked x{k2m}, K1 penalized x{k1p}, recall@10 "
+          f"{recall_at_k(Is, gt, K):.4f}", flush=True)
+
+    # 64 queries by probe: the graph's coarse search, the ADC scan (the
+    # first call stages the per-probe CSR)
+    reset_counts(fused_knn)
+    t0 = time.time()
+    base.search(xq[:EXACT_ROWS], K)
+    t_stage = time.time() - t0
+    t_probe, _ = host_median(lambda: base.search(xq[:EXACT_ROWS], K))
+    Dp, Ip = base.search(xq[:EXACT_ROWS], K)
+    Dr, Ir = index.search(xq[:EXACT_ROWS], K)
+    check(total_launches(fused_knn) == 0, "K-a. the search by probe launched a kernel")
+    err = exact_in_lists(base, xq, Dp, Ip, K, "K-a. 64 queries by probe")
+    probes = base._coarse_search(torch.from_numpy(xq[:EXACT_ROWS]).to(dev),
+                                 base.nprobe)[1].cpu().numpy()
+    slot_of = np.argsort(base._ids_host)
+    lists = base._listnos_host[slot_of[Ir]]
+    check((lists == probes[:, :1]).all(), "K-a. refined rows by probe leave the "
+                                          "probed list")
+    d_r = ((xq[:EXACT_ROWS, None, :].astype(np.float64) - xb[Ir]) ** 2).sum(-1)
+    check(np.allclose(Dr, d_r, rtol=1e-4, atol=1e-4),
+          "K-a. refined distances by probe are not exact")
+    print(f"K-a. {EXACT_ROWS} queries by probe through the graph (no kernel): "
+          f"median {t_probe * 1e3:.1f} ms (first call, staging the per-probe "
+          f"layout, {t_stage * 1e3:.1f} ms); ADC = float64 over the probed "
+          f"lists (max err {err:.3e}); refined ids in the probed list, exact "
+          f"distances ({CARD})", flush=True)
+    del index, base, br
+    torch.cuda.empty_cache()
+    return {"ivf_recon_fused_dyn": k1, "ivfpq_fused": k4,
+            "ivf_recon_fused[masked]": k2m, "ivf_recon_fused_dyn[penalized]": k1p}
+
+
+def hnsw_phases(ft, xb, xt, xq, dev):
+    """K-b: faiss's bench_hnsw.py configuration, IndexHNSWFlat(128, M=32),
+    efConstruction 40, efSearch 16-256; HNSW32,SQ8 and HNSW32,PQ16 (their
+    codecs trained on the card), NSG32 and NNDescent32, each over a prefix
+    of the 1M set, recall against float64 over the rows built; NSG32 built
+    twice, in a process with OMP_NUM_THREADS=1 and here, byte-identical."""
+    import hashlib
+    import tempfile
+
+    nq = 2048
+    xq = xq[:nq]
+    xb_d = torch.from_numpy(xb[:HNSW_NB]).to(dev)
+    gt = gt64_prefix(xb_d, xq, K, dev)
+    del xb_d
+    index = ft.IndexHNSWFlat(D, HNSW_M)
+    index.hnsw.efConstruction = HNSW_EFC
+    t0 = time.time()
+    index.add(xb[:HNSW_NB])
+    t_build = time.time() - t0
+    row = []
+    for ef in HNSW_EFS:
+        index.hnsw.efSearch = ef
+        t0 = time.time()
+        _, I = index.search(xq, K)
+        dt = time.time() - t0
+        r1, r10 = recall_1_10(I, gt)
+        row.append(f"ef {ef}: R@1 {r1:.4f} R@10 {r10:.4f} "
+                   f"{dt / nq * 1e3:.4f} ms/q")
+    check(r10 >= 0.9, f"K-b. HNSW32 recall@10 {r10:.4f} at efSearch 256")
+    print(f"K-b. IndexHNSWFlat({D}, M={HNSW_M}), efConstruction {HNSW_EFC}, "
+          f"over {HNSW_NB} rows: build {t_build:.1f} s "
+          f"({HNSW_NB / t_build:.0f} rows/s); {nq} queries: "
+          + "; ".join(row) + f" ({CARD})", flush=True)
+    del index
+
+    xb_d = torch.from_numpy(xb[:HNSW_CODEC_NB]).to(dev)
+    gt_c = gt64_prefix(xb_d, xq, K, dev)
+    del xb_d
+    for key in ("HNSW32,SQ8", "HNSW32,PQ16"):
+        idx = ft.index_factory(D, key)
+        check(idx.storage.device == dev, f"K-b. {key}: storage not on the card")
+        t0 = time.time()
+        idx.train(xt)
+        torch.cuda.synchronize()
+        t_train = time.time() - t0
+        t0 = time.time()
+        idx.add(xb[:HNSW_CODEC_NB])
+        t_build = time.time() - t0
+        idx.hnsw.efSearch = 64
+        _, I = idx.search(xq, K)
+        r1, r10 = recall_1_10(I, gt_c)
+        check(r10 >= 0.8, f"K-b. {key} recall@10 {r10:.4f}")
+        print(f"K-b. {key}: storage trained {t_train:.2f} s, build "
+              f"over {HNSW_CODEC_NB} rows {t_build:.1f} s; efSearch 64: R@1 {r1:.4f} "
+              f"R@10 {r10:.4f} ({CARD})", flush=True)
+        del idx
+
+    xb_d = torch.from_numpy(xb[:NSG_NB]).to(dev)
+    gt_n = gt64_prefix(xb_d, xq, K, dev)
+    del xb_d
+    for key in ("NSG32", "NNDescent32"):
+        idx = ft.index_factory(D, key)
+        t0 = time.time()
+        idx.add(xb[:NSG_NB])
+        t_build = time.time() - t0
+        row = []
+        for L in (16, 64):
+            idx.search_L = L
+            _, I = idx.search(xq, K)
+            r1, r10 = recall_1_10(I, gt_n)
+            row.append(f"search_L {L}: R@1 {r1:.4f} R@10 {r10:.4f}")
+        check(r10 >= 0.8, f"K-b. {key} recall@10 {r10:.4f} at search_L 64")
+        print(f"K-b. {key} over {NSG_NB} rows: build {t_build:.1f} s; "
+              + "; ".join(row) + f" ({CARD})", flush=True)
+        del idx
+
+    # NSG32's graph, built with one OpenMP thread in a process of its own
+    # and with every thread here, byte for byte
+    def digest(state):
+        h = hashlib.sha256(state["graph"].tobytes())
+        h.update(str(state["enterpoint"]).encode())
+        return h.hexdigest()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/x.npy", xb[:NSG_DET_NB])
+        code = ("import hashlib, sys, numpy as np\n"
+                f"sys.path.insert(0, {str(ROOT)!r})\n"
+                "import faiss_tpu_torch as ft\n"
+                "x = np.load(sys.argv[1])\n"
+                "idx = ft.IndexNSGFlat(x.shape[1], 32, device='cpu')\n"
+                "idx.add(x)\n"
+                "s = idx.graph_state()\n"
+                "h = hashlib.sha256(s['graph'].tobytes())\n"
+                "h.update(str(s['enterpoint']).encode())\n"
+                "print(h.hexdigest())\n")
+        env = dict(__import__("os").environ, OMP_NUM_THREADS="1")
+        t0 = time.time()
+        out = subprocess.run([sys.executable, "-c", code, f"{tmp}/x.npy"],
+                             env=env, capture_output=True, text=True, timeout=600)
+        t_one = time.time() - t0
+    check(out.returncode == 0, f"K-b. the one-thread NSG build failed: {out.stderr}")
+    idx = ft.IndexNSGFlat(D, 32)
+    t0 = time.time()
+    idx.add(xb[:NSG_DET_NB])
+    t_all = time.time() - t0
+    one, here = out.stdout.strip(), digest(idx.graph_state())
+    check(one == here, f"K-b. NSG32 graphs differ: one thread {one}, all {here}")
+    print(f"K-b. NSG32 over {NSG_DET_NB} rows, OMP_NUM_THREADS=1 (its process, "
+          f"{t_one:.1f} s) and every thread ({t_all:.1f} s): byte-identical "
+          f"graphs (sha256 {here[:16]}) ({CARD})", flush=True)
+
+
+def binary_hnsw_phase(ft, xb, xt, xq, dev):
+    """K-d: IndexBinaryHNSW(256, 16) over the 1M set binarised as phase J6
+    does (IndexLSH(128, 256) codes), on a prefix; 64 rows of distances
+    against numpy's bit counts; recall@10 against an exact Hamming search
+    (IndexBinaryFlat on the card)."""
+    lsh = ft.IndexLSH(D, 256, rotate_data=True, train_thresholds=True)
+    lsh.train(xt)
+    codes, qcodes = lsh.sa_encode(xb[:BIN_NB]), lsh.sa_encode(xq[:2048])
+    index = ft.IndexBinaryHNSW(256, 16)
+    t0 = time.time()
+    index.add(codes)
+    t_build = time.time() - t0
+    index.hnsw.efSearch = 64
+    t0 = time.time()
+    Dh, Ih = index.search(qcodes, K)
+    t_search = time.time() - t0
+    bits = np.unpackbits(qcodes[:EXACT_ROWS, None, :] ^ codes[Ih[:EXACT_ROWS]],
+                         axis=-1).sum(-1)
+    check(Dh.dtype == np.int32 and np.array_equal(Dh[:EXACT_ROWS], bits),
+          "K-d. IndexBinaryHNSW distances differ from numpy's bit counts")
+    flat = ft.IndexBinaryFlat(256)
+    flat.add(codes)
+    De, Ie = flat.search(qcodes, K)
+    # recall against the exact Hamming search, ties counted by distance
+    kth = De[:, K - 1]
+    hit = np.mean([(Dh[r] <= kth[r]).sum() / K for r in range(len(qcodes))])
+    check(hit >= 0.8, f"K-d. IndexBinaryHNSW recall@10 {hit:.4f}")
+    print(f"K-d. IndexBinaryHNSW(256, 16) over {BIN_NB} LSH codes: build "
+          f"{t_build:.1f} s; {len(qcodes)} queries at efSearch 64 "
+          f"{t_search / len(qcodes) * 1e3:.4f} ms/q; recall@10 {hit:.4f} "
+          f"(against IndexBinaryFlat, ties by distance); {EXACT_ROWS} rows = "
+          f"numpy's bit counts ({CARD})", flush=True)
+
+
+def graph_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+    """Phase K on the 1M x 128 set: K-a, K-b and K-d. Returns K-a's
+    launches by kernel entry."""
+    t0 = time.time()
+    launches = graph_ivf_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+    torch.cuda.empty_cache()
+    t_a = time.time() - t0
+    t0 = time.time()
+    hnsw_phases(ft, xb, xt, xq, dev)
+    t_b = time.time() - t0
+    t0 = time.time()
+    binary_hnsw_phase(ft, xb, xt, xq, dev)
+    print(f"K. K-a {t_a:.1f} s, K-b {t_b:.1f} s, K-d {time.time() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def imi_phase(ft, fused_knn, xb, xt, xq, gt, dev):
+    """K-c: IMI2x10,PQ16 by index_factory over the Deep10M-like 10M x 96 set
+    (BASELINE row 4's IMI2x12,PQ16 over SIFT1B, its 2^24 cells cut to 2^20
+    for 10M rows): the IMI trains itself on the card, assigns on the card,
+    and its 2^20 skewed lists are held as one CSR (the padded layout would
+    not fit); the 8192 queries by probe at nprobe 16, max_codes 10,000,
+    with the polysemous filter at ht 47 and without; 64 rows against
+    float64 over the lists each probed."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    t0 = time.time()
+    index = ft.index_factory(DEEP_D, IMI_KEY)
+    q = index.quantizer
+    check(type(q).__name__ == "MultiIndexQuantizer" and index.quantizer_trains_alone
+          and index.nlist == 1 << (2 * IMI_NBITS), f"K-c. {class_tree(index)}")
+    # row 4's codes are polysemous (benchs/bench_polysemous_1bn.py trains the
+    # permutation), which the Hamming filter at ht 47 relies on
+    index.do_polysemous_training = True
+    torch.cuda.synchronize()
+    index.train(xt)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    sizes = np.bincount(index._listnos_host, minlength=index.nlist)
+    max_len = index._pad_to(int(sizes.max()))
+    # what the padded layout would take: codes and a slot id per position
+    padded = index.nlist * max_len * (index.pq.M + 4)
+    t0 = time.time()
+    dev_layout = index._build_device()
+    t_stage = time.time() - t0
+    check(type(dev_layout["lists"]).__name__ == "RaggedLists",
+          "K-c. the lists were not held as one CSR")
+    print(f"K-c. index_factory({DEEP_D}, {IMI_KEY!r}): {class_tree(index)}; "
+          f"train {t_train:.1f} s (the IMI's 2 x {1 << IMI_NBITS} and the PQ16's codebooks "
+          f"on the card, the polysemous permutation on the host), add {t_add:.1f} s; lists: {int((sizes > 0).sum())} of "
+          f"{index.nlist} non-empty, longest {int(sizes.max())}, mean of the "
+          f"non-empty {sizes[sizes > 0].mean():.1f}; the padded layout would "
+          f"take {padded / 2**30:.1f} GiB at max_len {max_len}, the CSR "
+          f"{(index._codes_host.nbytes + 4 * len(sizes) * 4 + 4 * index.ntotal) / 2**30:.2f} "
+          f"GiB, staged in {t_stage:.1f} s ({CARD})", flush=True)
+    index.nprobe, index.max_codes = IMI_NPROBE, IMI_MAX_CODES
+    res = {}
+    for ht in (IMI_HT, 0):
+        index.polysemous_ht = ht
+        reset_counts(fused_knn)
+        t0 = time.time()
+        Dq, Iq = index.search(xq, 100)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        check(total_launches(fused_knn) == 0, "K-c. the search by probe launched a kernel")
+        found = float((Iq[:, 0] >= 0).mean())
+        check(ht or found == 1.0, "K-c. a query found nothing without the filter")
+        r = [float(np.mean([g in set(row[:n]) for g, row in zip(gt[:, 0], Iq)]))
+             for n in (1, 10, 100)]
+        res[ht] = (Dq, Iq)
+        print(f"K-c. {len(xq)} queries, nprobe {IMI_NPROBE}, max_codes "
+              f"{IMI_MAX_CODES}, ht {ht or 'off'}: {dt / len(xq) * 1e3:.4f} "
+              f"ms/q; 1-R@1 {r[0]:.4f}, 1-R@10 {r[1]:.4f}, 1-R@100 {r[2]:.4f}; "
+              f"{found:.4f} of the queries found a vector ({CARD})", flush=True)
+        check(r[2] >= 0.3, f"K-c. 1-R@100 {r[2]:.4f} at ht {ht}")
+    both = res[IMI_HT][1][:, 0] >= 0
+    check((res[IMI_HT][0][both, 0] >= res[0][0][both, 0]).all(),
+          "K-c. the filter found a nearer vector than the unfiltered scan")
+
+    # 64 rows against float64 over the lists each probed (max_codes cut as
+    # the search cuts them; the filter as the search filters)
+    xr = torch.from_numpy(xq[:EXACT_ROWS]).to(dev)
+    probes = index._coarse_search(xr, IMI_NPROBE)[1]
+    cum = np.cumsum(sizes[probes.cpu().numpy()], 1)
+    keep = np.concatenate([np.ones((EXACT_ROWS, 1), bool),
+                           cum[:, :-1] < IMI_MAX_CODES], 1)
+    qcodes = index._query_residual_codes(xr, probes).cpu().numpy()
+    err, seen, kept = 0.0, 0, 0
+    for ht in (IMI_HT, 0):
+        Dq, Iq = res[ht]
+        for r in range(EXACT_ROWS):
+            pl = probes[r].cpu().numpy()[keep[r]]
+            slots = np.nonzero(np.isin(index._listnos_host, pl))[0]
+            ln = index._listnos_host[slots]
+            codes = index._codes_host[slots]
+            if ht:
+                pos = np.searchsorted(pl, ln, sorter=np.argsort(pl))
+                which = np.argsort(pl)[pos]
+                qc = qcodes[r][keep[r]][which]
+                ham = np.unpackbits((qc ^ codes).astype(np.uint8)[..., None],
+                                    axis=-1).sum((-1, -2))
+                seen, kept = seen + len(slots), kept + int((ham < ht).sum())
+                slots, ln, codes = slots[ham < ht], ln[ham < ht], codes[ham < ht]
+            if not len(slots):  # the filter left nothing
+                check((Iq[r] == -1).all(), f"K-c. row {r} at ht {ht}: results "
+                                           "where the filter leaves none")
+                continue
+            rows = index.decode_vectors(codes, ln).astype(np.float64)
+            d = ((xq[r].astype(np.float64) - rows) ** 2).sum(1)
+            o = np.argsort(d, kind="stable")[:K]
+            tol = 1e-5 * (float((xq[r].astype(np.float64) ** 2).sum())
+                          + float((rows**2).sum(1).max()))
+            e = np.abs(Dq[r, : len(o)] - d[o])
+            check((e <= tol).all() and ids_agree_tie_aware(
+                d[o][None], index._ids_host[slots][o][None], Dq[r : r + 1, : len(o)],
+                Iq[r : r + 1, : len(o)], np.array([tol])).all(),
+                f"K-c. row {r} at ht {ht} differs from float64 over its probed lists")
+            err = max(err, float(e.max()))
+    print(f"K-c. {EXACT_ROWS} rows at ht {IMI_HT} and off = float64 over their "
+          f"probed lists (max_codes cut, filter applied): max err {err:.3e}; "
+          f"ht {IMI_HT} keeps {kept} of their {seen} probed slots "
+          f"({kept / max(seen, 1):.4f})", flush=True)
+    del index, dev_layout
+    torch.cuda.empty_cache()
+
+
 def main():
+    # ``--only K`` runs phases 1-3 and phase K alone (the graph indexes and
+    # the IMI), with no kernels' line
+    only_k = sys.argv[1:] == ["--only", "K"]
+    if sys.argv[1:] and not only_k:
+        print("usage: chip_smoke.py [--only K]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -3811,6 +4306,15 @@ def main():
     # EXACT_ROWS queries, from the ground truth
     radius = float(np.median(((xq[:EXACT_ROWS].astype(np.float64)
                                - xb[gt[:EXACT_ROWS, 9]]) ** 2).sum(1)))
+    if only_k:
+        graph_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+        del xb, xt, xq
+        deep10m_phases(ft, fused_knn, dev, only_k=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     kernels, k2_ivf, state = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     torch.cuda.empty_cache()
     refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
@@ -3835,6 +4339,11 @@ def main():
     k2_j = pq_hamming_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
     next(e for e in kernels if e["name"] == "ivf_recon_fused")["launches"] += k2_j
     next(e for e in kernels if e["name"] == "knn_fused[k_lanes=128]")["launches"] += k3_sq
+    torch.cuda.empty_cache()
+    # K-a's launches in a field of their own: "launches" stays the count
+    # of the path that each entry's phase drove
+    for name, n in graph_phases(ft, fused_knn, xb, xt, xq, gt, dev).items():
+        next(e for e in kernels if e["name"] == name)["k_a_launches"] = n
     del xb, xt, xq
     torch.cuda.empty_cache()
     kernels.append(deep10m_phases(ft, fused_knn, dev))

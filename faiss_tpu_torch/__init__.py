@@ -64,6 +64,18 @@ Ported so far:
     ``IndexLSH``; the binary indexes ``IndexBinaryFlat``,
     ``IndexBinaryFlat1Bit``, ``IndexBinaryIVF``, ``IndexBinaryFromFloat``,
     ``IndexBinaryHash`` and ``IndexBinaryMultiHash``;
+  - the graph indexes, their graphs built and walked on the host in C++
+    (``csrc/host/``, built with g++ at first use) over the port's storage
+    on the device — ``IndexHNSWFlat``, ``IndexHNSWFlatPanorama``,
+    ``IndexHNSWPQ``, ``IndexHNSWSQ``, ``IndexHNSW2Level`` (over
+    ``Index2Layer``, with ``flip_to_ivf``), ``IndexNSGFlat``,
+    ``IndexNSGPQ``, ``IndexNSGSQ`` (a deterministic NN-descent),
+    ``IndexNNDescentFlat`` and ``IndexBinaryHNSW``, with ``hnsw_stats``,
+    ``nsg_stats`` and the interrupt callbacks;
+  - the coarse quantizers other than flat — ``MultiIndexQuantizer`` and
+    ``MultiIndexQuantizer2`` (the IMI, its tables and merge on the device),
+    an ``IndexHNSWFlat`` over the centroids, or any index of the port, as
+    the quantizer of every IVF index;
   - ``index_factory`` over the classes above, and index files
     (``write_index``, ``read_index``, ``serialize_index``,
     ``deserialize_index``, ``write_index_binary``, ``read_index_binary``,
@@ -71,9 +83,9 @@ Ported so far:
     the other's.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue-1 item: the other codecs (additive, RaBitQ and the rest), the graphs
-(with ``IndexBinaryHNSW``) and the coarse quantizers other than flat (item
-10), the multi-device meta indexes (item 11), ``reverse_index_factory``
+queue-1 item: the other codecs (additive, RaBitQ, EDEN, the Panorama flat
+indexes, the lattice) and the metrics other than L2 and inner product
+(item 10), the multi-device meta indexes (item 11), ``reverse_index_factory``
 and the reference-format reader ``io_ref`` (item 12).
 """
 
@@ -111,6 +123,12 @@ from .clustering import (  # noqa: E402,F401
     kmeans1d,
     kmeans_clustering,
 )
+from .callbacks import (  # noqa: E402,F401
+    InterruptCallback,
+    InterruptedException,
+    PythonInterruptCallback,
+    TimeoutCallback,
+)
 from .codecs.polysemous import (  # noqa: E402,F401
     PolysemousTraining,
     SimulatedAnnealingParameters,
@@ -143,6 +161,28 @@ from .models.binary import (  # noqa: E402,F401
     IndexBinaryMultiHash,
 )
 from .models.lsh import IndexLSH  # noqa: E402,F401
+from .models.extra_indexes import Index2Layer  # noqa: E402,F401
+from .models.hnsw import (  # noqa: E402,F401
+    HNSW,
+    HNSWStats,
+    IndexHNSW,
+    IndexHNSW2Level,
+    IndexHNSWFlat,
+    IndexHNSWFlatPanorama,
+    IndexHNSWPQ,
+    IndexHNSWSQ,
+    SearchParametersHNSW,
+    hnsw_stats,
+)
+from .models.imi import MultiIndexQuantizer, MultiIndexQuantizer2  # noqa: E402,F401
+from .models.nsg import (  # noqa: E402,F401
+    IndexNNDescentFlat,
+    IndexNSGFlat,
+    IndexNSGPQ,
+    IndexNSGSQ,
+    NSGStats,
+    nsg_stats,
+)
 from .models.pq import IndexPQ, IndexPQFastScan  # noqa: E402,F401
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer  # noqa: E402,F401
 from .models.ivf_pq import (  # noqa: E402,F401

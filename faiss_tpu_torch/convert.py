@@ -54,6 +54,16 @@ and ``mean=vt.mean`` for ITQTransform, ``dim_map=vt.map`` for
 RemapDimensionsTransform and ``norm=vt.norm`` for NormalizationTransform;
 ``pretransform_from([...], port_inner)`` then wraps the port of
 ``pre.index`` in that chain.
+
+A faiss_tpu ``IndexHNSW`` named ``h`` (Flat, FlatPanorama, PQ or SQ) is
+``hnsw_from_state(port_storage, h.graph_state())``, its storage ported as
+above (``flat_from_arrays(h.storage.vectors())``, ``pq_from_arrays``,
+``sq_from_arrays``); a faiss_tpu ``IndexNSGFlat`` or ``IndexNNDescentFlat``
+named ``g`` is ``nsg_from_state(g.graph_state(), g._xb, GK=g.GK,
+nndescent=..., device=...)`` and an ``IndexNSGPQ``/``IndexNSGSQ`` passes
+its ported ``storage=`` instead of the rows; a faiss_tpu
+``MultiIndexQuantizer`` named ``imi`` is ``imi_from_arrays(imi.d,
+imi.pq.centroids, nbits=imi.pq.nbits, device=...)``.
 """
 
 from __future__ import annotations
@@ -68,6 +78,15 @@ from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
 from .models.binary import IndexBinaryFlat, IndexBinaryIVF
+from .models.hnsw import (
+    IndexHNSW,
+    IndexHNSWFlat,
+    IndexHNSWFlatPanorama,
+    IndexHNSWPQ,
+    IndexHNSWSQ,
+)
+from .models.imi import MultiIndexQuantizer
+from .models.nsg import IndexNNDescentFlat, IndexNSGFlat, IndexNSGPQ, IndexNSGSQ
 from .models.lsh import IndexLSH
 from .models.pq import IndexPQ, IndexPQFastScan
 from .models.meta import (
@@ -386,3 +405,67 @@ def pretransform_from(chain, index: Index) -> IndexPreTransform:
         out.prepend_transform(vt)
     out.is_trained = index.is_trained and all(vt.is_trained for vt in chain)
     return out
+
+
+def hnsw_from_state(storage: Index, state) -> IndexHNSW:
+    """The HNSW index over the port index ``storage`` (holding the rows in
+    graph order) whose graph is ``state``, a faiss_tpu ``graph_state()``:
+    the graph's rows ``vecs``, ``levels``, the concatenated ``neighbors``,
+    ``entry_point``, ``max_level``, ``M``, ``efConstruction``,
+    ``efSearch`` and, for Panorama, ``pano_levels``. The class follows the
+    storage: IndexHNSWSQ, IndexHNSWPQ, IndexHNSWFlat(Panorama)."""
+    if isinstance(storage, IndexScalarQuantizer):
+        cls = IndexHNSWSQ
+    elif isinstance(storage, IndexPQ):
+        cls = IndexHNSWPQ
+    elif isinstance(storage, IndexFlat):
+        cls = IndexHNSWFlatPanorama if "pano_levels" in state else IndexHNSWFlat
+    else:
+        raise TypeError(f"no HNSW class over {type(storage).__name__}")
+    vecs = np.ascontiguousarray(state["vecs"], np.float32)
+    if len(vecs) != storage.ntotal:
+        raise ValueError("the graph's rows and the storage differ in length")
+    index = IndexHNSW(storage, int(state["M"]))
+    index.__class__ = cls
+    if cls is IndexHNSWFlatPanorama:
+        index.num_panorama_levels = int(state["pano_levels"])
+    index.restore_graph(state, vecs)
+    index.is_trained = True
+    return index
+
+
+def nsg_from_state(state, xb=None, *, storage: Index = None, GK: int = 64,
+                   nndescent: bool = False, device) -> IndexNSGFlat:
+    """The NSG index whose graph is ``state``, a faiss_tpu
+    ``graph_state()`` (``graph`` [ntotal * R], ``enterpoint``, ``R``,
+    ``search_L``): IndexNSGFlat (IndexNNDescentFlat with ``nndescent``) over
+    the rows ``xb``, or, given the port index ``storage`` (PQ or SQ),
+    IndexNSGPQ / IndexNSGSQ over its decoded rows."""
+    R = int(state["R"])
+    if storage is None:
+        xb = np.ascontiguousarray(xb, np.float32)
+        index = (IndexNNDescentFlat if nndescent else IndexNSGFlat)(
+            xb.shape[1], R, device=device)
+    else:
+        kls = IndexNSGSQ if isinstance(storage, IndexScalarQuantizer) else IndexNSGPQ
+        index = kls.__new__(kls)
+        IndexNSGFlat.__init__(index, storage.d, R, storage.metric_type,
+                              device=device)
+        index.storage = storage
+        index.is_trained = storage.is_trained
+        xb = storage.reconstruct_n(0, storage.ntotal)
+    index.GK = int(GK)
+    index.restore_graph(state, xb)
+    return index
+
+
+def imi_from_arrays(d: int, pq_centroids, *, nbits: int,
+                    device) -> MultiIndexQuantizer:
+    """A trained MultiIndexQuantizer from its sub-codebooks
+    ``pq_centroids`` [M, 2^nbits, d / M]."""
+    cb = np.ascontiguousarray(pq_centroids, np.float32)
+    index = MultiIndexQuantizer(d, cb.shape[0], nbits, device=device)
+    index.pq.set_centroids(cb)
+    index.is_trained = True
+    index.ntotal = index.pq.ksub ** index.pq.M
+    return index

@@ -11,9 +11,17 @@ IndexScalarQuantizer, IndexIVFScalarQuantizer, IndexPQ, IndexPQFastScan
 IndexIVFPQ, IndexIVFPQFastScan (with ``bbs``), IndexIVFPQR, IndexIDMap /
 IndexIDMap2,
 IndexRefine / IndexRefineFlat (its ``store`` recovered from the refine
-index) and IndexPreTransform over every transform of
-faiss_tpu_torch.transforms. A class tag of faiss_tpu that the port does
-not have raises NotImplementedError naming its ROADMAP queue-1 item.
+index), IndexPreTransform over every transform of
+faiss_tpu_torch.transforms, the HNSW indexes (IndexHNSW, IndexHNSWFlat,
+IndexHNSWFlatPanorama, IndexHNSWPQ, IndexHNSWSQ: the graph's rows, levels,
+neighbours, entry point and parameters beside the storage), the NSG indexes
+(IndexNSGFlat, IndexNNDescentFlat, IndexNSGPQ, IndexNSGSQ: the graph and its
+enter point) and MultiIndexQuantizer / MultiIndexQuantizer2 (the codebooks
+and the sub-indexes), also as the coarse quantizer of an IVF index.
+IndexHNSW2Level and IndexBinaryHNSW are refused with TypeError, as faiss_tpu
+refuses them (neither has a file form there). A class tag of
+faiss_tpu that the port does not have raises NotImplementedError naming its
+ROADMAP queue-1 item.
 
 ``read_index`` builds the index on ``device`` (the card unless the caller
 passes another). An IVF index gets its host lists (codes, list numbers,
@@ -37,6 +45,16 @@ from .models.ivf import IndexIVF
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
 from .models.binary import IndexBinaryFlat, IndexBinaryIVF
+from .models.hnsw import (
+    IndexHNSW,
+    IndexHNSW2Level,
+    IndexHNSWFlat,
+    IndexHNSWFlatPanorama,
+    IndexHNSWPQ,
+    IndexHNSWSQ,
+)
+from .models.imi import MultiIndexQuantizer, MultiIndexQuantizer2
+from .models.nsg import IndexNNDescentFlat, IndexNSGFlat, IndexNSGPQ, IndexNSGSQ
 from .models.lsh import IndexLSH
 from .models.pq import IndexPQ, IndexPQFastScan
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
@@ -57,11 +75,7 @@ IO_FLAG_READ_ONLY = 2
 # faiss_tpu's class tags whose classes the port does not have yet: the
 # codecs, graphs and quantizers of ROADMAP queue 1 item 10
 _ITEM10_CLASSES = frozenset((
-    "IndexHNSW", "IndexHNSWFlat",
-    "IndexHNSWPQ", "IndexHNSWSQ", "IndexHNSW2Level", "IndexHNSWFlatPanorama",
-    "IndexNSGFlat", "IndexNNDescentFlat", "IndexNSGPQ", "IndexNSGSQ",
-    "IndexFlatPanorama", "IndexIVFFlatPanorama", "MultiIndexQuantizer",
-    "MultiIndexQuantizer2", "IndexEDEN",
+    "IndexFlatPanorama", "IndexIVFFlatPanorama", "IndexEDEN",
     "IndexIVFEDEN", "IndexRaBitQ", "IndexRaBitQFastScan", "IndexIVFRaBitQ",
     "IndexIVFRaBitQFastScan", "IndexLattice", "IndexAdditiveQuantizer",
     "IndexResidualQuantizer", "IndexLocalSearchQuantizer",
@@ -127,6 +141,45 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
         meta["k_factor"] = index.k_factor
         meta["base"] = _dump(index.base_index, arrays, f"{path}/base")
         meta["refine"] = _dump(index.refine_index, arrays, f"{path}/refine")
+        return meta
+    if isinstance(index, IndexHNSW):  # faiss_tpu io.py:125
+        meta["d"] = index.d
+        meta["M"] = index.hnsw.M
+        state = index.graph_state()
+        meta["has_graph"] = state is not None
+        if isinstance(index, IndexHNSWFlatPanorama):
+            # also at the top: a graphless Panorama index keeps its levels
+            meta["pano_levels"] = int(index.num_panorama_levels)
+        if state is not None:
+            for key in ("vecs", "levels", "neighbors"):
+                arrays[f"{path}/hnsw/{key}"] = state[key]
+            meta["hnsw"] = {k: state[k] for k in (
+                "entry_point", "max_level", "M", "efConstruction", "efSearch")}
+            if "pano_levels" in state:
+                meta["hnsw"]["pano_levels"] = state["pano_levels"]
+        meta["storage"] = _dump(index.storage, arrays, f"{path}/storage")
+        return meta
+    if isinstance(index, MultiIndexQuantizer):  # faiss_tpu io.py:293
+        if isinstance(index, MultiIndexQuantizer2):
+            meta["assign"] = [_dump(sub, arrays, f"{path}/assign{m}")
+                              for m, sub in enumerate(index.assign_indexes)]
+        meta["pq"] = _pq_meta(index.pq)
+        meta["is_trained"] = index.is_trained
+        if index.pq.centroids is not None:
+            arrays[f"{path}/pq_centroids"] = index.pq.centroids
+        return meta
+    if isinstance(index, IndexNSGFlat):  # faiss_tpu io.py:390
+        meta.update(d=index.d, R=index.R, GK=index.GK)
+        state = index.graph_state()
+        meta["has_graph"] = state is not None
+        if state is not None:
+            arrays[f"{path}/graph"] = state["graph"]
+            meta["nsg"] = {k: state[k] for k in ("enterpoint", "R", "search_L")}
+        storage = getattr(index, "storage", None)
+        if storage is not None:  # IndexNSGPQ / IndexNSGSQ: codes + graph
+            meta["storage"] = _dump(storage, arrays, f"{path}/storage")
+        elif state is not None:  # flat: the graph's rows are the storage
+            arrays[f"{path}/xb"] = index._xb
         return meta
     if isinstance(index, IndexIVF):
         meta.update(
@@ -264,6 +317,40 @@ def _load(meta, arrays, path: str, device):
     if cls in ("IndexIVFFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
                "IndexIVFPQR", "IndexIVFScalarQuantizer"):
         return _load_ivf(meta, arrays, path, device)
+    if cls in _HNSW_CLASSES:  # faiss_tpu io.py:507
+        storage = _load(meta["storage"], arrays, f"{path}/storage", device)
+        index = IndexHNSW(storage, meta["M"])
+        index.__class__ = _HNSW_CLASSES[cls]
+        if cls == "IndexHNSWFlatPanorama":
+            index.num_panorama_levels = int(meta.get(
+                "pano_levels", meta.get("hnsw", {}).get("pano_levels", 8)))
+        if meta["has_graph"]:
+            state = dict(meta["hnsw"])
+            state["levels"] = arrays[f"{path}/hnsw/levels"]
+            state["neighbors"] = arrays[f"{path}/hnsw/neighbors"]
+            index.restore_graph(state, arrays[f"{path}/hnsw/vecs"])
+        index.ntotal = storage.ntotal
+        index.is_trained = True
+        return index
+    if cls in ("MultiIndexQuantizer", "MultiIndexQuantizer2"):  # io.py:779
+        pq = meta["pq"]
+        if cls == "MultiIndexQuantizer2":
+            subs = [_load(m, arrays, f"{path}/assign{i}", device)
+                    for i, m in enumerate(meta["assign"])]
+            index = MultiIndexQuantizer2(pq["d"], pq["nbits"], *subs,
+                                         device=device)
+        else:
+            index = MultiIndexQuantizer(pq["d"], pq["M"], pq["nbits"],
+                                        device=device)
+        if f"{path}/pq_centroids" in arrays:
+            index.pq.set_centroids(arrays[f"{path}/pq_centroids"])
+        index.is_trained = meta["is_trained"]
+        if index.is_trained:
+            index.ntotal = index.pq.ksub ** index.pq.M
+        return index
+    if cls in ("IndexNSGFlat", "IndexNNDescentFlat", "IndexNSGPQ",
+               "IndexNSGSQ"):  # faiss_tpu io.py:935
+        return _load_nsg(meta, arrays, path, device)
     if cls == "IndexLSH":  # faiss_tpu io.py:537
         index = IndexLSH(meta["d"], meta["nbits"], meta["rotate_data"],
                          meta["train_thresholds"], device=device)
@@ -335,6 +422,44 @@ def _load(meta, arrays, path: str, device):
         raise NotImplementedError(
             f"read_index: {cls} is not ported yet (ROADMAP queue 1 item 10)")
     raise TypeError(f"unknown serialized class {cls}")
+
+
+_HNSW_CLASSES = {
+    "IndexHNSW": IndexHNSW,
+    "IndexHNSWFlat": IndexHNSWFlat,
+    "IndexHNSWPQ": IndexHNSWPQ,
+    "IndexHNSWSQ": IndexHNSWSQ,
+    "IndexHNSW2Level": IndexHNSW2Level,
+    "IndexHNSWFlatPanorama": IndexHNSWFlatPanorama,
+}
+
+
+def _load_nsg(meta, arrays, path, device):
+    """An NSG index with its graph restored over its rows: the decoded
+    storage for the PQ and SQ forms, the stored rows for the flat ones."""
+    cls = meta["class"]
+    state = None
+    if meta["has_graph"]:
+        state = dict(meta["nsg"])
+        state["graph"] = arrays[f"{path}/graph"]
+    if cls in ("IndexNSGPQ", "IndexNSGSQ"):
+        storage = _load(meta["storage"], arrays, f"{path}/storage", device)
+        kls = IndexNSGPQ if cls == "IndexNSGPQ" else IndexNSGSQ
+        index = kls.__new__(kls)
+        IndexNSGFlat.__init__(index, meta["d"], meta["R"],
+                              MetricType(storage.metric_type), device=device)
+        index.storage = storage
+        index.is_trained = storage.is_trained
+        index.GK = meta["GK"]
+        if state is not None:
+            index.restore_graph(state, storage.reconstruct_n(0, storage.ntotal))
+        return index
+    kls = IndexNNDescentFlat if cls == "IndexNNDescentFlat" else IndexNSGFlat
+    index = kls(meta["d"], meta["R"], device=device)
+    index.GK = meta["GK"]
+    if state is not None:
+        index.restore_graph(state, arrays[f"{path}/xb"])
+    return index
 
 
 def _load_ivf(meta, arrays, path, device):

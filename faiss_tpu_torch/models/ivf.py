@@ -3,21 +3,27 @@
 The inverted lists are a host-side flat entry store (codes / listnos / ids
 per slot; the ArrayInvertedLists + DirectMap analogue), from which the
 search layouts of a subclass are built. Training is k-means of the coarse
-quantizer on the device; adds are paged, assigned on the device against the
-flat quantizer and encoded by the subclass.
+quantizer on the device; adds are paged, assigned by the coarse quantizer
+(on the device where it is flat or an IMI) and encoded by the subclass.
 
-Search by probe (``search``, ``search_preassigned``): the flat quantizer's
-exact k-NN on the device gives each query its nprobe nearest lists, and
+Search by probe (``search``, ``search_preassigned``): the coarse quantizer
+gives each query its nprobe nearest lists (a flat quantizer by its exact
+k-NN on the device, an IMI by its table merge on the device, any other,
+such as an HNSW graph, by its own search), and
 ops/ivf_ops.ivf_flat_scan scans them over a padded ``[nlist, max_len, d]``
 copy of the vectors, built at first use and dropped by ``add``/``reset``.
 That scan reads raw vectors: it serves IndexIVFFlat. A subclass replaces the
-layout (``_stage_codes``), the scan (``_scan``) and the per-probe scorer of
-``range_search`` (``_probe_scorer``); the scan receives each probe's coarse
-distance (||q - c||^2, or q . c for inner product: IndexIVFPQ's bias term;
-IVF-Flat's scan ignores it).
+layout (``_stage_codes``; IVF-PQ's is a CSR), the scan (``_scan``) and the
+probe step of ``range_search`` (``_probe_step``); the scan receives each
+probe's coarse distance (||q - c||^2, or q . c for inner product:
+IndexIVFPQ's bias term; IVF-Flat's scan ignores it).
 
 METRIC_L2 and METRIC_INNER_PRODUCT are served; inner product trains the
-coarse quantizer by spherical k-means, as faiss_tpu does. An ID selector
+coarse quantizer by spherical k-means, as faiss_tpu does. A coarse quantizer
+other than flat is trained by k-means and then filled with the centroids
+(an HNSW graph is built over them), or, with ``quantizer_trains_alone``
+(the IMI), trains itself; the codecs read its centroids through one device
+copy of its ``vectors()`` (``_centroids_dev``). An ID selector
 (``params.sel``) renders once per search to a mask over the slots, on the
 device, that the scans apply. ``remove_ids``, ``merge_from`` and
 ``update_vectors`` edit the host entry store; unlike faiss_tpu, each then
@@ -91,12 +97,19 @@ class Level1Quantizer:
             else IndexFlat(d, metric, device=device)
         )
         self.cp = ClusteringParameters()
+        # 1: the quantizer trains itself on the data (the IMI; faiss_tpu
+        # ivf.py:75, IndexIVF.h:39)
+        self.quantizer_trains_alone = 0
 
     def train_q1(self, x: np.ndarray, verbose: bool, metric) -> None:
-        """faiss_tpu/models/ivf.py:77: k-means, spherical for inner
-        product."""
+        """faiss_tpu/models/ivf.py:77: the quantizer's own training, or
+        k-means (spherical for inner product) whose centroids fill the
+        quantizer."""
         if self.quantizer.ntotal == self.nlist:
             return  # already trained (quantizer provided pre-populated)
+        if self.quantizer_trains_alone == 1:
+            self.quantizer.train(x)
+            return
         self.cp.verbose = verbose
         self.cp.spherical = (self.cp.spherical
                              or metric == MetricType.INNER_PRODUCT)
@@ -121,18 +134,15 @@ class IndexIVF(Index, Level1Quantizer):
         Level1Quantizer.__init__(
             self, quantizer, nlist, d, self.metric_type, device=device
         )
-        if not isinstance(self.quantizer, IndexFlat):
-            raise NotImplementedError(
-                "only a flat coarse quantizer is ported; HNSW, IMI and the "
-                "other coarse quantizers are ROADMAP queue 1 item 10")
         self.nprobe = 1
         self.max_codes = 0
         self.is_trained = self.quantizer.ntotal == self.nlist
         self._codes_host: Optional[np.ndarray] = None  # [ntotal, code width]
         self._listnos_host = np.empty(0, np.int32)
         self._ids_host = np.empty(0, np.int64)
-        self._device = None  # the padded per-probe layout
+        self._device = None  # the per-probe layout
         self._brute = None  # the group-packed big-batch layout (subclasses)
+        self._cent_dev = None  # (quantizer, its ntotal, centroids on the device)
 
     def train_encoder(self, x: torch.Tensor, assign: torch.Tensor) -> None:
         del x, assign
@@ -143,15 +153,60 @@ class IndexIVF(Index, Level1Quantizer):
     def decode_vectors(self, codes: np.ndarray, listnos: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
+    def _centroids_dev(self) -> torch.Tensor:
+        """The coarse centroids [nlist, d] on the device: a flat quantizer's
+        own store; for any other quantizer its ``vectors()`` (decoded graph
+        rows, the IMI's product table), uploaded once and kept while the
+        quantizer and its ntotal stay the same."""
+        q = self.quantizer
+        if isinstance(q, IndexFlat):
+            return q._consolidate()
+        c = self._cent_dev
+        if c is None or c[0] is not q or c[1] != q.ntotal:
+            cent = self._centroids_host()
+            self._cent_dev = c = (q, q.ntotal,
+                                  torch.from_numpy(cent).to(self.device))
+        return c[2]
+
+    def _centroids_host(self) -> np.ndarray:
+        """The coarse centroids [nlist, d] float32 on the host: the
+        quantizer's ``vectors()``, or its ``reconstruct_n`` where it has none
+        (an IndexPQ inside ``IVFn(PQm)``)."""
+        q = self.quantizer
+        cent = (q.vectors() if hasattr(q, "vectors")
+                else q.reconstruct_n(0, q.ntotal))
+        return np.ascontiguousarray(cent, np.float32)
+
+    def _quantizer_search(self, xq: torch.Tensor, k: int):
+        """(distances [nq, k], list numbers int64 [nq, k], -1 = none) of the
+        coarse quantizer for device queries: a flat quantizer's exact k-NN on
+        the device, else the quantizer's own search (faiss_tpu ivf.py:322):
+        on the device where it has one (``_search_dev``: the IMI), else
+        through numpy (an HNSW graph walks on the host)."""
+        q = self.quantizer
+        if isinstance(q, IndexFlat):
+            return dops.knn(xq, q._consolidate(), k, metric=q.metric_type,
+                            y_norms=q._norms)
+        if hasattr(q, "_search_dev"):
+            d, i = q._search_dev(xq, k)
+        else:
+            d, i = q.search(xq.cpu().numpy(), k)
+            d, i = torch.from_numpy(d), torch.from_numpy(i)
+        return d.to(self.device, torch.float32), i.to(self.device, torch.int64)
+
     def _assign(self, x: torch.Tensor) -> torch.Tensor:
-        """Top-1 coarse assignment on the device (assign_flat) by the
-        quantizer's metric."""
-        return dops.assign_flat(x, self.quantizer._consolidate(),
-                                metric=self.quantizer.metric_type)[1]
+        """Top-1 coarse assignment: on the device (assign_flat) by a flat
+        quantizer's metric, else the quantizer's search at k = 1, as
+        faiss_tpu assigns (ivf.py:133-144)."""
+        q = self.quantizer
+        if isinstance(q, IndexFlat):
+            return dops.assign_flat(x, q._consolidate(), metric=q.metric_type)[1]
+        return self._quantizer_search(x, 1)[1][:, 0]
 
     def train(self, x) -> None:
         x = self._check_input(x)
         self.train_q1(x, self.verbose, self.metric_type)
+        self._cent_dev = None  # an IMI retrains in place: same ntotal
         xd = torch.from_numpy(x).to(self.device)
         self.train_encoder(xd, self._assign(xd))
         self.is_trained = True
@@ -271,13 +326,22 @@ class IndexIVF(Index, Level1Quantizer):
         self._listnos_host[slots] = listnos.to(torch.int32).cpu().numpy()
 
     # -- range search (faiss_tpu :1155-1216) -----------------------------------
-    def _probe_scorer(self, xq, dev):
+    def _probe_step(self, xq, dev, sel):
         """A function (ln [nq] list numbers, cd [nq] their coarse distances)
-        -> [nq, max_len] distances of each query to every slot of its list;
-        IVF-Flat's default: exact float32, as its scan computes them."""
+        -> (dist, valid, slots), each [nq, W], of one probe step: the
+        distances of each query to the slots of its list, which of them are
+        valid (in the list, kept by the selector mask ``sel``) and the slots
+        (-1 where not valid). IVF-Flat's default over the padded layout:
+        exact float32, as its scan computes them."""
         xn = xq.square().sum(-1) if self.metric_type == MetricType.L2 else None
-        return lambda ln, cd: flat_probe_dists(
-            xq, ln, dev["codes"], self.metric_type, xn, dev["code_norms"])
+
+        def step(ln, cd):
+            del cd
+            dist = flat_probe_dists(xq, ln, dev["codes"], self.metric_type, xn,
+                                    dev["code_norms"])
+            return (dist,) + probe_slots(ln, dev["slot_ids"], dev["lengths"], sel)
+
+        return step
 
     def _probe_row_bytes(self, dev) -> int:
         """Bytes of one query's per-probe gather of the padded layout."""
@@ -286,7 +350,7 @@ class IndexIVF(Index, Level1Quantizer):
     def range_search(self, x, radius: float, *, params=None):
         """Every entry of each query's nprobe nearest lists within
         ``radius`` (L2 below it, inner product above it), by probe over the
-        padded layout: the codec's distances thresholded on the device (and
+        per-probe layout: the codec's distances thresholded on the device (and
         masked by an ID selector), only the hits read back, the CSR
         assembled on the host (IndexIVF::range_search). Within a query the
         hits come probe by probe."""
@@ -307,12 +371,9 @@ class IndexIVF(Index, Level1Quantizer):
             for q0 in range(0, nq, rows):
                 xq = x_dev[q0 : q0 + rows]
                 coarse_dis, probes = self._coarse_search(xq, nprobe)
-                score = self._probe_scorer(xq, dev)
+                step = self._probe_step(xq, dev, mask)
                 for p in range(nprobe):
-                    ln = probes[:, p]
-                    dist = score(ln, coarse_dis[:, p])
-                    valid, sl = probe_slots(ln, dev["slot_ids"], dev["lengths"],
-                                            mask)
+                    dist, valid, sl = step(probes[:, p], coarse_dis[:, p])
                     hit = valid & (dist > radius if largest else dist < radius)
                     qi, ci = torch.nonzero(hit, as_tuple=True)
                     parts.append((
@@ -321,27 +382,26 @@ class IndexIVF(Index, Level1Quantizer):
                     ))
         return range_result(parts, nq)
 
-    # -- the padded per-probe layout (faiss_tpu :281-319) ---------------------
+    # -- the per-probe layout (faiss_tpu :281-319) ----------------------------
     def _pad_to(self, n: int) -> int:
         return max(128, -(-n // 128) * 128)
 
     def _build_device(self):
-        """The padded layout, built at first use: for every list its slots
-        (input positions, -1 on pads) in add order, padded to a common
-        max_len (a multiple of 128)."""
+        """The per-probe layout, built at first use by the codec's
+        ``_stage_codes`` from the lists in list order: ``order`` (the slots
+        sorted by list, add order within a list), each list's ``offsets``
+        and ``lengths``, and ``max_len`` (the longest, padded to a multiple
+        of 128)."""
         if self._device is not None:
             return self._device
-        nlist, n = self.nlist, self.ntotal
-        lengths = np.bincount(self._listnos_host, minlength=nlist).astype(np.int64)
+        n = self.ntotal
+        lengths = np.bincount(self._listnos_host,
+                              minlength=self.nlist).astype(np.int64)
         max_len = self._pad_to(int(lengths.max()) if n else 1)
         order = np.argsort(self._listnos_host, kind="stable")
-        sorted_ln = self._listnos_host[order].astype(np.int64)
-        offsets = np.zeros(nlist, np.int64)
+        offsets = np.zeros(self.nlist, np.int64)
         np.cumsum(lengths[:-1], out=offsets[1:])
-        ranks = np.arange(n, dtype=np.int64) - offsets[sorted_ln]
-        slot_ids = np.full((nlist, max_len), -1, np.int32)
-        slot_ids[sorted_ln, ranks] = order
-        self._device = self._stage_codes(slot_ids, lengths, max_len)
+        self._device = self._stage_codes(order, offsets, lengths, max_len)
         return self._device
 
     def _stage_rows(self) -> np.ndarray:
@@ -350,11 +410,17 @@ class IndexIVF(Index, Level1Quantizer):
         this)."""
         return self._codes_host
 
-    def _stage_codes(self, slot_ids, lengths, max_len):
-        """Device tensors of the per-probe scan; the default: the padded
-        rows of ``_stage_rows`` [nlist, max_len, d] float32 (zeros on pads),
-        gathered on the device through ``slot_ids``, and their norms."""
+    def _stage_codes(self, order, offsets, lengths, max_len):
+        """Device tensors of the per-probe scan; the default, the padded
+        layout: for every list its slots (input positions, -1 on pads) in
+        add order [nlist, max_len], and the rows of ``_stage_rows``
+        [nlist, max_len, d] float32 (zeros on pads) gathered on the device
+        through them, and their norms."""
         dev = self.device
+        sorted_ln = self._listnos_host[order].astype(np.int64)
+        ranks = np.arange(self.ntotal, dtype=np.int64) - offsets[sorted_ln]
+        slot_ids = np.full((self.nlist, max_len), -1, np.int32)
+        slot_ids[sorted_ln, ranks] = order
         sid = torch.from_numpy(slot_ids).to(dev)
         xb = torch.from_numpy(
             np.ascontiguousarray(self._stage_rows(), np.float32)
@@ -372,12 +438,10 @@ class IndexIVF(Index, Level1Quantizer):
 
     # -- search by probe (faiss_tpu :322-444) ---------------------------------
     def _coarse_search(self, xq: torch.Tensor, nprobe: int):
-        """The nprobe nearest lists on the device (the flat quantizer's exact
-        k-NN by its metric): (distances [nq, nprobe], list numbers
-        int64)."""
-        q = self.quantizer
-        return dops.knn(xq, q._consolidate(), nprobe, metric=q.metric_type,
-                        y_norms=q._norms)
+        """The nprobe nearest lists of each query by the coarse quantizer
+        (:meth:`_quantizer_search`): (distances [nq, nprobe], list numbers
+        int64, -1 = none)."""
+        return self._quantizer_search(xq, nprobe)
 
     def _scan(self, xq, probes, coarse_dis, k, dev, sel):
         """The codec's list scan: (dists, slots). IVF-Flat's default, which

@@ -146,7 +146,7 @@ class IndexIVFFlat(IndexIVF):
         self._dyn_bucket = None  # worklist size is layout-dependent
         dev = self.device
         lay, local_of = grouped_layout(
-            self._listnos_host, self.quantizer.vectors(), self.nlist,
+            self._listnos_host, self._centroids_host(), self.nlist,
             self.FUSED_CT, dev,
         )
         xb = torch.from_numpy(

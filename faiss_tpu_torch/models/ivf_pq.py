@@ -12,8 +12,8 @@ reconstructions (``yT``, read by the recon kernels K1 and K2).
     scan (``_big_batch_xla``: ops/pq_ops.ivfpq_brute_adc_knn over the codes
     in input order, plain torch ops);
   - every other ``search``, and ``search_preassigned``: the per-probe ADC
-    scan (IndexIVF.search, ops/ivf_ops.ivf_pq_scan over padded lists, with
-    IndexIVFPQ's precomputed tables by residual);
+    scan (IndexIVF.search, ops/ivf_ops.ivf_pq_scan over the lists as one
+    CSR, with IndexIVFPQ's precomputed tables by residual);
   - ``IndexRefineFlat`` over it (``_sbbr_submit``): at a selective nprobe
     whose per-tile worklists stay within the engage fraction, queries are
     sorted by home group and each 256-query tile scans only the chunks of
@@ -60,7 +60,7 @@ from ..ops.fused_knn import (
     ivfpq_fused,
     ivfpq_fused_dyn,
 )
-from ..ops.ivf_ops import ivf_pq_scan, pq_probe_dists
+from ..ops.ivf_ops import RaggedLists, ivf_pq_scan, pq_probe_dists
 from ..ops.topk import topk
 from .ivf import IndexIVF
 
@@ -245,6 +245,57 @@ _MASKED_KEY = 5e8
 # cap on the term-2 precomputed table (faiss_tpu :923, faiss's
 # precomputed_table_max_bytes, IndexIVFPQ.cpp:375)
 precomputed_table_max_bytes = 2 << 30
+
+
+class IMITerm2:
+    """term2[c, m, k] = ||y_mk||^2 + 2 c_m . y_mk of an IVF-PQ over an IMI
+    quantizer without its [nlist, M, ksub] table (faiss's
+    use_precomputed_table = 2, IndexIVFPQ.cpp:375): where every PQ
+    sub-vector lies inside one IMI block b(m), c_m is a row of block b(m)'s
+    codebook, chosen by cell c's digit of that block, so a [ksub_imi, M,
+    ksub] table computed as precompute_table computes each entry holds
+    every row. Indexing by list numbers (or by (lists, m, codes), as
+    ``_slot_norms`` does) gathers the full table's entries."""
+
+    def __init__(self, small: torch.Tensor, weights: torch.Tensor, ksub_imi: int):
+        self.small = small  # [ksub_imi, M, ksub]
+        self.weights = weights  # [M] int64: ksub_imi ** b(m)
+        self.ksub_imi = ksub_imi
+
+    @classmethod
+    def build(cls, quantizer, pq):
+        """The factored tables, or None where ``quantizer`` is no IMI or its
+        blocks split a PQ sub-vector."""
+        from .imi import MultiIndexQuantizer
+
+        if not isinstance(quantizer, MultiIndexQuantizer):
+            return None
+        mi, ksub_imi = quantizer.pq.M, quantizer.pq.ksub
+        if pq.M % mi:
+            return None
+        per = pq.M // mi  # PQ sub-vectors per IMI block
+        cb_imi = quantizer.pq.centroids  # [mi, ksub_imi, d / mi]
+        cmk = np.stack([
+            cb_imi[m // per][:, (m % per) * pq.dsub : (m % per + 1) * pq.dsub]
+            for m in range(pq.M)], axis=1)  # [ksub_imi, M, dsub]
+        cb = pq.centroids
+        y_norms = np.sum(cb**2, axis=-1)
+        small = (y_norms[None] + 2.0 * np.einsum("cmd,mkd->cmk", cmk, cb)
+                 ).astype(np.float32)
+        dev = pq.device
+        weights = torch.tensor([ksub_imi ** (m // per) for m in range(pq.M)],
+                               dtype=torch.int64, device=dev)
+        return cls(torch.from_numpy(small).to(dev), weights, ksub_imi)
+
+    def _digits(self, lists, m):
+        return torch.div(lists, self.weights[m], rounding_mode="floor") % self.ksub_imi
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple):  # (lists, m, codes), broadcast together
+            lists, m, k = key
+            return self.small[self._digits(lists, m), m, k]
+        m = torch.arange(self.small.shape[1], device=self.small.device)
+        return self.small[self._digits(key[..., None], m), m]
 
 
 def _slot_norms(codes, listnos, term2, cn2):
@@ -675,7 +726,7 @@ class IndexIVFPQ(IndexIVF):
         ``do_polysemous_training``, the codebooks' polysemous permutation
         (codecs/polysemous.py)."""
         if self.by_residual:
-            x = x - self.quantizer._consolidate()[assign]
+            x = x - self._centroids_dev()[assign]
         self.pq.cp.verbose = False
         self.pq.train(x.cpu().numpy())
         if self.do_polysemous_training:
@@ -691,14 +742,14 @@ class IndexIVFPQ(IndexIVF):
         device."""
         resid = x.float()
         if self.by_residual:
-            resid = resid - self.quantizer._consolidate()[listnos]
+            resid = resid - self._centroids_dev()[listnos]
         return codes_numpy(pq_ops.pq_encode(resid, self.pq._dev()), self.pq.nbits)
 
     def _decode_dev(self, codes: torch.Tensor, listnos: torch.Tensor) -> torch.Tensor:
         """Reconstructions [n, d] float32 on the device."""
         out = pq_ops.pq_decode(codes, self.pq._dev())
         if self.by_residual:
-            out = out + self.quantizer._consolidate()[listnos.long()]
+            out = out + self._centroids_dev()[listnos.long()]
         return out
 
     def decode_vectors(self, codes: np.ndarray, listnos: np.ndarray) -> np.ndarray:
@@ -714,7 +765,7 @@ class IndexIVFPQ(IndexIVF):
         in float32 on the host as faiss_tpu computes it, kept on the
         device."""
         pq = self.pq
-        cmk = self.quantizer.vectors().reshape(self.nlist, pq.M, pq.dsub)
+        cmk = self._centroids_host().reshape(self.nlist, pq.M, pq.dsub)
         cb = pq.centroids
         y_norms = np.sum(cb**2, axis=-1)  # [M, ksub]
         cdoty = 2.0 * np.einsum("cmd,mkd->cmk", cmk, cb)
@@ -723,36 +774,40 @@ class IndexIVFPQ(IndexIVF):
         ).to(self.device)
 
     def _maybe_term2(self):
-        """The tables of the by-residual L2 scan (None without residuals);
-        raises, as faiss_tpu does, where they exceed
-        ``precomputed_table_max_bytes``."""
+        """The tables of the by-residual L2 scan (None without residuals).
+        An IMI quantizer whose blocks hold whole PQ sub-vectors gets the
+        factored tables of :class:`IMITerm2` (faiss's use_precomputed_table
+        = 2, which faiss_tpu lacks), with the full table's entries; any
+        other quantizer the full table, which raises beyond
+        ``precomputed_table_max_bytes``, as faiss_tpu does."""
         if not self.by_residual:
             return None
-        nbytes = self.nlist * self.pq.M * self.pq.ksub * 4
-        if nbytes > precomputed_table_max_bytes:
-            raise MemoryError(
-                f"precomputed table of {nbytes} bytes exceeds cap; raise "
-                "precomputed_table_max_bytes"
-            )
         if self._term2 is None:
+            self._term2 = IMITerm2.build(self.quantizer, self.pq)
+        if self._term2 is None:
+            nbytes = self.nlist * self.pq.M * self.pq.ksub * 4
+            if nbytes > precomputed_table_max_bytes:
+                raise MemoryError(
+                    f"precomputed table of {nbytes} bytes exceeds cap; "
+                    "raise precomputed_table_max_bytes")
             self.precompute_table()
         return self._term2
 
     # -- search by probe (faiss_tpu :1044, :1726) -------------------------------
-    def _stage_codes(self, slot_ids, lengths, max_len):
-        """The padded per-probe layout: codes [nlist, max_len, M] (uint8;
-        int32 above 8 bits; zeros on pads), gathered on the device through
-        ``slot_ids``."""
+    def _stage_codes(self, order, offsets, lengths, max_len):
+        """The per-probe lists as one CSR (ops/ivf_ops.RaggedLists): the
+        codes (uint8; int32 above 8 bits) and slots in list order. A probe
+        step gathers each query's list padded only to the longest list of
+        that step: an IMI's 2^20 skewed lists would not fit padded to the
+        longest of all."""
         dev = self.device
-        sid = torch.from_numpy(slot_ids).to(dev)
-        codes = codes_tensor(self._codes_host if self.ntotal else
-                             np.zeros((1, self.pq.M), np.uint8), dev)
-        return {
-            "codes": torch.where((sid >= 0)[..., None],
-                                 codes[sid.clamp_min(0).long()], 0),
-            "slot_ids": sid,
-            "lengths": torch.from_numpy(lengths).to(dev),
-        }
+        lists = RaggedLists(
+            codes_tensor(self._codes_host[order] if self.ntotal else
+                         np.zeros((0, self.pq.M), np.uint8), dev),
+            torch.from_numpy(order.astype(np.int32)).to(dev),
+            torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(lengths).to(dev), max_len)
+        return {"lists": lists, "lengths": lists.lengths}
 
     def _adc_tables(self, xq, coarse_dis):
         """(luts [nq, M, ksub], bias [nq, nprobe], term2 or None, largest) of
@@ -775,7 +830,7 @@ class IndexIVFPQ(IndexIVF):
         """PQ codes [nq, nprobe, M] of the query's residual to each probed
         list, for the polysemous filter (faiss_tpu :1715)."""
         nq, nprobe = probes.shape
-        cents = self.quantizer._consolidate()[probes.clamp_min(0).long()]
+        cents = self._centroids_dev()[probes.clamp_min(0).long()]
         resid = (xq[:, None, :] - cents).reshape(nq * nprobe, self.d)
         return pq_ops.pq_encode(resid, self.pq._dev()).reshape(nq, nprobe, self.pq.M)
 
@@ -788,21 +843,26 @@ class IndexIVFPQ(IndexIVF):
         qcodes = None
         if ht and self.by_residual and self.metric_type == MetricType.L2:
             qcodes = self._query_residual_codes(xq, probes)
-        return ivf_pq_scan(luts, probes, bias, dev["codes"], dev["slot_ids"],
-                           dev["lengths"], k, term2=term2, sel_mask=sel,
-                           largest=largest, qcodes=qcodes,
+        return ivf_pq_scan(luts, probes, bias, dev["lists"], k, term2=term2,
+                           sel_mask=sel, largest=largest, qcodes=qcodes,
                            ht=ht if qcodes is not None else 0)
 
-    def _probe_scorer(self, xq, dev):
-        """range_search's per-probe ADC values, as the scan computes them
-        (the coarse distance is the bias by residual only)."""
+    def _probe_step(self, xq, dev, sel):
+        """range_search's probe step over the CSR: the ADC values as the
+        scan computes them (the coarse distance is the bias by residual
+        only)."""
         luts, _, term2, _ = self._adc_tables(xq, xq.new_zeros(len(xq), 1))
         res = self.by_residual
-        return lambda ln, cd: pq_probe_dists(
-            luts, ln, cd if res else torch.zeros_like(cd), dev["codes"], term2)
+
+        def step(ln, cd):
+            cl, valid, sl = dev["lists"].step(ln, sel)
+            bias = cd if res else torch.zeros_like(cd)
+            return pq_probe_dists(luts, ln, bias, cl, term2), valid, sl
+
+        return step
 
     def _probe_row_bytes(self, dev) -> int:
-        return dev["codes"][0].numel() * 8
+        return dev["lists"].shape[1] * dev["lists"].shape[2] * 8
 
     def search(self, x, k: int, *, params=None):
         """faiss_tpu :1683: the big-batch scan for nq >= big_batch_threshold
@@ -910,7 +970,7 @@ class IndexIVFPQ(IndexIVF):
             )
         self._dyn_bucket = None  # worklist size is layout-dependent
         pq, ct, dev = self.pq, self.FUSED_CT, self.device
-        centroids = self.quantizer.vectors()
+        centroids = self._centroids_host()
         listnos = self._listnos_host
         lay, local_of = grouped_layout(listnos, centroids, self.nlist, ct, dev)
         sm_d = lay["slot_map_dev"]
@@ -1032,7 +1092,7 @@ class IndexIVFPQR(IndexIVFPQ):
         """The IVF-PQ, then the refine PQ on what the IVF-PQ leaves of the
         residual to the coarse centroid (faiss_tpu :1802)."""
         super().train_encoder(x, assign)
-        res = x - self.quantizer._consolidate()[assign]
+        res = x - self._centroids_dev()[assign]
         cb = self.pq._dev()
         left = res - pq_ops.pq_decode(pq_ops.pq_encode(res, cb), cb)
         self.refine_pq.cp.verbose = False

@@ -119,7 +119,7 @@ class IndexIVFScalarQuantizer(IndexIVF):
         float32)."""
         if not self.by_residual:
             return x
-        return x - self.quantizer.vectors()[listnos]
+        return x - self._centroids_host()[listnos]
 
     def train_encoder(self, x: torch.Tensor, assign: torch.Tensor) -> None:
         self.sq.train(self._residual(x.float().cpu().numpy(),
@@ -132,7 +132,7 @@ class IndexIVFScalarQuantizer(IndexIVF):
     def decode_vectors(self, codes: np.ndarray, listnos: np.ndarray) -> np.ndarray:
         out = self.sq.decode(codes)
         if self.by_residual:
-            out = out + self.quantizer.vectors()[listnos]
+            out = out + self._centroids_host()[listnos]
         return out
 
     def _stage_rows(self) -> np.ndarray:

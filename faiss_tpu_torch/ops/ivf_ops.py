@@ -1,13 +1,15 @@
 """The per-probe IVF list scans (counterpart of faiss_tpu/ops/ivf_ops.py:32
 and :124).
 
-The inverted lists are padded dense tensors ``codes [nlist, max_len, ...]``
-with per-list lengths; a probe step gathers each query's p-th list, scores
-it (IVF-Flat: one batched float32 product; IVF-PQ: table gathers) and merges
-it into the running top-k. A
-Python loop over the nprobe axis takes the place of faiss_tpu's
-``lax.scan``. Plain PyTorch: faiss_tpu runs this scan through XLA, not a
-Pallas kernel. Slots are int32 positions; the index maps them to ids."""
+IVF-Flat's inverted lists are padded dense tensors ``codes [nlist, max_len,
+d]`` with per-list lengths; IVF-PQ's are one CSR, a :class:`RaggedLists`
+(an IMI's 2^20 skewed lists would not fit padded). A probe step gathers
+each query's p-th list, scores it (IVF-Flat: one batched float32 product;
+IVF-PQ: table gathers, over the lists padded only to the longest list of
+that step) and merges it into the running top-k. A Python loop over the
+nprobe axis takes the place of faiss_tpu's ``lax.scan``. Plain PyTorch:
+faiss_tpu runs this scan through XLA, not a Pallas kernel. Slots are int32
+positions; the index maps them to ids."""
 
 from __future__ import annotations
 
@@ -23,6 +25,38 @@ from .topk import merge_topk
 # scanned in chunks of rows that keep it below this. The results do not
 # depend on the chunking.
 SCAN_GATHER_BYTES = 1 << 30
+
+
+class RaggedLists:
+    """The inverted lists as one CSR: ``codes`` [n, ...] and ``slot_ids``
+    [n] int32 in list order (add order within a list), each list's
+    ``offsets`` and ``lengths`` [nlist] int64. ``shape`` is (nlist, max_len,
+    code width), max_len the longest list padded to 128, by which the scans
+    size their query chunks."""
+
+    def __init__(self, codes, slot_ids, offsets, lengths, max_len: int):
+        self.codes, self.slot_ids = codes, slot_ids
+        self.offsets, self.lengths = offsets, lengths
+        self.shape = (len(lengths), int(max_len)) + tuple(codes.shape[1:])
+
+    def step(self, ln, sel_mask=None):
+        """One probe step over each query's list ``ln`` (-1 = no probe):
+        (codes [nq, W, ...], zeros past the list's length; valid [nq, W]
+        bool; slots [nq, W] int32, -1 where not valid), W the longest of
+        these lists (at least 1); with ``sel_mask`` the slots that the ID
+        selector clears are not valid."""
+        safe = ln.clamp_min(0)
+        length = torch.where(ln >= 0, self.lengths[safe], 0)
+        width = max(1, int(length.max())) if len(ln) else 1
+        col = torch.arange(width, device=ln.device)
+        valid = col[None, :] < length[:, None]
+        rows = torch.where(valid, self.offsets[safe][:, None] + col[None, :], 0)
+        shape = valid.shape + (1,) * (self.codes.dim() - 1)
+        codes = torch.where(valid.view(shape), self.codes[rows], 0)
+        sl = self.slot_ids[rows]
+        if sel_mask is not None:
+            valid = valid & sel_mask[sl.clamp_min(0).long()]
+        return codes, valid, torch.where(valid, sl, -1)
 
 
 def ivf_flat_scan(
@@ -54,9 +88,9 @@ def ivf_flat_scan(
 
 def probe_slots(ln, slot_ids, lengths, sel_mask=None):
     """(valid [nq, max_len] bool, slots [nq, max_len] int32 with -1 where
-    not valid) of one probe step: the slots of each query's list ``ln``
-    (-1 = no probe) within the list's length and, with ``sel_mask``, kept
-    by the ID selector."""
+    not valid) of one probe step over the padded layout: the slots of each
+    query's list ``ln`` (-1 = no probe) within the list's length and, with
+    ``sel_mask``, kept by the ID selector."""
     safe = ln.clamp_min(0)
     col = torch.arange(slot_ids.shape[1], device=ln.device)
     valid = (col[None, :] < lengths[safe][:, None]) & (ln[:, None] >= 0)
@@ -81,26 +115,24 @@ def flat_probe_dists(xq, ln, codes, metric, x_norms=None, code_norms=None):
     return (xn[:, None] + cn - 2.0 * ip).clamp_min(0.0)
 
 
-def pq_probe_dists(luts, ln, bias, codes, term2=None):
-    """[nq, max_len] ADC values of each query against every slot of its list
-    ``ln``: the M table entries (query-side ``luts`` plus the list's
-    ``term2``) summed in order of m, then the per-query ``bias`` [nq]
-    added, as faiss_tpu does."""
-    safe = ln.clamp_min(0).long()
-    cl = codes[safe]  # [nq, max_len, M]
-    tab = luts if term2 is None else luts + term2[safe]
+def pq_probe_dists(luts, ln, bias, cl, term2=None):
+    """[nq, W] ADC values of each query against the codes ``cl`` [nq, W, M]
+    of its list ``ln`` (one :meth:`RaggedLists.step`): the M table entries
+    (query-side ``luts`` plus the list's ``term2``) summed in order of m,
+    then the per-query ``bias`` [nq] added, as faiss_tpu does."""
+    tab = luts if term2 is None else luts + term2[ln.clamp_min(0).long()]
     dist = torch.zeros(cl.shape[0], cl.shape[1], device=luts.device)
     for m in range(cl.shape[2]):
         dist = dist + torch.gather(tab[:, m, :], 1, cl[:, :, m].long())
     return dist + bias[:, None]
 
 
-def pq_probe_hamming(qcodes, ln, codes):
-    """[nq, max_len] int32 Hamming distances between each query's code
-    ``qcodes`` [nq, M] and every code of its list ``ln``: the bits of
-    qcode_m ^ code_m counted and summed over m (faiss_tpu ivf_ops.py:183)."""
-    cl = codes[ln.clamp_min(0).long()].to(torch.int32)  # [nq, max_len, M]
-    x = qcodes.to(torch.int32)[:, None, :] ^ cl
+def pq_probe_hamming(qcodes, cl):
+    """[nq, W] int32 Hamming distances between each query's code ``qcodes``
+    [nq, M] and the codes ``cl`` [nq, W, M] of its list: the bits of
+    qcode_m ^ code_m counted and summed over m (faiss_tpu
+    ivf_ops.py:183)."""
+    x = qcodes.to(torch.int32)[:, None, :] ^ cl.to(torch.int32)
     return popcount32(x).sum(-1, dtype=torch.int32)
 
 
@@ -125,9 +157,7 @@ def ivf_pq_scan(
     luts: torch.Tensor,  # [nq, M, ksub] query-side ADC tables
     probes: torch.Tensor,  # [nq, nprobe] int (-1 = no probe)
     bias: torch.Tensor,  # [nq, nprobe] float32 per-(query, probe) term
-    codes: torch.Tensor,  # [nlist, max_len, M] padded lists (uint8, int32)
-    slot_ids: torch.Tensor,  # [nlist, max_len] int32 (-1 on pads)
-    lengths: torch.Tensor,  # [nlist] int
+    lists: RaggedLists,  # codes [n, M] (uint8, int32) and slots, as a CSR
     k: int,
     term2: Optional[torch.Tensor] = None,  # [nlist, M, ksub] list-side tables
     sel_mask: Optional[torch.Tensor] = None,  # [ntotal] bool over slots
@@ -153,32 +183,31 @@ def ivf_pq_scan(
     float32 best-first, slots [nq, k] int32), the sentinel (+inf, -inf for
     ``largest``) and -1 where a query has fewer than k candidates."""
     nq = luts.shape[0]
-    max_len, M = codes.shape[1], codes.shape[2]
+    max_len, M = lists.shape[1], lists.shape[2]
     rows = max(1, SCAN_GATHER_BYTES // max(1, max_len * M * 8))
     if not ht:
         qcodes = None
     parts = [
         _pq_scan_rows(luts[r : r + rows], probes[r : r + rows],
-                      bias[r : r + rows], codes, slot_ids, lengths, k, term2,
-                      sel_mask, largest,
+                      bias[r : r + rows], lists, k, term2, sel_mask, largest,
                       None if qcodes is None else qcodes[r : r + rows], ht)
         for r in range(0, max(nq, 1), rows)
     ]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def _pq_scan_rows(luts, probes, bias, codes, slot_ids, lengths, k, term2,
-                  sel_mask, largest, qcodes, ht):
+def _pq_scan_rows(luts, probes, bias, lists, k, term2, sel_mask, largest,
+                  qcodes, ht):
     nq = luts.shape[0]
     sentinel = float("-inf") if largest else float("inf")
     vals = torch.full((nq, k), sentinel, device=luts.device)
     ids = torch.full((nq, k), -1, dtype=torch.int32, device=luts.device)
     for p in range(probes.shape[1]):
         ln = probes[:, p].long()
-        dist = pq_probe_dists(luts, ln, bias[:, p], codes, term2)
-        valid, sl = probe_slots(ln, slot_ids, lengths, sel_mask)
+        cl, valid, sl = lists.step(ln, sel_mask)
+        dist = pq_probe_dists(luts, ln, bias[:, p], cl, term2)
         if qcodes is not None:
-            valid = valid & (pq_probe_hamming(qcodes[:, p], ln, codes) < ht)
+            valid = valid & (pq_probe_hamming(qcodes[:, p], cl) < ht)
             sl = torch.where(valid, sl, -1)
         dist = torch.where(valid, dist, sentinel)
         vals, ids = merge_topk(vals, ids, dist, sl, k, largest=largest)

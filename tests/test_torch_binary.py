@@ -223,8 +223,18 @@ def test_binary_multihash(codes):
 
 
 def test_binary_hnsw_waits_for_graphs():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        ftt.IndexBinaryHNSW(D, device="cpu")
+    """IndexBinaryHNSW, once refused until the graph wrappers were ported,
+    now builds: its int32 distances are the bit counts of the ids it
+    returns, and it finds each stored code at distance 0
+    (tests/test_torch_graph.py holds it against faiss_tpu)."""
+    rs = np.random.RandomState(12)
+    xb = rs.randint(0, 256, size=(800, D // 8), dtype=np.uint8)
+    index = ftt.IndexBinaryHNSW(D, 16, device="cpu")
+    index.add(xb)
+    Dt, It = index.search(xb[:20], 5)
+    assert Dt.dtype == np.int32 and (It[:, 0] == np.arange(20)).all()
+    bits = np.unpackbits(xb[:20, None, :] ^ xb[It], axis=-1).sum(-1)
+    np.testing.assert_array_equal(Dt, bits)
 
 
 # -- IndexLSH -----------------------------------------------------------------

@@ -45,9 +45,18 @@ def tree(index):
             out["refine_dtype"] = np.dtype(index.refine_index.storage_dtype).name
     elif hasattr(index, "id_map"):
         out["sub"] = tree(index.index)
-    if hasattr(index, "nlist"):
-        out.update(nlist=index.nlist, nprobe=index.nprobe,
-                   quantizer=tree(index.quantizer))
+    if hasattr(index, "nlist"):  # IVF, or Index2Layer's q1_quantizer
+        q = getattr(index, "quantizer", None) or index.q1_quantizer
+        out.update(nlist=index.nlist, nprobe=getattr(index, "nprobe", None),
+                   quantizer=tree(q),
+                   trains_alone=getattr(index, "quantizer_trains_alone", 0))
+    if hasattr(index, "storage"):  # the graph indexes
+        out["storage"] = tree(index.storage)
+    if hasattr(index, "hnsw"):
+        out["hnsw"] = (index.hnsw.M, index.hnsw.efConstruction, index.hnsw.efSearch)
+    for name in ("R", "GK", "search_L", "num_panorama_levels"):
+        if hasattr(index, name):
+            out[name] = getattr(index, name)
     for name in ("pq", "refine_pq"):
         if hasattr(index, name):
             pq = getattr(index, name)
@@ -83,6 +92,15 @@ SUPPORTED = [
     (32, "PQ16x12", "l2"), (128, "PQ64", "l2"), (32, "PQ32x4fs_64", "l2"),
     (32, "OPQ8,PQ8", "l2"), (32, "IVF16,Flat,Refine(PQ4)", "l2"), (32, "LSH", "l2"),
     (32, "LSHrt", "l2"), (32, "IVF16,PQ8x6", "l2"),
+    # the graphs and the coarse quantizers other than flat
+    (32, "HNSW32,SQ8", "l2"), (32, "NSG32,SQ8", "l2"), (32, "HNSW32", "l2"),
+    (32, "HNSW32,PQ8", "l2"), (32, "NSG32", "l2"), (32, "IVF16(PQ4),Flat", "l2"),
+    (32, "IVF16_HNSW32,Flat", "l2"), (32, "IMI2x4,PQ8", "l2"),
+    (32, "HNSW16,Flat", "ip"), (32, "HNSW16,FlatPanorama4", "l2"),
+    (32, "HNSW32,PQ8x4np", "l2"), (32, "HNSW32,16+PQ8", "l2"),
+    (32, "HNSW32,2x4+PQ8", "l2"), (32, "NNDescent32", "l2"), (32, "NSG16,PQ8", "l2"),
+    (32, "HNSW32,RFlat", "l2"), (32, "IVF16_HNSW,PQ8x4fs,RFlat", "l2"),
+    (32, "IMI2x4,Flat", "l2"), (32, "IVF16(IVF4,Flat),SQ8", "l2"),
 ]
 
 
@@ -101,8 +119,6 @@ def test_factory_tree_matches_reference(d, desc, metric):
 
 
 UNPORTED = [
-    "HNSW32,SQ8", "NSG32,SQ8", "HNSW32",
-    "HNSW32,PQ8", "NSG32", "IVF16(PQ4),Flat", "IVF16_HNSW32,Flat", "IMI2x4,PQ8",
     "IVF16,RQ4x4", "IVF16,LSQ4x4fs", "RQ4x4", "IVF16,PRQ2x4x4fs", "IVF16,RaBitQ", "RaBitQfs",
     "EDEN4", "IVF16,FlatPanorama",
 ]

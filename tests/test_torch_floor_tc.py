@@ -432,8 +432,9 @@ def test_source_needs_the_toolkit(monkeypatch, tmp_path):
     fallback."""
     assert '#include "recon_mma.cuh"' in SOURCE
     assert not (fused_knn.CSRC / "recon_step.cuh").exists()
-    for f in fused_knn.CSRC.iterdir():
-        assert "recon_step" not in f.read_text(), f.name
+    for f in fused_knn.CSRC.rglob("*"):  # the host sources' folder too
+        if f.is_file():
+            assert "recon_step" not in f.read_text(), f.name
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(fused_knn, "BUILD_DIR", tmp_path / "build")

@@ -134,6 +134,32 @@ def build_ref(case, xb):
         index.prepend_transform(ftj.NormalizationTransform(D, 2.0))
         index.prepend_transform(ftj.CenteringTransform(D))
         adc = False
+    elif case == "hnsw_flat":
+        index, adc = ftj.IndexHNSWFlat(D, 8), False
+        index.hnsw.efSearch = 24
+    elif case == "hnsw_panorama":
+        index, adc = ftj.IndexHNSWFlatPanorama(D, 8, 4), False
+    elif case == "hnsw_pq":
+        index, adc = ftj.IndexHNSWPQ(D, 8, 4, 8), False
+        index.storage.pq.cp.niter = 3
+    elif case == "hnsw_sq8":
+        index, adc = ftj.IndexHNSWSQ(D, ftj.ScalarQuantizer.QT_8bit, 8), False
+    elif case in ("imi", "imi2"):
+        if case == "imi":
+            index = ftj.MultiIndexQuantizer(D, 2, 4)
+        else:
+            index = ftj.MultiIndexQuantizer2(D, 4, ftj.IndexFlatL2(D // 2),
+                                             ftj.IndexHNSWFlat(D // 2, 8))
+        index.pq.cp.niter = 3
+        index.train(xb)
+        return index, False
+    elif case == "ivf_hnsw_flat":
+        index, adc = ftj.index_factory(D, "IVF8_HNSW8,Flat"), False
+        index.cp.niter, index.cp.min_points_per_centroid, index.nprobe = 4, 1, 3
+    elif case == "imi_ivf_pq":
+        index, adc = ftj.index_factory(D, "IMI2x3,PQ4"), True
+        index.quantizer.pq.cp.niter = index.pq.cp.niter = 3
+        index.nprobe = 6
     else:
         raise KeyError(case)
     index.train(xb)
@@ -144,7 +170,9 @@ def build_ref(case, xb):
 CASES = ["flat_l2", "flat_ip", "flat_f16", "flat_sq8", "flat_1d", "ivf_flat",
          "ivf_pq8", "ivf_pq4fs_bbs64", "ivf_pqr", "idmap_flat", "idmap2_ivf_flat",
          "refine_flat_f16", "refine_flat_sq8", "refine_ivf_flat", "pre_pca",
-         "pre_opq_refine", "pre_rotations", "pre_center_norm_pad_itq"]
+         "pre_opq_refine", "pre_rotations", "pre_center_norm_pad_itq",
+         "hnsw_flat", "hnsw_panorama", "hnsw_pq", "hnsw_sq8", "imi", "imi2",
+         "ivf_hnsw_flat", "imi_ivf_pq"]
 
 
 def contents(blob):
@@ -210,6 +238,47 @@ def test_files_round_trip_between_packages(data, case):
     Db, Ib = back.search(xq, K)
     np.testing.assert_array_equal(Ib, Ij)
     np.testing.assert_array_equal(Db, Dj)
+
+
+NSG_CASES = ["nsg_flat", "nndescent", "nsg_pq", "nsg_sq8"]
+
+
+def build_port_nsg(case, xb):
+    """The port's NSG index of ``case`` (faiss_tpu never builds an NSG
+    graph in these tests: its NN-descent races, ROADMAP queue 3)."""
+    if case == "nsg_flat":
+        index = ftt.IndexNSGFlat(D, 8, device="cpu")
+    elif case == "nndescent":
+        index = ftt.IndexNNDescentFlat(D, 8, device="cpu")
+    elif case == "nsg_pq":
+        index = ftt.IndexNSGPQ(D, 4, 8, device="cpu")
+        index.storage.pq.cp.niter = 3
+    else:
+        index = ftt.IndexNSGSQ(D, ftt.QuantizerType.QT_8bit, 8, device="cpu")
+    index.search_L = 24
+    index.train(xb)
+    index.add(xb)
+    return index
+
+
+@pytest.mark.parametrize("case", NSG_CASES)
+def test_nsg_files_round_trip_between_packages(data, case):
+    """The port writes its NSG index, faiss_tpu reads it (restoring the
+    graph, no build) and writes it back bit for bit, the port reads that;
+    all three search alike."""
+    xb, xq = data
+    port = build_port_nsg(case, xb)
+    blob = ftt.serialize_index(port)
+    ref = ftj.deserialize_index(blob)
+    assert type(ref).__name__ == type(port).__name__ and ref.ntotal == NB
+    assert_same_file(blob, ftj.serialize_index(ref))
+    back = ftt.deserialize_index(ftj.serialize_index(ref), device="cpu")
+    assert type(back) is type(port) and back.GK == port.GK
+    for other in (ref, back):
+        Do, Io = other.search(xq, K)
+        Dp, Ip = port.search(xq, K)
+        np.testing.assert_array_equal(Io, Ip)
+        np.testing.assert_allclose(Do, Dp, rtol=0, atol=1e-5)
 
 
 def test_refine_store_and_knobs_recovered(data):
@@ -291,9 +360,12 @@ def test_refusals(data, tmp_path, monkeypatch):
     ref_file.write_bytes(b"IxF2" + bytes(60))
     with pytest.raises(NotImplementedError, match="item 12"):
         ftt.read_index(str(ref_file), device="cpu")
-    # an index class that neither package writes
+    # index classes that neither package writes
     with pytest.raises(TypeError, match="serialize"):
         ftt.serialize_index(ftt.IndexRandom(D, 10, device="cpu"))
+    two = ftt.IndexHNSW2Level(ftt.IndexFlatL2(D, device="cpu"), 4, 4, 8)
+    with pytest.raises(TypeError, match="Index2Layer"):
+        ftt.serialize_index(two)
     # the card is the default device: with none, read_index raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     blob = ftj.serialize_index(build_ref("flat_l2", xb)[0])

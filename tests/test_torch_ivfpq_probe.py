@@ -123,14 +123,23 @@ def test_adc_tables_and_gather_match_reference(built):
 
 
 def test_ivf_pq_scan_matches_reference(built):
-    """ivf_pq_scan over the padded layout (equal to faiss_tpu's), with the
-    precomputed tables and -1 probes, against faiss_tpu's on the same
-    inputs."""
+    """ivf_pq_scan over the port's CSR layout (each list's codes and slots
+    equal to the valid part of faiss_tpu's padded layout), with the
+    precomputed tables and -1 probes, against faiss_tpu's scan over its
+    padded layout on the same inputs."""
     refs, ports, xb, xq = built
     ref, port = refs["pq8"], ports["pq8"]
     dj, dt = ref._build_device(), port._build_device()
-    np.testing.assert_array_equal(dt["codes"].numpy(), np.asarray(dj["codes"]))
-    np.testing.assert_array_equal(dt["slot_ids"].numpy(), np.asarray(dj["slot_ids"]))
+    lists = dt["lists"]
+    lengths = np.asarray(dj["lengths"])
+    np.testing.assert_array_equal(lists.lengths.numpy(), lengths)
+    codes_j, slots_j = np.asarray(dj["codes"]), np.asarray(dj["slot_ids"])
+    for c in range(port.nlist):
+        o, n = int(lists.offsets[c]), int(lengths[c])
+        np.testing.assert_array_equal(lists.codes[o : o + n].numpy(),
+                                      codes_j[c, :n])
+        np.testing.assert_array_equal(lists.slot_ids[o : o + n].numpy(),
+                                      slots_j[c, :n])
     dis, probes = port._coarse_search(torch.from_numpy(xq), 6)
     probes[::3, 4:] = -1
     term2 = port._maybe_term2()
@@ -141,8 +150,7 @@ def test_ivf_pq_scan_matches_reference(built):
         luts.numpy(), probes.numpy().astype(np.int32), dis.numpy(),
         dj["codes"], dj["slot_ids"], dj["lengths"], 20, term2=term2.numpy(),
     ))
-    Dt, St = port_ivf.ivf_pq_scan(luts, probes, dis, dt["codes"], dt["slot_ids"],
-                                  dt["lengths"], 20, term2=term2)
+    Dt, St = port_ivf.ivf_pq_scan(luts, probes, dis, lists, 20, term2=term2)
     exact_agree(Dj, Sj.astype(np.int64), Dt.numpy(), St.numpy().astype(np.int64),
                 xq, xb)
 

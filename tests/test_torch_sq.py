@@ -336,9 +336,13 @@ def test_factory_sq_strings(desc):
 
 @pytest.mark.parametrize("desc", ["HNSW32,SQ8", "NSG32,SQ4", "HNSW16,SQfp16"])
 def test_factory_graph_sq_raises_item_10(desc):
-    ftj.index_factory(32, desc)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        ftt.index_factory(32, desc, device="cpu")
+    """The graph SQ variants, refused until the graph wrappers were ported
+    (ROADMAP queue 1 item 10), now build faiss_tpu's tree: the graph class
+    over an IndexScalarQuantizer storage of the same type and code size."""
+    ref = ftj.index_factory(32, desc)
+    port = ftt.index_factory(32, desc, device="cpu")
+    assert type(port).__name__ == type(ref).__name__
+    assert sq_tree(port.storage) == sq_tree(ref.storage)
 
 
 IO_CASES = [("flat", QT.QT_8bit, False), ("flat", QT.QT_4bit_tq, False),
