@@ -10,7 +10,9 @@ IDMap2 (K1), ID selectors, IVF-Flat's mutations (K1, K2), range search and
 IVF-Flat by inner product (phases A-E); index files (phase G); the
 scalar-quantizer family on the same 1M x 128 set (K2, K3; phase I); the
 PQ and Hamming family there (BASELINE rows 1-3, K2 under
-IndexBinaryFromFloat; phase J);
+IndexBinaryFromFloat; phase J); the graph indexes and the non-flat coarse
+quantizers (phase K); the additive quantizers and RaBitQ, flat and IVF
+(no kernel; phase L);
 OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory over the Deep10M-like
 10M x 96 set (K1, phase F); and last k-means of BASELINE row 12, 8.1M x 784
 uint8 points into 256 centroids (phase H).
@@ -372,6 +374,31 @@ print stands beside the card's name and power limit:
      against IndexBinaryFlat. Every time stands beside the card's name and
      power limit. ``python3 chip_smoke.py --only K`` runs phases 1-3 and
      phase K alone.
+ L. (after K-d, on the 1M x 128 set, no kernel: every search runs with the
+     counts at 0 and must leave them there) the additive quantizers and
+     RaBitQ, each index built by index_factory on the card. L-a:
+     RQ8x8_Nfloat, LSQ8x8_Nfloat, PRQ2x4x8_Nfloat, PLSQ2x4x8_Nfloat,
+     RQ8x8_Nqint8 and RQ16x4fs trained on the 200k rows, the 1M rows encoded
+     (beam search; the peak device memory of the encode printed), 8192
+     queries at k = 10: train and encode s, search ms, bytes a code,
+     recall@1 / @10, the mean reconstruction error; 64 rows against float64
+     of the same tables plus the stored norms over every code; LSQ8x8's
+     error may not exceed its RQ init's (beam search over the same
+     codebooks) by more than 1e-5 relative. L-b: IVF4096,RQ8x8 and
+     IVF4096,RQ16x4fs (the second on the first's coarse quantizer) at
+     nprobe 16 on 1024 queries, 64 rows against float64 over the probed
+     lists' decoded rows. L-c: RaBitQ, RaBitQfs and RaBitQ4 flat over the
+     1M rows, IVF4096,RaBitQ / RaBitQfs / RaBitQ4 and IVF4096,RaBitQ,RFlat
+     (k_factor 8) on L-b's coarse quantizer at nprobe 16, 8192 queries
+     (the IVF searches' peak memory printed); 64 rows of each against
+     float64 of the same estimator on the same float32 inputs (the refined
+     one: its distances against float64 |q - x|^2); an IDSelectorRange
+     over the middle half of the ids on IVF4096,RaBitQ returns only
+     selected ids, 64 rows against float64 over the selected probed slots.
+     L-d: write_index / read_index of L-a's RQ8x8 and L-c's IVF4096,RaBitQ,
+     each read index's 8192-query search equal to the search before the
+     write (distances bit for bit). ``python3 chip_smoke.py --only L`` runs
+     phases 1-3 and phase L alone.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -4199,13 +4226,415 @@ def imi_phase(ft, fused_knn, xb, xt, xq, gt, dev):
     torch.cuda.empty_cache()
 
 
+# -- phase L: the additive quantizers and RaBitQ ------------------------------
+
+AQ_FLAT = ("RQ8x8_Nfloat", "LSQ8x8_Nfloat", "PRQ2x4x8_Nfloat", "PLSQ2x4x8_Nfloat",
+           "RQ8x8_Nqint8", "RQ16x4fs")
+AQ_IVF = ("IVF4096,RQ8x8", "IVF4096,RQ16x4fs")
+RABITQ_FLAT = ("RaBitQ", "RaBitQfs", "RaBitQ4")
+RABITQ_IVF = ("IVF4096,RaBitQ", "IVF4096,RaBitQfs", "IVF4096,RaBitQ4")
+L_NPROBE, L_IVF_NQ = 16, 1024
+
+
+def rows_vs64(what, D, I, d64, ids64, scale):
+    """EXACT_ROWS rows of a search against float64 distances ``d64`` [r, n]
+    (+inf where a row may not match) of candidates ``ids64`` [r, n]:
+    distances per rank within 1e-5 * scale (per row), ids tie-aware.
+    Returns the largest error."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    k = D.shape[1]
+    v, pos = torch.topk(d64, min(k, d64.shape[1]), dim=1, largest=False)
+    ref_i = torch.gather(ids64, 1, pos)
+    v, ref_i = v.cpu().numpy(), ref_i.cpu().numpy()
+    ref_i = np.where(np.isinf(v), -1, ref_i)
+    tol = 1e-5 * scale
+    r = len(v)
+    Dp, Ip = D[:r, : v.shape[1]], I[:r, : v.shape[1]]
+    fin = np.isfinite(v)
+    err = np.zeros_like(v)
+    err[fin] = np.abs(Dp[fin] - v[fin])
+    check(((err <= tol[:, None]) & (np.isfinite(Dp) == fin)).all()
+          and ids_agree_tie_aware(np.where(fin, v, 1e30), ref_i,
+                                  np.where(fin, Dp, 1e30), Ip, tol).all(),
+          f"{what}: differs from float64 (largest error {err.max():.3g})")
+    return float(err.max())
+
+
+def aq_rows_check(what, index, xq):
+    """64 rows of a flat AQ search against float64 of the same tables plus
+    the stored norms: |q|^2 + norm - 2 sum_m <q, c_m[code_m]> over every
+    code. Returns the search's largest error."""
+    dev = index.device
+    q = torch.from_numpy(xq[:EXACT_ROWS]).to(dev).double()
+    luts = torch.einsum("qd,mkd->qmk", q, index.aq._dev().double())
+    codes = index._codes.long()
+    ip = torch.zeros(len(q), len(codes), dtype=torch.float64, device=dev)
+    for m in range(codes.shape[1]):
+        ip += luts[:, m, :][:, codes[:, m]]
+    qn = q.square().sum(1)
+    d64 = (qn[:, None] + index._norms_dev.double()[None, :] - 2.0 * ip).clamp_min(0)
+    D, I = index.search(xq[:EXACT_ROWS], K)
+    ids = torch.arange(len(codes), device=dev).expand(len(q), -1)
+    scale = (qn + index._norms_dev.double().max()).cpu().numpy()
+    return rows_vs64(what, D, I, d64, ids, scale)
+
+
+def recall_str(I, gt):
+    r1, r10 = recall_1_10(I, gt[: len(I)])
+    return f"recall@1 {r1:.4f}, recall@10 {r10:.4f}"
+
+
+def timed_build(index, xt, xb):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index.train(xt)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    return t_train, time.time() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def aq_flat_phase(ft, fused_knn, xb, xt, xq, gt, dev):
+    """L-a: the 64-bit flat additive quantizers through index_factory on the
+    card, trained on the 200k rows, the 1M rows encoded, 8192 queries at
+    k = 10. Returns the RQ8x8 index for L-d."""
+    errs = {}
+    keep = None
+    for desc in AQ_FLAT:
+        index = ft.index_factory(D, desc)
+        check(index.device == dev and index.aq.device == dev,
+              f"L-a. {desc}: {class_tree(index)}")
+        t_train, t_add, peak = timed_build(index, xt, xb)
+        no_kernel(fused_knn, f"L-a. {desc} search", lambda: index.search(xq, K))
+        med = timed(f"L-a. {desc}, 8192 q, k={K}", lambda: index.search(xq, K),
+                    NQ, reps=2)
+        _, I = index.search(xq, K)
+        err = aq_rows_check(f"L-a. {desc}", index, xq)
+        errs[desc] = mean_recon_err(index.aq, index._codes, xb)
+        if desc == "LSQ8x8_Nfloat":  # its RQ init: beam search, same codebooks
+            lsq = index.aq
+            lsq._rq.codebooks = lsq.codebooks
+            init = torch.cat([lsq._rq.compute_codes_dev(
+                torch.from_numpy(xb[s : s + (1 << 18)]).to(dev))
+                for s in range(0, len(xb), 1 << 18)])
+            errs["init"] = mean_recon_err(lsq, init, xb)
+        print(f"L-a. {desc} ({type(index).__name__}, search_type "
+              f"{index.aq.search_type}): train {t_train:.2f} s, encode {t_add:.2f} s "
+              f"for 1M rows (peak {peak:.2f} GiB), search {med * 1e3:.1f} ms, "
+              f"{index.sa_code_size()} bytes a code, {recall_str(I, gt)}, "
+              f"MSE {errs[desc]:.4f}, 64 rows vs float64 of the tables plus the "
+              f"stored norms: largest error {err:.3g} ({CARD})", flush=True)
+        if desc == "RQ8x8_Nfloat":
+            keep = index
+            aq_scan_split(index, xq)
+        else:
+            del index
+        torch.cuda.empty_cache()
+    init, lsq = errs["init"], errs["LSQ8x8_Nfloat"]
+    check(lsq <= init * (1 + 1e-5),
+          f"L-a. LSQ8x8's reconstruction error {lsq:.6f} above its RQ init's {init:.6f}")
+    print(f"L-a. LSQ8x8 mean reconstruction error {lsq:.6f} vs its RQ init (beam "
+          f"search over the same codebooks) {init:.6f}: {lsq / init:.4f}x; RQ8x8's "
+          f"own codebooks {errs['RQ8x8_Nfloat']:.6f}", flush=True)
+    return keep
+
+
+def aq_scan_split(index, xq):
+    """Where one chunk of the flat AQ scan goes (CUDA events): the float32
+    table sums of 8192 queries over 65,536 codes, and the select over
+    them."""
+    from faiss_tpu_torch.ops import pq_ops
+
+    luts = index.aq.lut_dev(torch.from_numpy(xq).to(index.device))
+    cc = index._codes[: 1 << 16]
+    s = pq_ops.adc_scores_gather(luts, cc)
+    t_sum = cuda_ms(lambda: pq_ops.adc_scores_gather(luts, cc), 3)
+    t_sel = cuda_ms(lambda: torch.topk(s, K, dim=1, largest=False), 3)
+    print(f"L-a. RQ8x8, one chunk of {len(cc)} codes x {len(xq)} q: table sums "
+          f"{t_sum:.2f} ms, select {t_sel:.2f} ms (the search takes "
+          f"{-(-index.ntotal // len(cc))} chunks; {CARD})", flush=True)
+
+
+def rabitq_scan_split(index, xq):
+    """The same split for the flat 1-bit RaBitQ scan: one chunk's unpack and
+    float32 product over 32,768 codes, and the select over its scores."""
+    from faiss_tpu_torch.ops.ivf_ops import unpack_signs
+
+    packed = index._device_state()[0][: 1 << 15]
+    qr = torch.from_numpy(index.rabitq.rotate_queries(xq)[0]).to(index.device)
+    s = qr @ unpack_signs(packed, index.d).T
+    t_mm = cuda_ms(lambda: qr @ unpack_signs(packed, index.d).T, 3)
+    t_sel = cuda_ms(lambda: torch.topk(s, K, dim=1, largest=False), 3)
+    print(f"L-c. RaBitQ, one chunk of {len(packed)} codes x {len(xq)} q: unpack "
+          f"and product {t_mm:.2f} ms, select {t_sel:.2f} ms (the search takes "
+          f"{-(-index.ntotal // len(packed))} chunks; {CARD})", flush=True)
+
+
+def mean_recon_err(aq, codes, xb):
+    """Mean |decode(code) - x|^2 over the rows, in float64 sums."""
+    tot, step = 0.0, 1 << 18
+    for s in range(0, len(xb), step):
+        x = torch.from_numpy(xb[s : s + step]).to(aq.device)
+        tot += float((aq.decode_dev(codes[s : s + step]) - x).double().square().sum())
+    return tot / len(xb)
+
+
+def probed_slots(index, xq, nprobe):
+    """(probes [r, nprobe], coarse distances) of EXACT_ROWS queries."""
+    q = torch.from_numpy(xq[:EXACT_ROWS]).to(index.device)
+    cd, pr = index._coarse_search(q, nprobe)
+    return pr.cpu().numpy(), cd.cpu().numpy()
+
+
+def in_lists64(index, probes, fn, sel=None):
+    """float64 [r, ntotal] distances over each row's probed lists (+inf
+    elsewhere and where ``sel`` [ntotal] clears a slot), with the slots' ids
+    and each row's scale: fn(row, slots) gives (distances, the magnitude of
+    their terms)."""
+    n = index.ntotal
+    out = np.full((len(probes), n), np.inf)
+    scale = np.zeros(len(probes))
+    for r in range(len(probes)):
+        slots = np.nonzero(np.isin(index._listnos_host, probes[r]))[0]
+        if sel is not None:
+            slots = slots[sel[slots]]
+        out[r, slots], mag = fn(r, slots)
+        scale[r] = mag.max(initial=0.0)
+    ids = torch.from_numpy(index._ids_host).to(index.device).expand(len(probes), -1)
+    return torch.from_numpy(out).to(index.device), ids, scale
+
+
+def aq_ivf_phase(ft, fused_knn, xb, xt, xq, gt, dev):
+    """L-b: IVF4096,RQ8x8 and IVF4096,RQ16x4fs by index_factory, by probe
+    at nprobe 16 on 1024 queries; 64 rows against float64 over the probed
+    lists' decoded rows."""
+    cent = None
+    for desc in AQ_IVF:
+        index = ft.index_factory(D, desc)
+        index.cp.niter = NITER
+        if cent is not None:  # the first index's coarse quantizer
+            index.quantizer.add(cent)
+        t_train, t_add, peak = timed_build(index, xt, xb)
+        cent = index.quantizer.vectors()
+        index.nprobe = L_NPROBE
+        xs = xq[:L_IVF_NQ]
+        Dp, Ip = no_kernel(fused_knn, f"L-b. {desc} search", lambda: index.search(xs, K))
+        med = timed(f"L-b. {desc}, nprobe {L_NPROBE}, {L_IVF_NQ} q",
+                    lambda: index.search(xs, K), L_IVF_NQ, reps=2)
+        err = exact_in_lists(index, xs, Dp, Ip, K, f"L-b. {desc}")
+        print(f"L-b. {desc}: train {t_train:.2f} s, add {t_add:.2f} s (peak "
+              f"{peak:.2f} GiB), search {med * 1e3:.1f} ms, {recall_str(Ip, gt)}; "
+              f"64 rows vs float64 over the probed decoded rows: largest error "
+              f"{err:.3g} ({CARD})", flush=True)
+        del index
+        torch.cuda.empty_cache()
+    return cent
+
+
+def rabitq_flat64(index, xq):
+    """float64 of the flat estimator on the same float32 inputs the search
+    uses: 1-bit |q_r|^2 + |x_r|^2 - 2 |x_r| <q_r, o_bar> / f (q_r as the
+    search rotates and quantizes it), multi-bit |q - c|^2 + f_add + f_rescale
+    <P (q - c), u>, clamped at 0 as ops/distances.knn clamps; with the
+    scale of its terms."""
+    from faiss_tpu_torch.codecs.rabitq import quantize_query_sq
+    from faiss_tpu_torch.ops.ivf_ops import unpack_signs
+
+    dev, d = index.device, index.d
+    fac = torch.from_numpy(index._factors).to(dev).double()
+    if index.nb_bits > 1:
+        rb = index.rabitq
+        qc = torch.from_numpy(xq[:EXACT_ROWS] - rb.center).to(dev).double()
+        qr = qc @ torch.from_numpy(rb.P.T.copy()).to(dev).double()
+        u = torch.from_numpy(rb.u_values(index._bits)).to(dev).double()
+        qn = qc.square().sum(1)
+        d64 = qn[:, None] + fac[None, :, 0] + fac[None, :, 1] * (qr @ u.T)
+        return d64.clamp_min(0), (qn + fac[:, 0].max()).cpu().numpy()
+    qr, qn2 = index.rabitq.rotate_queries(xq[:EXACT_ROWS])
+    qr = torch.from_numpy(quantize_query_sq(qr, index.qb, index.centered)).to(dev).double()
+    qn = torch.from_numpy(qn2).to(dev).double()
+    signs = unpack_signs(torch.from_numpy(index._bits).to(dev), d).double()
+    est = fac[None, :, 0] * (qr @ signs.T) / np.sqrt(d) / fac[None, :, 1]
+    d64 = qn[:, None] + fac[None, :, 0] ** 2 - 2.0 * est
+    return d64, (qn + fac[:, 0].square().max() + 2.0 * est.abs().max(1)[0]).cpu().numpy()
+
+
+def rabitq_ivf64(index, xq, probes, cdis, sel=None):
+    """float64 of the IVF estimator over each row's probed lists on the
+    search's inputs: 1-bit cd + |x_r|^2 - 2 |x_r| (<P q, o_bar> - g) / f
+    with P q as the search rotates and quantizes it and cd the coarse
+    distance; multi-bit |q - c|^2 + f_add + f_rescale <P (q - c), u>."""
+    from faiss_tpu_torch.ops.ivf_ops import unpack_signs
+
+    d = index.d
+    q32 = torch.from_numpy(xq[:EXACT_ROWS]).to(index.device)
+    codes = index._codes_host
+    cents = index._centroids_host().astype(np.float64)
+    P = index.rabitq.P.astype(np.float64)
+    if index.nb_bits > 1:
+        c, f = index.rabitq.unpack(codes)
+        u = index.rabitq.u_values(c).astype(np.float64)
+        f = f.astype(np.float64)
+        q = xq[:EXACT_ROWS].astype(np.float64)
+
+        def fn(r, slots):  # clamped at 0 as the norm expansion is
+            qc = q[r][None, :] - cents[index._listnos_host[slots]]
+            est = f[slots, 1] * ((qc @ P.T) * u[slots]).sum(1)
+            dist = np.maximum((qc**2).sum(1) + f[slots, 0] + est, 0.0)
+            return dist, (2.0 * ((q[r] ** 2).sum() + (cents**2).sum(1).max())
+                          + f[slots, 0] + np.abs(est))
+    else:
+        nbytes = (d + 7) // 8
+        qP = index._rotated_queries(q32).double().cpu().numpy()
+        fac = np.ascontiguousarray(codes[:, nbytes:]).view(np.float32).astype(np.float64)
+        signs = unpack_signs(torch.from_numpy(np.ascontiguousarray(codes[:, :nbytes])), d
+                             ).double().numpy()
+        cd_of = {}
+        for r in range(len(probes)):
+            cd_of[r] = dict(zip(probes[r], cdis[r].astype(np.float64)))
+
+        def fn(r, slots):
+            cd = np.array([cd_of[r][ln] for ln in index._listnos_host[slots]])
+            ipq = (signs[slots] @ qP[r]) / np.sqrt(d)
+            nr, fs, g = fac[slots, 0], fac[slots, 1], fac[slots, 2]
+            est = nr * (ipq - g) / fs
+            return cd + nr * nr - 2.0 * est, np.abs(cd) + nr * nr + 2.0 * np.abs(est)
+    return in_lists64(index, probes, fn, sel)
+
+
+def rabitq_phase(ft, fused_knn, xb, xt, xq, gt, dev, cent):
+    """L-c: RaBitQ flat (1-bit, FastScan qb 8, 4-bit) over the 1M rows, the
+    IVF forms at nprobe 16 and IVF4096,RaBitQ,RFlat, 8192 queries each; 64
+    rows of each against float64 of the same estimator; an IDSelectorRange
+    on the IVF 1-bit search. Returns IVF4096,RaBitQ for L-d."""
+    for desc in RABITQ_FLAT:
+        index = ft.index_factory(D, desc)
+        check(index.device == dev, f"L-c. {desc}: {class_tree(index)}")
+        t_train, t_add, peak = timed_build(index, xt, xb)
+        no_kernel(fused_knn, f"L-c. {desc} search", lambda: index.search(xq, K))
+        med = timed(f"L-c. {desc}, 8192 q, k={K}", lambda: index.search(xq, K), NQ, reps=2)
+        D_, I_ = index.search(xq, K)
+        d64, scale = rabitq_flat64(index, xq)
+        ids = torch.arange(index.ntotal, device=dev).expand(EXACT_ROWS, -1)
+        err = rows_vs64(f"L-c. {desc}", D_, I_, d64, ids, scale)
+        print(f"L-c. {desc} (nb_bits {index.nb_bits}, qb {index.qb}): train "
+              f"{t_train:.2f} s, encode {t_add:.2f} s (peak {peak:.2f} GiB), search "
+              f"{med * 1e3:.1f} ms, {index.sa_code_size()} bytes a code, "
+              f"{recall_str(I_, gt)}; 64 rows vs float64 of the estimator: largest "
+              f"error {err:.3g} ({CARD})", flush=True)
+        if desc == RABITQ_FLAT[0]:
+            rabitq_scan_split(index, xq)
+        del index, d64
+        torch.cuda.empty_cache()
+    keep = None
+    for desc in RABITQ_IVF + (RABITQ_IVF[0] + ",RFlat",):
+        index = ft.index_factory(D, desc)
+        base = getattr(index, "base_index", index)
+        base.quantizer.add(cent)  # L-b's coarse quantizer
+        if base is not index:
+            index.k_factor = K_FACTOR
+        t_train, t_add, _ = timed_build(index, xt, xb)
+        base.nprobe = L_NPROBE
+        torch.cuda.reset_peak_memory_stats()
+        no_kernel(fused_knn, f"L-c. {desc} search", lambda: index.search(xq, K))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = timed(f"L-c. {desc}, nprobe {L_NPROBE}, 8192 q", lambda: index.search(xq, K),
+                    NQ, reps=2)
+        D_, I_ = index.search(xq, K)
+        if base is index:
+            probes, cdis = probed_slots(index, xq, L_NPROBE)
+            d64, ids, scale = rabitq_ivf64(index, xq, probes, cdis)
+            err = rows_vs64(f"L-c. {desc}", D_, I_, d64, ids, scale)
+        else:  # the re-rank's exact distances of the returned ids
+            q = xq[:EXACT_ROWS].astype(np.float64)
+            ok = I_[:EXACT_ROWS] >= 0
+            d64 = ((q[:, None, :] - xb[np.maximum(I_[:EXACT_ROWS], 0)]) ** 2).sum(-1)
+            e = np.abs(np.where(ok, D_[:EXACT_ROWS] - d64, 0.0))
+            tol = 1e-5 * ((q**2).sum(1) + (xb[I_[:EXACT_ROWS]] ** 2).sum(-1).max(1))
+            err = float(e.max())
+            check(ok.all() and (e <= tol[:, None]).all()
+                  and (np.diff(D_[:EXACT_ROWS], axis=1) >= 0).all(),
+                  f"L-c. {desc}: re-ranked distances differ from float64")
+        print(f"L-c. {desc} (nb_bits {base.nb_bits}, qb {base.qb}"
+              f"{', k_factor %d' % index.k_factor if base is not index else ''}): train "
+              f"{t_train:.2f} s, add {t_add:.2f} s, search {med * 1e3:.1f} ms (peak "
+              f"{peak:.2f} GiB at 8192 q), {recall_str(I_, gt)}; 64 rows vs float64: "
+              f"largest error {err:.3g} ({CARD})", flush=True)
+        if desc == RABITQ_IVF[0]:
+            keep = index
+            lo, hi = index.ntotal // 4, 3 * index.ntotal // 4
+            params = ft.SearchParametersIVF(nprobe=L_NPROBE, sel=ft.IDSelectorRange(lo, hi))
+            Ds, Is = no_kernel(fused_knn, f"L-c. {desc} with IDSelectorRange",
+                               lambda: index.search(xq, K, params=params))
+            check(((Is == -1) | ((Is >= lo) & (Is < hi))).all(),
+                  "L-c. the selector search returned an id outside the range")
+            probes, cdis = probed_slots(index, xq, L_NPROBE)
+            sel = (index._ids_host >= lo) & (index._ids_host < hi)
+            d64, ids, scale = rabitq_ivf64(index, xq, probes, cdis, sel)
+            err = rows_vs64(f"L-c. {desc} with IDSelectorRange", Ds, Is, d64, ids, scale)
+            print(f"L-c. {desc} with IDSelectorRange [{lo}, {hi}): only "
+                  f"selected ids; 64 rows vs float64 over the selected probed slots: "
+                  f"largest error {err:.3g}", flush=True)
+        else:
+            del index
+        torch.cuda.empty_cache()
+    return keep
+
+
+def aq_files_phase(ft, rq, ivf_rabitq, xq):
+    """L-d: write_index / read_index of L-a's RQ8x8 and L-c's
+    IVF4096,RaBitQ; each read index's search equals its search before the
+    write (distances bit for bit, ids up to exact ties)."""
+    import tempfile
+
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, index in (("RQ8x8", rq), (RABITQ_IVF[0], ivf_rabitq)):
+            D0, I0 = index.search(xq, K)
+            path = str(Path(tmp) / "l.npz")
+            t0 = time.time()
+            ft.write_index(index, path)
+            t_w = time.time() - t0
+            t0 = time.time()
+            back = ft.read_index(path)
+            if hasattr(back, "nprobe"):
+                back.nprobe = index.nprobe
+            D1, I1 = back.search(xq, K)
+            t_r = time.time() - t0
+            same = (np.array_equal(D0, D1)
+                    and ids_agree_tie_aware(D0, I0, D1, I1, 0.0).all())
+            check(same and type(back) is type(index),
+                  f"L-d. {name}: the read index searches otherwise")
+            print(f"L-d. {name}: write {t_w:.2f} s, read and first search "
+                  f"{t_r:.2f} s ({Path(path).stat().st_size / 2**20:.1f} MiB); "
+                  f"8192 q equal to the search before the write", flush=True)
+
+
+def aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+    """Phase L: the additive quantizers and RaBitQ on the 1M x 128 set (no
+    kernel)."""
+    t0 = time.time()
+    rq = aq_flat_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+    cent = aq_ivf_phase(ft, fused_knn, xb, xt, xq, gt, dev)
+    ivf_rabitq = rabitq_phase(ft, fused_knn, xb, xt, xq, gt, dev, cent)
+    aq_files_phase(ft, rq, ivf_rabitq, xq)
+    print(f"phase L: {time.time() - t0:.1f} s ({CARD})", flush=True)
+
+
 def main():
     # ``--only K`` runs phases 1-3 and phase K alone (the graph indexes and
-    # the IMI), with no kernels' line
-    only_k = sys.argv[1:] == ["--only", "K"]
-    if sys.argv[1:] and not only_k:
-        print("usage: chip_smoke.py [--only K]", file=sys.stderr)
+    # the IMI), ``--only L`` phases 1-3 and phase L (the additive quantizers
+    # and RaBitQ), with no kernels' line
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
+    if sys.argv[1:] and only not in ("K", "L"):
+        print("usage: chip_smoke.py [--only K|L]", file=sys.stderr)
         return 2
+    only_k = only == "K"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -4306,10 +4735,13 @@ def main():
     # EXACT_ROWS queries, from the ground truth
     radius = float(np.median(((xq[:EXACT_ROWS].astype(np.float64)
                                - xb[gt[:EXACT_ROWS, 9]]) ** 2).sum(1)))
-    if only_k:
-        graph_phases(ft, fused_knn, xb, xt, xq, gt, dev)
-        del xb, xt, xq
-        deep10m_phases(ft, fused_knn, dev, only_k=True)
+    if only:
+        if only_k:
+            graph_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+            del xb, xt, xq
+            deep10m_phases(ft, fused_knn, dev, only_k=True)
+        else:
+            aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4344,6 +4776,8 @@ def main():
     # of the path that each entry's phase drove
     for name, n in graph_phases(ft, fused_knn, xb, xt, xq, gt, dev).items():
         next(e for e in kernels if e["name"] == name)["k_a_launches"] = n
+    torch.cuda.empty_cache()
+    aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
     del xb, xt, xq
     torch.cuda.empty_cache()
     kernels.append(deep10m_phases(ft, fused_knn, dev))

@@ -76,6 +76,14 @@ Ported so far:
     ``MultiIndexQuantizer2`` (the IMI, its tables and merge on the device),
     an ``IndexHNSWFlat`` over the centroids, or any index of the port, as
     the quantizer of every IVF index;
+  - the additive quantizers — ``ResidualQuantizer`` (beam-search
+    encoding), ``LocalSearchQuantizer`` (ICM and iterated local search),
+    ``ProductResidualQuantizer``, ``ProductLocalSearchQuantizer`` with every
+    norm storage, their flat indexes (``IndexResidualQuantizer``, ...,
+    the FastScan forms) and IVF indexes (``IndexIVFResidualQuantizer``,
+    ..., eight classes); RaBitQ — ``RaBitQuantizer``, ``MultiBitRaBitQ``,
+    ``IndexRaBitQ``, ``IndexRaBitQFastScan``, ``IndexIVFRaBitQ`` and
+    ``IndexIVFRaBitQFastScan``, 1-bit and multi-bit, ID selectors honoured;
   - ``index_factory`` over the classes above, and index files
     (``write_index``, ``read_index``, ``serialize_index``,
     ``deserialize_index``, ``write_index_binary``, ``read_index_binary``,
@@ -83,8 +91,8 @@ Ported so far:
     the other's.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue-1 item: the other codecs (additive, RaBitQ, EDEN, the Panorama flat
-indexes, the lattice) and the metrics other than L2 and inner product
+queue-1 item: the other codecs (EDEN, the Panorama flat indexes, the
+lattice) and the metrics other than L2 and inner product
 (item 10), the multi-device meta indexes (item 11), ``reverse_index_factory``
 and the reference-format reader ``io_ref`` (item 12).
 """
@@ -133,7 +141,16 @@ from .codecs.polysemous import (  # noqa: E402,F401
     PolysemousTraining,
     SimulatedAnnealingParameters,
 )
+from .codecs.aq import (  # noqa: E402,F401
+    AdditiveQuantizer,
+    LocalSearchQuantizer,
+    ProductAdditiveQuantizer,
+    ProductLocalSearchQuantizer,
+    ProductResidualQuantizer,
+    ResidualQuantizer,
+)
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
+from .codecs.rabitq import MultiBitRaBitQ, RaBitQuantizer  # noqa: E402,F401
 from .codecs.sq import QuantizerType, RangeStat, ScalarQuantizer  # noqa: E402,F401
 from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
 from .models.flat import (  # noqa: E402,F401
@@ -184,6 +201,34 @@ from .models.nsg import (  # noqa: E402,F401
     nsg_stats,
 )
 from .models.pq import IndexPQ, IndexPQFastScan  # noqa: E402,F401
+from .models.aq import (  # noqa: E402,F401
+    IndexAdditiveQuantizer,
+    IndexAdditiveQuantizerFastScan,
+    IndexIVFAdditiveQuantizer,
+    IndexIVFAdditiveQuantizerFastScan,
+    IndexIVFLocalSearchQuantizer,
+    IndexIVFLocalSearchQuantizerFastScan,
+    IndexIVFProductLocalSearchQuantizer,
+    IndexIVFProductLocalSearchQuantizerFastScan,
+    IndexIVFProductResidualQuantizer,
+    IndexIVFProductResidualQuantizerFastScan,
+    IndexIVFResidualQuantizer,
+    IndexIVFResidualQuantizerFastScan,
+    IndexLocalSearchQuantizer,
+    IndexLocalSearchQuantizerFastScan,
+    IndexProductLocalSearchQuantizer,
+    IndexProductLocalSearchQuantizerFastScan,
+    IndexProductResidualQuantizer,
+    IndexProductResidualQuantizerFastScan,
+    IndexResidualQuantizer,
+    IndexResidualQuantizerFastScan,
+)
+from .models.rabitq import (  # noqa: E402,F401
+    IndexIVFRaBitQ,
+    IndexIVFRaBitQFastScan,
+    IndexRaBitQ,
+    IndexRaBitQFastScan,
+)
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer  # noqa: E402,F401
 from .models.ivf_pq import (  # noqa: E402,F401
     IndexIVFPQ,

@@ -64,6 +64,18 @@ nndescent=..., device=...)`` and an ``IndexNSGPQ``/``IndexNSGSQ`` passes
 its ported ``storage=`` instead of the rows; a faiss_tpu
 ``MultiIndexQuantizer`` named ``imi`` is ``imi_from_arrays(imi.d,
 imi.pq.centroids, nbits=imi.pq.nbits, device=...)``.
+
+An additive-quantizer index ``a`` (flat) is ``aq_from_arrays(type(a).__name__,
+a.d, a.aq.M, a.aq.nbits, a.aq.codebooks, a._codes_int, a._norms,
+a.metric_type, nsplits=..., bbs=..., norm_state=aq_norm_state(a.aq),
+device=...)`` and an IVF one ``iv`` is ``ivf_aq_from_arrays(type(iv).__name__,
+iv.quantizer.vectors(), iv.aq.M, iv.aq.nbits, iv.aq.codebooks,
+iv._codes_host, iv._listnos_host, iv._ids_host, ...)`` with the same
+keywords; a RaBitQ index ``r`` is ``rabitq_from_arrays(r.d, r.nb_bits,
+r.rabitq.P, r.rabitq.center, r._bits, r._factors, fastscan=..., qb=r.qb,
+device=...)`` and an IVF one ``ir`` is ``ivf_rabitq_from_arrays(
+ir.quantizer.vectors(), ir.nb_bits, ir._codes_host, ir._listnos_host,
+ir._ids_host, fastscan=..., qb=ir.qb, device=...)``.
 """
 
 from __future__ import annotations
@@ -89,6 +101,13 @@ from .models.imi import MultiIndexQuantizer
 from .models.nsg import IndexNNDescentFlat, IndexNSGFlat, IndexNSGPQ, IndexNSGSQ
 from .models.lsh import IndexLSH
 from .models.pq import IndexPQ, IndexPQFastScan
+from .models.aq import aq_index, set_aq_state
+from .models.rabitq import (
+    IndexIVFRaBitQ,
+    IndexIVFRaBitQFastScan,
+    IndexRaBitQ,
+    IndexRaBitQFastScan,
+)
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -468,4 +487,88 @@ def imi_from_arrays(d: int, pq_centroids, *, nbits: int,
     index.pq.set_centroids(cb)
     index.is_trained = True
     index.ntotal = index.pq.ksub ** index.pq.M
+    return index
+
+
+def aq_norm_state(aq) -> dict:
+    """The norm codec's state of an AQ codec (either package's), as
+    keywords of :func:`aq_from_arrays`."""
+    state = {"search_type": aq.search_type, "qnorm": aq.qnorm,
+             "norm_tabs": aq.norm_tabs}
+    if aq.norm_min == aq.norm_min:  # not NaN
+        state.update(norm_min=aq.norm_min, norm_max=aq.norm_max)
+    return state
+
+
+def aq_from_arrays(cls_name, d, M, nbits, codebooks, codes, norms,
+                   metric=MetricType.L2, *, nsplits=0, bbs=32, norm_state=None,
+                   aq_class="ResidualQuantizer", device):
+    """A flat additive-quantizer index of faiss_tpu's class ``cls_name``
+    from its codebooks [M, 2^nbits, d] (a product codec's embedded full-d
+    ones), unpacked codes [n, M] and the norms it ranks them with [n], in
+    add order; ``norm_state`` as :func:`aq_norm_state` gives it."""
+    index = aq_index(cls_name, d, M, nbits, metric, nsplits=nsplits, bbs=bbs,
+                     aq_class=aq_class, device=device)
+    set_aq_state(index.aq, codebooks, **(norm_state or {}))
+    index.is_trained = True
+    index.add_codes_int(codes, norms)
+    return index
+
+
+def ivf_aq_from_arrays(cls_name, centroids, M, nbits, codebooks, codes,
+                       listnos, ids, metric=MetricType.L2, *, nsplits=0, bbs=32,
+                       norm_state=None, aq_class="ResidualQuantizer",
+                       device):
+    """An IVF additive-quantizer index of faiss_tpu's class ``cls_name``
+    from coarse centroids [nlist, d], the codec's codebooks, and the lists'
+    entries in add order: the residuals' unpacked codes [n, M], list
+    numbers [n] and ids [n]."""
+    codes = np.ascontiguousarray(codes)
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
+    nlist, d = centroids.shape
+    index = aq_index(cls_name, d, M, nbits, metric, nsplits=nsplits, bbs=bbs,
+                     aq_class=aq_class, quantizer=_quantizer(centroids, metric, device),
+                     nlist=nlist, device=device)
+    set_aq_state(index.aq, codebooks, **(norm_state or {}))
+    index.is_trained = True
+    index.add_encoded(codes, listnos, ids)
+    return index
+
+
+def rabitq_from_arrays(d, nb_bits, P, center, bits, factors, *, fastscan=False,
+                       bbs=32, qb=None, device):
+    """IndexRaBitQ (IndexRaBitQFastScan with ``fastscan``) from its rotation
+    P [d, d], center [d] and, in add order, its codes (1-bit packed signs
+    [n, d/8], multi-bit codes [n, d]) and factors [n, 2]."""
+    index = (IndexRaBitQFastScan(d, bbs=bbs, nb_bits=nb_bits, device=device)
+             if fastscan else IndexRaBitQ(d, nb_bits=nb_bits, device=device))
+    if qb is not None:
+        index.qb = int(qb)
+    index.rabitq.P = np.ascontiguousarray(P, np.float32)
+    index.rabitq.center = np.ascontiguousarray(center, np.float32)
+    index.is_trained = True
+    index.add_codes(bits, factors)
+    return index
+
+
+def ivf_rabitq_from_arrays(centroids, nb_bits, codes, listnos, ids, *,
+                           fastscan=False, bbs=32, qb=None, device):
+    """IndexIVFRaBitQ (IndexIVFRaBitQFastScan with ``fastscan``) from coarse
+    centroids [nlist, d] and the lists' entries in add order: codes [n,
+    code_size] uint8 (1-bit: bits, factors and <P c, o_bar>; multi-bit: the
+    packed bytes), list numbers [n] and ids [n]. The rotation is the seed's,
+    as faiss_tpu's files rebuild it."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
+    nlist, d = centroids.shape
+    quantizer = _quantizer(centroids, MetricType.L2, device)
+    index = (IndexIVFRaBitQFastScan(quantizer, d, nlist, bbs=bbs, nb_bits=nb_bits,
+                                    device=device)
+             if fastscan else IndexIVFRaBitQ(quantizer, d, nlist, nb_bits=nb_bits,
+                                             device=device))
+    if qb is not None:
+        index.qb = int(qb)
+    index.rabitq.center = np.zeros(d, np.float32)
+    index.is_trained = True
+    index.add_encoded(codes, listnos, ids)
     return index

@@ -22,6 +22,13 @@ everything. The port builds:
     (IndexScalarQuantizer), ``PQm``, ``PQmxn`` (IndexPQ), ``PQmx4fs[_bbs]``
     (IndexPQFastScan) and ``LSH[r][t]`` (IndexLSH with d bits, rotated
     with ``r``, trained thresholds with ``t``);
+  - the additive quantizers ``RQmxn``, ``LSQmxn``, ``RQmx4fs[_bbs]``,
+    ``LSQmx4fs[_bbs]``, ``PRQsxmxn`` and ``PLSQsxmxn`` (flat and in IVF;
+    ``PRQ``/``PLSQ`` ``x4fs[_bbs]`` in IVF only, as faiss_tpu's grammar), each
+    with an optional norm suffix ``_Nfloat``, ``_Nnone``, ``_Nqint8``,
+    ``_Nqint4``, ``_Ncqint8``, ``_Ncqint4``, ``_Nlsq2x4`` or ``_Nrq2x4`` on
+    the non-FastScan tokens, and RaBitQ, ``RaBitQ[n]`` and
+    ``RaBitQfs[n][_bbs]`` (n bits a dimension, flat and in IVF);
   - ``RFlat`` and ``Refine(Flat)`` (IndexRefineFlat), ``Refine(SQ8)``
     (IndexRefineFlat with an SQ8 store) and ``Refine(<any string>)``
     (IndexRefine over the index that string builds).
@@ -50,6 +57,13 @@ from .models.nsg import IndexNNDescentFlat, IndexNSGFlat, IndexNSGPQ, IndexNSGSQ
 from .models.ivf_flat import IndexIVFFlat
 from .models.ivf_pq import IndexIVFPQ, IndexIVFPQFastScan, IndexIVFPQR
 from .models.lsh import IndexLSH
+from .models.aq import aq_index
+from .models.rabitq import (
+    IndexIVFRaBitQ,
+    IndexIVFRaBitQFastScan,
+    IndexRaBitQ,
+    IndexRaBitQFastScan,
+)
 from .models.pq import IndexPQ, IndexPQFastScan
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
 from .models.meta import (
@@ -59,6 +73,7 @@ from .models.meta import (
     IndexRefine,
     IndexRefineFlat,
 )
+from .codecs.aq import AdditiveQuantizer
 from .codecs.sq import QuantizerType
 from . import transforms as T
 
@@ -89,10 +104,84 @@ _SQ_TYPES = {
 # faiss_tpu's tokens for the codecs the port does not have yet (ROADMAP
 # queue 1 item 10): they parse, then raise
 _UNPORTED_CODECS = (
-    r"(RQ|LSQ)\d+x(4fs|\d+)(_\w+)?", r"(PRQ|PLSQ)\d+x\d+x(4fs|\d+)(_\w+)?",
-    r"RaBitQ(fs)?\d?(_\d+)?", r"EDEN[1-8]?(BIASED|BIAS)?", r"FlatPanorama(\d+)?(_\d+)?",
+    r"EDEN[1-8]?(BIASED|BIAS)?", r"FlatPanorama(\d+)?(_\d+)?",
     r"ZnLattice\d+x\d+_\d+",
 )
+
+# the AQ norm-storage suffixes (faiss_tpu factory.py:52-71;
+# index_factory.cpp:193 aq_norm_pattern) and the tokens that take them
+_AQ_NORMS = {
+    "_Nfloat": AdditiveQuantizer.ST_norm_float,
+    "_Nnone": AdditiveQuantizer.ST_LUT_nonorm,
+    "_Nqint8": AdditiveQuantizer.ST_norm_qint8,
+    "_Nqint4": AdditiveQuantizer.ST_norm_qint4,
+    "_Ncqint8": AdditiveQuantizer.ST_norm_cqint8,
+    "_Ncqint4": AdditiveQuantizer.ST_norm_cqint4,
+    "_Nlsq2x4": AdditiveQuantizer.ST_norm_lsq2x4,
+    "_Nrq2x4": AdditiveQuantizer.ST_norm_rq2x4,
+}
+_AQ_NORM_BASE = r"(RQ|LSQ)\d+x\d+|(PRQ|PLSQ)\d+x\d+x\d+"
+
+
+def _strip_aq_norm_suffix(tok: str):
+    """(token without its AQ norm suffix, search_type or None)."""
+    for s, st in _AQ_NORMS.items():
+        if tok.endswith(s):
+            return tok[: -len(s)], st
+    return tok, None
+
+
+# the AQ tokens' codecs; the class is Index[IVF]<codec>[FastScan]
+_AQ_CODECS = {"RQ": "ResidualQuantizer", "LSQ": "LocalSearchQuantizer",
+              "PRQ": "ProductResidualQuantizer",
+              "PLSQ": "ProductLocalSearchQuantizer"}
+
+
+def _aq_encoding(tok: str, d: int, metric, device, ivf):
+    """The additive-quantizer index of ``tok`` (faiss_tpu factory.py:128-230
+    IVF, :245-306 flat): ``RQmxn``, ``LSQmxn``, ``RQmx4fs[_bbs]``,
+    ``LSQmx4fs[_bbs]``, ``PRQsxmxn``, ``PLSQsxmxn`` and, in IVF only,
+    ``PRQsxmx4fs[_bbs]`` / ``PLSQsxmx4fs[_bbs]``; ``ivf`` the (quantizer,
+    nlist) of an IVF encoding, None for a flat one; or None."""
+    m = (re.fullmatch(r"(RQ|LSQ)()(\d+)x(\d+)", tok)
+         or re.fullmatch(r"(RQ|LSQ)()(\d+)x(4)(fs)(?:_(\d+))?", tok)
+         or re.fullmatch(r"(PRQ|PLSQ)(\d+)x(\d+)x(\d+)", tok)
+         or (ivf and re.fullmatch(r"(PRQ|PLSQ)(\d+)x(\d+)x(4)(fs)(?:_(\d+))?", tok)))
+    if not m:
+        return None
+    kind, nsplits, msub, nbits, fs, bbs = m.groups() + (None,) * (6 - len(m.groups()))
+    nsplits = int(nsplits or 0)
+    quantizer, nlist = ivf or (None, 0)
+    cls = f"Index{'IVF' if ivf else ''}{_AQ_CODECS[kind]}{'FastScan' if fs else ''}"
+    return aq_index(cls, d, int(msub) * max(1, nsplits), int(nbits), metric,
+                    nsplits=nsplits, bbs=int(bbs or 32), quantizer=quantizer,
+                    nlist=nlist, device=device)
+
+
+def _rabitq_encoding(tok: str, d: int, metric, device, ivf):
+    """``RaBitQfs[n][_bbs]`` / ``RaBitQ[n]`` (index_factory.cpp:535), flat
+    or with ``ivf`` = (quantizer, nlist); or None."""
+    head = (ivf[0], d, ivf[1]) if ivf else (d,)
+    if m := re.fullmatch(r"RaBitQfs([1-9])?(?:_(\d+))?", tok):
+        cls = IndexIVFRaBitQFastScan if ivf else IndexRaBitQFastScan
+        return cls(*head, metric, int(m.group(2) or 32), int(m.group(1) or 1),
+                   device=device)
+    if m := re.fullmatch(r"RaBitQ([1-9])?", tok):
+        cls = IndexIVFRaBitQ if ivf else IndexRaBitQ
+        return cls(*head, metric, int(m.group(1) or 1), device=device)
+    return None
+
+
+def _coded_encoding(tok: str, d: int, metric, device, ivf=None):
+    """An AQ token with or without its norm suffix, or a RaBitQ token;
+    None otherwise."""
+    base, st = _strip_aq_norm_suffix(tok)
+    if st is not None and re.fullmatch(_AQ_NORM_BASE, base):
+        index = _aq_encoding(base, d, metric, device, ivf)
+        index.aq.set_search_type(st)
+        return index
+    return (_aq_encoding(tok, d, metric, device, ivf)
+            or _rabitq_encoding(tok, d, metric, device, ivf))
 
 
 def _unported(tok: str, what: str):
@@ -166,6 +255,9 @@ def _parse_ivf_encoding(tok: str, quantizer, d: int, nlist: int, metric,
     if tok in _SQ_TYPES:
         return IndexIVFScalarQuantizer(quantizer, d, nlist, _SQ_TYPES[tok],
                                        metric, device=device)
+    coded = _coded_encoding(tok, d, metric, device, (quantizer, nlist))
+    if coded is not None:
+        return coded
     if any(re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
         _unported(tok, "the IVF encoding")
     return None
@@ -196,6 +288,9 @@ def _parse_flat_encoding(tok: str, d: int, metric, device):
     if m := re.fullmatch(r"NNDescent(\d+)?", tok):
         return IndexNNDescentFlat(d, int(m.group(1) or 32), metric,
                                   device=device)
+    coded = _coded_encoding(tok, d, metric, device)
+    if coded is not None:
+        return coded
     if any(re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
         _unported(tok, "the encoding")
     return None

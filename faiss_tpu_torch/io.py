@@ -17,7 +17,11 @@ IndexHNSWFlatPanorama, IndexHNSWPQ, IndexHNSWSQ: the graph's rows, levels,
 neighbours, entry point and parameters beside the storage), the NSG indexes
 (IndexNSGFlat, IndexNNDescentFlat, IndexNSGPQ, IndexNSGSQ: the graph and its
 enter point) and MultiIndexQuantizer / MultiIndexQuantizer2 (the codebooks
-and the sub-indexes), also as the coarse quantizer of an IVF index.
+and the sub-indexes), also as the coarse quantizer of an IVF index, the
+additive-quantizer indexes, flat and IVF, FastScan and product forms (the
+codebooks, the norm codec's state, the codes and, flat, their norms), and
+the RaBitQ indexes, flat and IVF, 1-bit and multi-bit, FastScan (the
+rotation and center of a flat one, ``nb_bits``, ``qb``, ``bbs``).
 IndexHNSW2Level and IndexBinaryHNSW are refused with TypeError, as faiss_tpu
 refuses them (neither has a file form there). A class tag of
 faiss_tpu that the port does not have raises NotImplementedError naming its
@@ -58,6 +62,20 @@ from .models.nsg import IndexNNDescentFlat, IndexNSGFlat, IndexNSGPQ, IndexNSGSQ
 from .models.lsh import IndexLSH
 from .models.pq import IndexPQ, IndexPQFastScan
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer
+from .models.aq import (
+    AQ_FLAT_CLASSES,
+    AQ_IVF_CLASSES,
+    IndexAdditiveQuantizer,
+    IndexIVFAdditiveQuantizer,
+    aq_index,
+    set_aq_state,
+)
+from .models.rabitq import (
+    IndexIVFRaBitQ,
+    IndexIVFRaBitQFastScan,
+    IndexRaBitQ,
+    IndexRaBitQFastScan,
+)
 from .codecs.sq import QuantizerType
 from .models.meta import (
     IndexIDMap,
@@ -73,27 +91,39 @@ IO_FLAG_MMAP = 0x646F0000  # map the array payloads in place
 IO_FLAG_READ_ONLY = 2
 
 # faiss_tpu's class tags whose classes the port does not have yet: the
-# codecs, graphs and quantizers of ROADMAP queue 1 item 10
+# codecs of ROADMAP queue 1 item 10
 _ITEM10_CLASSES = frozenset((
-    "IndexFlatPanorama", "IndexIVFFlatPanorama", "IndexEDEN",
-    "IndexIVFEDEN", "IndexRaBitQ", "IndexRaBitQFastScan", "IndexIVFRaBitQ",
-    "IndexIVFRaBitQFastScan", "IndexLattice", "IndexAdditiveQuantizer",
-    "IndexResidualQuantizer", "IndexLocalSearchQuantizer",
-    "IndexProductResidualQuantizer", "IndexProductLocalSearchQuantizer",
-    "IndexResidualQuantizerFastScan", "IndexLocalSearchQuantizerFastScan",
-    "IndexProductResidualQuantizerFastScan",
-    "IndexProductLocalSearchQuantizerFastScan", "IndexIVFAdditiveQuantizer",
-    "IndexIVFResidualQuantizer", "IndexIVFLocalSearchQuantizer",
-    "IndexIVFAdditiveQuantizerFastScan", "IndexIVFResidualQuantizerFastScan",
-    "IndexIVFLocalSearchQuantizerFastScan", "IndexIVFProductResidualQuantizer",
-    "IndexIVFProductLocalSearchQuantizer",
-    "IndexIVFProductResidualQuantizerFastScan",
-    "IndexIVFProductLocalSearchQuantizerFastScan",
+    "IndexFlatPanorama", "IndexIVFFlatPanorama", "IndexEDEN", "IndexIVFEDEN",
+    "IndexLattice",
 ))
+_RABITQ_CLASSES = {"IndexRaBitQ": IndexRaBitQ,
+                   "IndexRaBitQFastScan": IndexRaBitQFastScan,
+                   "IndexIVFRaBitQ": IndexIVFRaBitQ,
+                   "IndexIVFRaBitQFastScan": IndexIVFRaBitQFastScan}
 
 
 def _pq_meta(pq):
     return {"d": pq.d, "M": pq.M, "nbits": pq.nbits}
+
+
+def _dump_aq_norm(aq, meta, arrays, path):
+    """An AQ codec's norm state (faiss_tpu io.py:36): search_type, the qint
+    range, the cqint / 2x4 tables."""
+    meta["search_type"] = int(aq.search_type)
+    if aq.norm_min == aq.norm_min:  # not NaN
+        meta["norm_min"], meta["norm_max"] = aq.norm_min, aq.norm_max
+    if aq.qnorm is not None:
+        arrays[f"{path}/aq_qnorm"] = aq.qnorm
+    if aq.norm_tabs is not None:
+        arrays[f"{path}/aq_norm_tabs"] = aq.norm_tabs
+
+
+def _load_aq_norm(aq, meta, arrays, path, codebooks_key):
+    """The codec state written by :func:`_dump_aq_norm` and its codebooks
+    (faiss_tpu io.py:47 and :652-680)."""
+    set_aq_state(aq, arrays.get(f"{path}/{codebooks_key}"), meta.get("search_type"),
+                 meta.get("norm_min"), meta.get("norm_max"),
+                 arrays.get(f"{path}/aq_qnorm"), arrays.get(f"{path}/aq_norm_tabs"))
 
 
 def _dump_transform(vt, arrays, path):
@@ -211,6 +241,21 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
             meta["tq_seed"] = int(index.sq.tq_seed)
             if index.sq.trained is not None:
                 arrays[f"{path}/sq_trained"] = index.sq.trained
+        if isinstance(index, IndexIVFRaBitQ):  # faiss_tpu io.py:197-207
+            meta["nb_bits"] = index.nb_bits
+            meta["qb"] = index.qb
+            if isinstance(index, IndexIVFRaBitQFastScan):
+                meta["bbs"] = index.bbs
+        if isinstance(index, IndexIVFAdditiveQuantizer):  # io.py:213-230
+            meta["aq"] = {"class": type(index.aq).__name__, "M": index.aq.M,
+                          "nbits": index.aq.nbits}
+            if hasattr(index.aq, "nsplits"):
+                meta["aq"]["nsplits"] = index.aq.nsplits
+            if index.aq.codebooks is not None:
+                arrays[f"{path}/aq_codebooks"] = index.aq.codebooks
+            _dump_aq_norm(index.aq, meta["aq"], arrays, path)
+            if hasattr(index, "bbs"):
+                meta["bbs"] = index.bbs
         return meta
     if isinstance(index, IndexLSH):  # faiss_tpu io.py:146
         meta.update(d=index.d, nbits=index.nbits, rotate_data=index.rotate_data,
@@ -243,6 +288,33 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
         arrays[f"{path}/codes"] = index._codes
         arrays[f"{path}/listnos"] = index._listnos
         arrays[f"{path}/ids"] = index._ids
+        return meta
+    if isinstance(index, IndexAdditiveQuantizer):  # faiss_tpu io.py:340
+        meta.update(d=index.d, metric=int(index.metric_type), M=index.aq.M,
+                    nbits=index.aq.nbits, aq_class=type(index.aq).__name__,
+                    is_trained=index.is_trained)
+        if hasattr(index.aq, "nsplits"):
+            meta["nsplits"] = index.aq.nsplits
+        if hasattr(index, "bbs"):
+            meta["bbs"] = index.bbs
+        if index.aq.codebooks is not None:
+            arrays[f"{path}/codebooks"] = index.aq.codebooks
+        _dump_aq_norm(index.aq, meta, arrays, path)
+        if index._codes is not None:
+            arrays[f"{path}/codes"] = index._codes_int
+            arrays[f"{path}/norms"] = index._norms
+        return meta
+    if isinstance(index, IndexRaBitQ):  # faiss_tpu io.py:359
+        meta.update(d=index.d, is_trained=index.is_trained, nb_bits=index.nb_bits,
+                    qb=index.qb)
+        if isinstance(index, IndexRaBitQFastScan):
+            meta["bbs"] = index.bbs
+        arrays[f"{path}/P"] = index.rabitq.P
+        if index.rabitq.center is not None:
+            arrays[f"{path}/center"] = index.rabitq.center
+        if index._bits is not None:
+            arrays[f"{path}/bits"] = index._bits
+            arrays[f"{path}/factors"] = index._factors
         return meta
     if isinstance(index, IndexScalarQuantizer):
         meta.update(d=index.d, metric=int(index.metric_type),
@@ -315,8 +387,33 @@ def _load(meta, arrays, path: str, device):
         index.ntotal = base.ntotal
         return index
     if cls in ("IndexIVFFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
-               "IndexIVFPQR", "IndexIVFScalarQuantizer"):
+               "IndexIVFPQR", "IndexIVFScalarQuantizer", "IndexIVFRaBitQ",
+               "IndexIVFRaBitQFastScan") or cls in AQ_IVF_CLASSES:
         return _load_ivf(meta, arrays, path, device)
+    if cls in AQ_FLAT_CLASSES:  # faiss_tpu io.py:813
+        index = aq_index(cls, meta["d"], meta["M"], meta["nbits"], meta["metric"],
+                         nsplits=meta.get("nsplits", 0), bbs=meta.get("bbs", 32),
+                         aq_class=meta.get("aq_class"), device=device)
+        _load_aq_norm(index.aq, meta, arrays, path, "codebooks")
+        index.is_trained = meta["is_trained"]
+        if f"{path}/codes" in arrays:
+            index.add_codes_int(arrays[f"{path}/codes"], arrays[f"{path}/norms"])
+        return index
+    if cls in ("IndexRaBitQ", "IndexRaBitQFastScan"):  # faiss_tpu io.py:898
+        if cls == "IndexRaBitQFastScan":
+            index = IndexRaBitQFastScan(meta["d"], bbs=meta.get("bbs", 32),
+                                        nb_bits=meta.get("nb_bits", 1), device=device)
+        else:
+            index = IndexRaBitQ(meta["d"], nb_bits=meta.get("nb_bits", 1),
+                                device=device)
+        index.qb = meta.get("qb", index.qb)
+        index.rabitq.P = np.ascontiguousarray(arrays[f"{path}/P"])
+        if f"{path}/center" in arrays:
+            index.rabitq.center = np.ascontiguousarray(arrays[f"{path}/center"])
+        index.is_trained = meta["is_trained"]
+        if f"{path}/bits" in arrays:
+            index.add_codes(arrays[f"{path}/bits"], arrays[f"{path}/factors"])
+        return index
     if cls in _HNSW_CLASSES:  # faiss_tpu io.py:507
         storage = _load(meta["storage"], arrays, f"{path}/storage", device)
         index = IndexHNSW(storage, meta["M"])
@@ -477,6 +574,20 @@ def _load_ivf(meta, arrays, path, device):
         index.sq.tq_seed = int(meta.get("tq_seed", 123))
         if f"{path}/sq_trained" in arrays:
             index.sq.trained = arrays[f"{path}/sq_trained"]
+        index.by_residual = meta["by_residual"]
+    elif cls in _RABITQ_CLASSES:  # faiss_tpu io.py:582-595
+        fs = (meta.get("bbs", 32),) if cls == "IndexIVFRaBitQFastScan" else ()
+        index = _RABITQ_CLASSES[cls](quantizer, d, nlist, metric, *fs,
+                                     nb_bits=meta.get("nb_bits", 1), device=device)
+        index.qb = meta.get("qb", index.qb)
+        index.rabitq.center = np.zeros(d, np.float32)
+    elif cls in AQ_IVF_CLASSES:  # faiss_tpu io.py:612-680
+        aqm = meta["aq"]
+        index = aq_index(cls, d, aqm["M"], aqm["nbits"], metric,
+                         nsplits=aqm.get("nsplits", 0), bbs=meta.get("bbs", 32),
+                         aq_class=aqm["class"], quantizer=quantizer, nlist=nlist,
+                         device=device)
+        _load_aq_norm(index.aq, aqm, arrays, path, "aq_codebooks")
         index.by_residual = meta["by_residual"]
     else:
         pq = meta["pq"]

@@ -416,25 +416,36 @@ class IndexIVF(Index, Level1Quantizer):
         add order [nlist, max_len], and the rows of ``_stage_rows``
         [nlist, max_len, d] float32 (zeros on pads) gathered on the device
         through them, and their norms."""
-        dev = self.device
+        sid = self._slot_ids(order, offsets, max_len)
+        rows = self._stage_rows() if self.ntotal else np.zeros((0, self.d))
+        codes = self._padded(sid, torch.from_numpy(
+            np.ascontiguousarray(rows, np.float32)).to(self.device), 0.0)
+        return {
+            "codes": codes,
+            "slot_ids": sid,
+            "lengths": torch.from_numpy(lengths).to(self.device),
+            "code_norms": (codes.square().sum(-1)
+                           if self.metric_type == MetricType.L2 else None),
+        }
+
+    def _slot_ids(self, order, offsets, max_len) -> torch.Tensor:
+        """[nlist, max_len] int32 on the device: every list's slots (input
+        positions) in add order, -1 on pads."""
         sorted_ln = self._listnos_host[order].astype(np.int64)
         ranks = np.arange(self.ntotal, dtype=np.int64) - offsets[sorted_ln]
         slot_ids = np.full((self.nlist, max_len), -1, np.int32)
         slot_ids[sorted_ln, ranks] = order
-        sid = torch.from_numpy(slot_ids).to(dev)
-        xb = torch.from_numpy(
-            np.ascontiguousarray(self._stage_rows(), np.float32)
-        ).to(dev) if self.ntotal else torch.zeros(1, self.d, device=dev)
-        codes = torch.where(
-            (sid >= 0)[..., None], xb[sid.clamp_min(0).long()], 0.0
-        )
-        return {
-            "codes": codes,
-            "slot_ids": sid,
-            "lengths": torch.from_numpy(lengths).to(dev),
-            "code_norms": (codes.square().sum(-1)
-                           if self.metric_type == MetricType.L2 else None),
-        }
+        return torch.from_numpy(slot_ids).to(self.device)
+
+    @staticmethod
+    def _padded(sid: torch.Tensor, rows: torch.Tensor, fill) -> torch.Tensor:
+        """Per-slot device rows [ntotal, ...] gathered through ``sid`` into
+        the padded layout [nlist, max_len, ...], ``fill`` (a scalar or a
+        row) on pads."""
+        if rows.shape[0] == 0:
+            rows = rows.new_zeros((1,) + tuple(rows.shape[1:]))
+        shape = tuple(sid.shape) + (1,) * (rows.dim() - 1)
+        return torch.where((sid >= 0).view(shape), rows[sid.clamp_min(0).long()], fill)
 
     # -- search by probe (faiss_tpu :322-444) ---------------------------------
     def _coarse_search(self, xq: torch.Tensor, nprobe: int):

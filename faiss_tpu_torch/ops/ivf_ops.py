@@ -6,7 +6,9 @@ d]`` with per-list lengths; IVF-PQ's are one CSR, a :class:`RaggedLists`
 (an IMI's 2^20 skewed lists would not fit padded). A probe step gathers
 each query's p-th list, scores it (IVF-Flat: one batched float32 product;
 IVF-PQ: table gathers, over the lists padded only to the longest list of
-that step) and merges it into the running top-k. A Python loop over the
+that step; 1-bit RaBitQ: the list's sign bits unpacked, one batched product
+with the rotated queries and the estimator) and merges it into the running
+top-k. A Python loop over the
 nprobe axis takes the place of faiss_tpu's ``lax.scan``. Plain PyTorch:
 faiss_tpu runs this scan through XLA, not a Pallas kernel. Slots are int32
 positions; the index maps them to ids."""
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..metric import MetricType
@@ -125,6 +128,70 @@ def pq_probe_dists(luts, ln, bias, cl, term2=None):
     for m in range(cl.shape[2]):
         dist = dist + torch.gather(tab[:, m, :], 1, cl[:, :, m].long())
     return dist + bias[:, None]
+
+
+def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """uint8 [..., nbytes] little-endian bits -> float32 [..., d] of +-1
+    (faiss_tpu models/rabitq.py:27)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    bits = bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)[..., :d]
+    return 2.0 * bits.float() - 1.0
+
+
+def rabitq_sqrt_d(d: int) -> float:
+    """sqrt(d) rounded to float32, faiss_tpu's divisor of <q, signs>."""
+    return float(np.sqrt(np.float32(d)))
+
+
+def rabitq_probe_dists(qP, ln, bias, packed, factors, d):
+    """[nq, max_len] 1-bit RaBitQ estimates of each query against its list
+    ``ln`` (faiss_tpu models/rabitq.py:199, one probe step): the list's sign
+    rows unpacked, <Pq, o_bar> by one batched float32 product with the
+    rotated queries ``qP`` [nq, d], then with the factors (|x_r|, f, g =
+    <Pc, o_bar>) est = |x_r| (<Pq, o_bar> - g) / f and ``bias`` (|q - c|^2)
+    + |x_r|^2 - 2 est."""
+    safe = ln.clamp_min(0).long()
+    signs = unpack_signs(packed[safe], d)  # [nq, max_len, d]
+    ipq = torch.bmm(signs, qP[:, :, None])[:, :, 0] / rabitq_sqrt_d(d)
+    fc = factors[safe]
+    nr, f, g = fc[..., 0], fc[..., 1], fc[..., 2]
+    est = nr * (ipq - g) / f
+    return bias[:, None] + nr * nr - 2.0 * est
+
+
+def ivf_rabitq_scan(
+    qP: torch.Tensor,  # [nq, d] rotated queries P q (probe-independent)
+    probes: torch.Tensor,  # [nq, nprobe] int (-1 = no probe)
+    bias: torch.Tensor,  # [nq, nprobe] |q - c|^2 of each probe
+    packed: torch.Tensor,  # [nlist, max_len, d / 8] uint8 sign bits
+    factors: torch.Tensor,  # [nlist, max_len, 3] float32 (|x_r|, f, g)
+    slot_ids: torch.Tensor,  # [nlist, max_len] int32 (-1 on pads)
+    lengths: torch.Tensor,  # [nlist] int
+    k: int,
+    sel_mask: Optional[torch.Tensor] = None,  # [ntotal] bool over slots
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 1-bit IVF RaBitQ scan by probe (faiss_tpu models/rabitq.py:199):
+    :func:`rabitq_probe_dists` per probe, the slots the lists' lengths and
+    ``sel_mask`` keep, merged into the running top-k. Queries go in chunks
+    whose unpacked [rows, max_len, d] float32 signs stay under
+    SCAN_GATHER_BYTES. Returns (dists [nq, k] ascending, slots [nq, k]
+    int32), +inf and -1 past the candidates."""
+    nq, d = qP.shape
+    rows = max(1, SCAN_GATHER_BYTES // max(1, packed.shape[1] * d * 4))
+    parts = []
+    for r in range(0, max(nq, 1), rows):
+        q, pr, b = qP[r : r + rows], probes[r : r + rows], bias[r : r + rows]
+        vals = torch.full((q.shape[0], k), float("inf"), device=qP.device)
+        ids = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=qP.device)
+        for p in range(pr.shape[1]):
+            ln = pr[:, p].long()
+            dist = rabitq_probe_dists(q, ln, b[:, p], packed, factors, d)
+            valid, sl = probe_slots(ln, slot_ids, lengths, sel_mask)
+            dist = torch.where(valid, dist, float("inf"))
+            vals, ids = merge_topk(vals, ids, dist, sl, k, largest=False)
+        parts.append((vals, ids))
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 def pq_probe_hamming(qcodes, cl):

@@ -1,5 +1,6 @@
 """Product-quantizer encode, decode, ADC tables and the exhaustive IVF-PQ
-ADC scan (counterpart of faiss_tpu/ops/pq_ops.py)."""
+ADC scan (counterpart of faiss_tpu/ops/pq_ops.py), and the additive
+quantizers' table scan (faiss_tpu models/aq.py:33)."""
 
 from __future__ import annotations
 
@@ -144,6 +145,37 @@ def pq_adc_knn(
     if nb < k:
         pad_v, pad_i = _knn_init(nq, k - nb, largest, luts.device)
         vals, ids = torch.cat([vals, pad_v], 1), torch.cat([ids, pad_i], 1)
+    return vals, ids
+
+
+def aq_lut_knn(
+    luts: torch.Tensor,  # [nq, M, K] float32 inner-product tables
+    codes: torch.Tensor,  # [nb, M] integer codes
+    norms: torch.Tensor,  # [nb] float32 stored norms (L2)
+    k: int,
+    largest: bool = False,
+    keep: torch.Tensor = None,  # [nb] bool: codes an ID selector keeps
+    db_chunk: int = 1 << 16,
+):
+    """Additive-quantizer search (faiss_tpu models/aq.py:33, _aq_knn): per
+    chunk of ``db_chunk`` codes the float32 table sums of
+    :func:`adc_scores_gather` (in order of m), scored ``norm - 2 * sum`` for
+    L2 (the caller adds |q|^2) or ``sum`` for inner product, the codes that
+    ``keep`` clears set to the sentinel before ``torch.topk`` and the merge.
+    The select is exact, where faiss_tpu's ``approx_min_k`` is exact only on
+    the CPU. Returns (D [nq, min(k, nb)] float32, ids int64), the sentinel
+    and -1 where fewer codes are kept."""
+    nq = luts.shape[0]
+    nb = codes.shape[0]
+    kk = min(k, nb)
+    vals, ids = _knn_init(nq, kk, largest, luts.device)
+    sentinel = float("-inf") if largest else float("inf")
+    for c0 in range(0, nb, db_chunk):
+        ip = adc_scores_gather(luts, codes[c0 : c0 + db_chunk])
+        scores = ip if largest else norms[None, c0 : c0 + db_chunk] - 2.0 * ip
+        if keep is not None:
+            scores = torch.where(keep[None, c0 : c0 + db_chunk], scores, sentinel)
+        vals, ids = _select_chunk(vals, ids, scores, c0, kk, largest)
     return vals, ids
 
 

@@ -70,6 +70,16 @@ def tree(index):
             out[name] = getattr(index, name)
     if hasattr(index, "sq"):
         out["sq"] = (int(index.sq.qtype), index.sq.code_size)
+    if hasattr(index, "aq"):  # the additive quantizers
+        aq = index.aq
+        out["aq"] = (type(aq).__name__, aq.d, aq.M, aq.nbits, aq.search_type,
+                     aq.code_size, getattr(aq, "nsplits", None),
+                     [type(s).__name__ for s in getattr(aq, "subs", [])])
+        out["code_size"] = getattr(index, "code_size", None)
+    if hasattr(index, "rabitq"):
+        out["rabitq"] = (type(index.rabitq).__name__, index.nb_bits, index.qb,
+                         index.rabitq.code_size, getattr(index, "code_size", None),
+                         getattr(index, "by_residual", None))
     return out
 
 
@@ -101,6 +111,19 @@ SUPPORTED = [
     (32, "HNSW32,2x4+PQ8", "l2"), (32, "NNDescent32", "l2"), (32, "NSG16,PQ8", "l2"),
     (32, "HNSW32,RFlat", "l2"), (32, "IVF16_HNSW,PQ8x4fs,RFlat", "l2"),
     (32, "IMI2x4,Flat", "l2"), (32, "IVF16(IVF4,Flat),SQ8", "l2"),
+    # the additive quantizers and RaBitQ
+    (32, "RQ4x4", "l2"), (32, "RQ4x8", "ip"), (32, "LSQ4x6", "l2"),
+    (32, "RQ8x4fs", "l2"), (32, "LSQ4x4fs_64", "l2"), (32, "PRQ2x4x8", "l2"),
+    (32, "PLSQ2x2x4", "l2"), (32, "RQ4x8_Nqint8", "l2"), (32, "LSQ4x4_Nlsq2x4", "l2"),
+    (32, "PRQ2x2x6_Ncqint4", "l2"), (32, "RQ4x4_Nnone", "l2"),
+    (32, "IVF16,RQ4x4", "l2"), (32, "IVF16,LSQ4x6_Nrq2x4", "l2"),
+    (32, "IVF16,RQ8x4fs_64", "l2"), (32, "IVF16,LSQ4x4fs", "l2"),
+    (32, "IVF16,PRQ2x4x4fs", "l2"), (32, "IVF16,PLSQ2x2x4fs_64", "l2"),
+    (32, "IVF16,PRQ2x2x6", "ip"), (32, "IVF16,PLSQ2x2x4_Nqint4", "l2"),
+    (32, "RaBitQ", "l2"), (32, "RaBitQ4", "l2"), (32, "RaBitQfs", "l2"),
+    (32, "RaBitQfs2_64", "l2"), (32, "IVF16,RaBitQ", "l2"), (32, "IVF16,RaBitQ3", "l2"),
+    (32, "IVF16,RaBitQfs", "l2"), (32, "IVF16,RaBitQfs4_64", "l2"),
+    (32, "IVF16,RaBitQ,RFlat", "l2"), (32, "IDMap2,RR,RaBitQ", "l2"),
 ]
 
 
@@ -119,8 +142,8 @@ def test_factory_tree_matches_reference(d, desc, metric):
 
 
 UNPORTED = [
-    "IVF16,RQ4x4", "IVF16,LSQ4x4fs", "RQ4x4", "IVF16,PRQ2x4x4fs", "IVF16,RaBitQ", "RaBitQfs",
-    "EDEN4", "IVF16,FlatPanorama",
+    "EDEN4", "EDEN2BIASED", "IVF16,EDEN", "IVF16,EDEN3BIAS", "FlatPanorama8",
+    "IVF16,FlatPanorama", "IVF16,FlatPanorama4", "ZnLattice2x4_6", "ZnLattice4x4_8",
 ]
 
 

@@ -352,8 +352,8 @@ def test_io_compat_files_and_golden_results():
 def test_refusals(data, tmp_path, monkeypatch):
     xb, _ = data
     # a faiss_tpu class the port does not have
-    with pytest.raises(NotImplementedError, match="IndexRaBitQ .*item 10"):
-        ftt.deserialize_index(ftj.serialize_index(ftj.index_factory(D, "RaBitQ")),
+    with pytest.raises(NotImplementedError, match="IndexEDEN .*item 10"):
+        ftt.deserialize_index(ftj.serialize_index(ftj.index_factory(D, "EDEN4")),
                               device="cpu")
     # the reference library's own format (io_ref)
     ref_file = tmp_path / "ref.faissindex"
