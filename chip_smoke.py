@@ -399,6 +399,31 @@ print stands beside the card's name and power limit:
      each read index's 8192-query search equal to the search before the
      write (distances bit for bit). ``python3 chip_smoke.py --only L`` runs
      phases 1-3 and phase L alone.
+ M. (after L, on the 1M x 128 set) the rest of faiss_tpu: M-a IndexFlat
+     under the ten extra metrics (1024 q; JensenShannon, Jaccard and
+     BrayCurtis on |x| normalised to sum 1, NaNEuclidean and GOWER with 1%
+     NaN) and IVF4096,Flat under L1 at nprobe 16, 64 rows each against
+     float64 of faiss's formulas (over the probed lists for IVF); M-b
+     FlatPanorama8 against IndexFlatL2 and IVF4096,FlatPanorama4 against
+     IVF4096,Flat over the same lists, every row tie-aware, the certified
+     share and the repaired rows printed; M-c EDEN4, EDEN4BIASED and
+     IVF4096,EDEN4 (train, encode, search, bytes a code, recall@1/@10, 64
+     rows against float64 of the estimator); M-d ZnLattice8x8_r2 with the
+     largest r2 of 32..8 whose codec enumerates in under 10 s,
+     decode(encode) against the float64 nearest vertex on 64 rows; M-e
+     train_qinco over 100k rows (K 256, M 8, L 2, h 256, 4 epochs, the loss
+     falling every epoch) and IndexQINCo over the 1M rows; M-f
+     IVFFlatDedup over the set with 10% of its rows duplicated (every
+     duplicate in ``instances``, returned by the expanded search),
+     RowwiseMinMax / FP16 over SQ8, IVFIndependentQuantizer and
+     IVFSpectralHash at nprobe 16; M-g partition_fuzzy on [8192, 65536]
+     against a sort-based check; M-h files of the EDEN, Panorama and
+     lattice indexes, each search equal after the read. The IVF indexes
+     share one k-means of 4096 centroids. Each timed search follows an
+     untimed one and runs with the counts at 0 (``m_launches`` in the
+     kernels' line: the flat and IVF-Flat searches behind Panorama, the
+     lattice, QINCo, MinMax's decoded rows and Dedup). ``python3
+     chip_smoke.py --only M`` runs phases 1-3 and phase M alone.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -4626,13 +4651,666 @@ def aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     print(f"phase L: {time.time() - t0:.1f} s ({CARD})", flush=True)
 
 
+# -- phase M: the extra metrics, Panorama, EDEN, the lattice, QINCo, the
+# small IVF variants, partitioning and files (no kernel of their own; the
+# paths that search through the port's IndexFlat / IndexIVFFlat launch K1,
+# K2 or K3, counted per entry of the kernels' line as "m_launches")
+
+M_NQ_METRIC = 1024  # M-a's queries
+M_NPROBE = 16
+M_EXTRA = ("L1", "Linf", "Lp", "Canberra", "BrayCurtis", "JensenShannon",
+           "Jaccard", "NaNEuclidean", "ABS_INNER_PRODUCT", "GOWER")
+M_P = 3.0  # metric_arg of Lp
+M_LATTICE_NSQ, M_LATTICE_SCALE = 8, 8  # d = 128: dsq 16
+M_QINCO = dict(K=256, M=8, L=2, h=256, epochs=4, rows=100_000)
+M_SH_NBIT = 64
+M_PART = (8192, 65536, 100, 400)  # partition_fuzzy's rows, width, q_min, q_max
+# IndexFlat's kernels at k = 10: the screen (K2), or K3 once a sub-batch's
+# certificate fails on more than a quarter of its rows (a storm)
+M_FLAT_KERNELS = ("ivf_recon_fused", "knn_fused[k_lanes=128]")
+
+
+def m_counts(fused_knn):
+    """Launch counts by the name of each kernel's entry in the kernels'
+    line (K1-K5, K7; K6 serves no index path)."""
+    return {"ivf_recon_fused_dyn": fused_knn.ivf_recon_fused_dyn.launches,
+            "ivf_recon_fused": fused_knn.ivf_recon_fused.launches,
+            "knn_fused[k_lanes=128]": fused_knn.knn_fused.launches,
+            "ivfpq_fused": fused_knn.ivfpq_fused.launches,
+            "ivfpq_fused_dyn": fused_knn.ivfpq_fused_dyn.launches,
+            "recon_floor": fused_knn.recon_floor.launches}
+
+
+def m_driven(fused_knn, tally, what, fn, need=(), warm=True):
+    """fn() with every count at 0 just before and read just after, added to
+    ``tally``; fails if a kernel of ``need`` (entry names) did not launch.
+    With ``warm`` one call before (the layouts a first search stages) is
+    left out of the time and of the counts. Returns (fn's result, seconds by
+    the host clock, peak GiB)."""
+    if warm:
+        fn()
+    reset_counts(fused_knn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    got = m_counts(fused_knn)
+    for names in need:  # each a kernel, or a tuple of which one must launch
+        names = names if isinstance(names, tuple) else (names,)
+        check(sum(got[n] for n in names) > 0,
+              f"{what}: {' nor '.join(names)} launched no time")
+    for name, n in got.items():
+        tally[name] = tally.get(name, 0) + n
+    return out, sec, torch.cuda.max_memory_allocated() / 2**30
+
+
+def m_metric_rows(xb, metric, rs):
+    """M-a's rows for ``metric``: |x| normalised to sum 1 for the
+    distribution metrics, 1% NaN for NaNEuclidean and GOWER."""
+    if metric in ("JensenShannon", "Jaccard", "BrayCurtis"):
+        a = np.abs(xb)
+        return (a / a.sum(1, keepdims=True)).astype(np.float32)
+    if metric in ("NaNEuclidean", "GOWER"):
+        x = xb.copy()
+        x[rs.rand(*x.shape) < 0.01] = np.nan
+        return x
+    return xb
+
+
+def m_metric64(q, y, metric, p=M_P):
+    """float64 [r, n] distances of ``metric`` between device rows, written
+    out from faiss's extra_distances-inl.h formulas (the check's own
+    copy), in blocks of rows."""
+    out = []
+    q = q.double()[:, None, :]
+    for s in range(0, len(y), 8192):
+        b = y[s : s + 8192].double()[None]
+        diff = q - b
+        if metric == "L1":
+            r = diff.abs().sum(-1)
+        elif metric == "Linf":
+            r = diff.abs().amax(-1)
+        elif metric == "Lp":
+            r = diff.abs().pow(p).sum(-1)
+        elif metric == "Canberra":
+            den = q.abs() + b.abs()
+            r = torch.where(den > 0, diff.abs() / den, 0.0).sum(-1)
+        elif metric == "BrayCurtis":
+            den = (q + b).abs().sum(-1)
+            r = torch.where(den > 0, diff.abs().sum(-1) / den, 0.0)
+        elif metric == "JensenShannon":
+            m = 0.5 * (q + b)
+            kl1 = torch.where(q > 0, q * torch.log(q / m), 0.0)
+            kl2 = torch.where(b > 0, b * torch.log(b / m), 0.0)
+            r = (0.5 * (kl1 + kl2)).sum(-1)
+        elif metric == "Jaccard":
+            den = torch.maximum(q, b).sum(-1)
+            r = 1.0 - torch.where(den > 0, torch.minimum(q, b).sum(-1) / den, 0.0)
+        elif metric == "NaNEuclidean":
+            ok = ~torch.isnan(q) & ~torch.isnan(b)
+            n = ok.sum(-1)
+            s2 = torch.where(ok, diff, 0.0).square().sum(-1)
+            r = torch.where(n > 0, q.shape[-1] * s2 / n, float("inf"))
+        elif metric == "ABS_INNER_PRODUCT":
+            r = (q * b).abs().sum(-1)
+        else:  # GOWER
+            num = (q >= 0) & (b >= 0)
+            ok = ~torch.isnan(q) & ~torch.isnan(b)
+            per = torch.where(num, diff.abs(), torch.where(q == b, 0.0, 1.0))
+            n = ok.sum(-1)
+            r = torch.where(n > 0, torch.where(ok, per, 0.0).sum(-1) / n, float("nan"))
+        out.append(r)
+    return torch.cat(out, 1)
+
+
+def m_rows_vs64(what, D, I, d64, ids, largest=False, scale=None):
+    """EXACT_ROWS rows of (D, I) against the float64 distances ``d64`` [r, n]
+    of the candidates ``ids`` [n] (+inf / -inf where not allowed): per rank
+    within 1e-5 of ``scale`` [r] (the L2 expansion's terms, |q|^2 + max
+    |y|^2, for L2-like estimators; by default the row's largest distance:
+    the extra metrics' relative bound), ids tie-aware. Returns the largest
+    error over the scale."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    k = D.shape[1]
+    key = -d64 if largest else d64
+    v, pos = torch.topk(torch.nan_to_num(key, nan=float("inf")), k, dim=1,
+                        largest=False)
+    ref = (-v if largest else v).cpu().numpy()
+    ref_i = ids[pos].cpu().numpy()
+    fin = np.isfinite(ref)
+    if scale is None:
+        scale = np.abs(np.where(fin, ref, 0)).max(1) + 1e-30
+    r = len(ref)
+    err = np.where(fin, np.abs(D[:r] - ref), 0).max(1) / scale
+    s = -1.0 if largest else 1.0
+    check((err <= 1e-5).all() and (np.isfinite(D[:r]) == fin).all()
+          and ids_agree_tie_aware(s * np.where(fin, ref, 1e30), ref_i,
+                                  s * np.where(fin, D[:r], 1e30), I[:r],
+                                  1e-5 * scale).all(),
+          f"{what}: differs from float64 (largest error over the scale {err.max():.3g})")
+    return float(err.max())
+
+
+def m_quantizer(ft, xt, dev):
+    """The 4096 L2 centroids phase M's IVF indexes share: k-means of the
+    200k training rows on the card."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    clus = ft.Clustering(D, NLIST, device=dev)
+    clus.train(xt)
+    torch.cuda.synchronize()
+    print(f"M. k-means of {NLIST} centroids over {len(xt)} rows {time.time() - t0:.2f} s "
+          f"({CARD})", flush=True)
+    return np.ascontiguousarray(clus.centroids, np.float32)
+
+
+def m_flat_q(ft, cent, dev, metric=None):
+    q = ft.IndexFlat(D, metric if metric is not None else ft.METRIC_L2, device=dev)
+    q.add(cent)
+    return q
+
+
+def m_probed(index, xq, nprobe):
+    """The probed lists [r, nprobe] of the first EXACT_ROWS queries, by the
+    index's coarse search."""
+    dev = index.device
+    return index._coarse_search(torch.from_numpy(xq[:EXACT_ROWS]).to(dev),
+                                nprobe)[1]
+
+
+def m_metrics_phase(ft, fused_knn, tally, xb, xq, cent, dev):
+    """M-a: IndexFlat under the ten extra metrics (1024 queries over the 1M
+    rows) and IVF4096,Flat under L1 at nprobe 16, 64 rows of each against
+    float64."""
+    rs = np.random.RandomState(7)
+    nq = M_NQ_METRIC
+    for name in M_EXTRA:
+        metric = getattr(ft.MetricType, name)
+        xb_m = m_metric_rows(xb, name, rs)
+        xq_m = m_metric_rows(xq[:nq], name, rs)
+        index = ft.IndexFlat(D, metric, M_P if name == "Lp" else 0.0, device=dev)
+        index.add(xb_m)
+        index._consolidate()
+        (Dm, Im), sec, peak = m_driven(fused_knn, tally, f"M-a. {name}",
+                                       lambda: index.search(xq_m, K), warm=False)
+        y = index._consolidate()
+        q = torch.from_numpy(xq_m[:EXACT_ROWS]).to(dev)
+        d64 = m_metric64(q, y, name)
+        largest = name == "ABS_INNER_PRODUCT"
+        err = m_rows_vs64(f"M-a. {name}", Dm, Im, d64,
+                          torch.arange(NB, device=dev), largest)
+        check(np.isfinite(Dm).all() and (Im >= 0).all(), f"M-a. {name}: missing results")
+        print(f"M-a. IndexFlat {name}: {nq} q over {NB} rows, k={K}: {sec * 1e3:.1f} ms, "
+              f"peak {peak:.2f} GiB; 64 rows vs float64 over every row: largest "
+              f"relative error {err:.3g} ({CARD})", flush=True)
+        del index, y, d64
+        torch.cuda.empty_cache()
+    q = m_flat_q(ft, cent, dev, ft.METRIC_L1)
+    ivf = ft.IndexIVFFlat(q, D, NLIST, ft.METRIC_L1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ivf.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    ivf.nprobe = M_NPROBE
+    (Dm, Im), sec, peak = m_driven(fused_knn, tally, "M-a. IVF4096,Flat L1",
+                                   lambda: ivf.search(xq[:nq], K))
+    probes = m_probed(ivf, xq, M_NPROBE)
+    lists = torch.from_numpy(ivf._listnos_host.astype(np.int64)).to(dev)
+    xs = torch.from_numpy(ivf._codes_host).to(dev)
+    ids = torch.from_numpy(ivf._ids_host).to(dev)
+    q64 = torch.from_numpy(xq[:EXACT_ROWS]).to(dev)
+    d64 = m_metric64(q64, xs, "L1")
+    inl = (lists[None, :, None] == probes[:, None, :]).any(-1)
+    d64 = torch.where(inl, d64, float("inf"))
+    err = m_rows_vs64("M-a. IVF4096,Flat L1", Dm, Im, d64, ids)
+    print(f"M-a. IVF4096,Flat under L1 (L1 assignment of {NB} rows {t_add:.2f} s): "
+          f"{nq} q at nprobe {M_NPROBE}: {sec * 1e3:.1f} ms, peak {peak:.2f} GiB; 64 "
+          f"rows vs float64 over the probed lists: largest relative error "
+          f"{err:.3g} ({CARD})", flush=True)
+    del ivf, xs, d64
+    torch.cuda.empty_cache()
+
+
+def m_equal_tie_aware(what, Da, Ia, Db, Ib, scale):
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    tol = 1e-5 * scale
+    ok = ((np.abs(Da - Db) <= tol[:, None]).all(1)
+          & ids_agree_tie_aware(Da, Ia, Db, Ib, tol))
+    check(ok.all(), f"{what}: {int((~ok).sum())} rows differ")
+
+
+def m_panorama_phase(ft, fused_knn, tally, xb, xq, cent, dev):
+    """M-b: FlatPanorama8 against IndexFlatL2 on every row, and
+    IVF4096,FlatPanorama4 against IVF4096,Flat over the same lists, both
+    at nprobe 16."""
+    scale = (xq.astype(np.float64) ** 2).sum(1) + float((xb.astype(np.float64) ** 2)
+                                                         .sum(1).max())
+    pano = ft.index_factory(D, "FlatPanorama8")
+    check(type(pano).__name__ == "IndexFlatPanorama" and pano.num_levels == 8,
+          f"M-b. {class_tree(pano)}")
+    pano.add(xb)
+    pano._pan_dev()
+    (Dp, Ip), sec, peak = m_driven(fused_knn, tally, "M-b. FlatPanorama8",
+                                   lambda: pano.search(xq, K))
+    rep = pano.last_repaired
+    flat = ft.IndexFlatL2(D, device=dev)
+    flat.add(xb)
+    (Df, If), sec_f, _ = m_driven(fused_knn, tally, "M-b. IndexFlatL2",
+                                  lambda: flat.search(xq, K), need=(M_FLAT_KERNELS,))
+    m_equal_tie_aware("M-b. FlatPanorama8 vs IndexFlatL2", Df, If, Dp, Ip, scale)
+    print(f"M-b. FlatPanorama8 (d1 = {D // 8}, prune factor {pano.prune_factor}): "
+          f"{NQ} q {sec * 1e3:.1f} ms (IndexFlatL2 {sec_f * 1e3:.1f} ms), peak "
+          f"{peak:.2f} GiB; certified {1 - rep / NQ:.4f} of the rows, {rep} "
+          f"repaired through IndexFlat; every row equal to IndexFlatL2's "
+          f"({CARD})", flush=True)
+    del flat
+    torch.cuda.empty_cache()
+    ivp = ft.IndexIVFFlatPanorama(m_flat_q(ft, cent, dev), D, NLIST, 4, device=dev)
+    ivp.add(xb)
+    ivf = ft.IndexIVFFlat(ivp.quantizer, D, NLIST, device=dev)
+    ivf.add_encoded(ivp._codes_host, ivp._listnos_host, ivp._ids_host)
+    ivp.nprobe = ivf.nprobe = M_NPROBE
+    ivp._build_device()
+    (Dp, Ip), sec, peak = m_driven(fused_knn, tally, "M-b. IVF4096,FlatPanorama4",
+                                   lambda: ivp.search(xq, K))
+    rep = ivp.last_repaired
+    (Df, If), sec_f, _ = m_driven(fused_knn, tally, "M-b. IVF4096,Flat",
+                                  lambda: ivf.search(xq, K))
+    m_equal_tie_aware("M-b. IVF4096,FlatPanorama4 vs IVF4096,Flat", Df, If, Dp, Ip,
+                      scale)
+    print(f"M-b. IVF4096,FlatPanorama4 at nprobe {M_NPROBE}: {NQ} q {sec * 1e3:.1f} ms "
+          f"(IVF4096,Flat strict {sec_f * 1e3:.1f} ms), peak {peak:.2f} GiB; "
+          f"certified {1 - rep / NQ:.4f}, {rep} repaired through IndexIVFFlat; "
+          f"every row equal to IVF4096,Flat's ({CARD})", flush=True)
+    del ivp, ivf
+    torch.cuda.empty_cache()
+    return pano
+
+
+def m_eden64(q, center, y, l2):
+    """float64 of the EDEN L2 estimator |q - c|^2 + l2 - 2 <q - c, y>,
+    clamped at 0 as both packages clamp the L2 expansion."""
+    r = q.double() - center.double()
+    return (r.square().sum(1)[:, None] + l2.double()[None]
+            - 2.0 * r @ y.double().T).clamp_min(0.0)
+
+
+def m_eden_phase(ft, fused_knn, tally, xb, xt, xq, gt, cent, dev):
+    """M-c: EDEN4, EDEN4BIASED and IVF4096,EDEN4 at nprobe 16; 64 rows of
+    each against float64 of the estimator (over the probed lists for
+    IVF)."""
+    keep = None
+    for desc in ("EDEN4", "EDEN4BIASED"):
+        index = ft.index_factory(D, desc)
+        t_train, t_add, peak_add = timed_build(index, xt, xb)
+        (Dm, Im), sec, peak = m_driven(fused_knn, tally, f"M-c. {desc}",
+                                       lambda: index.search(xq, K))
+        y, l2 = index._device_rows()
+        q = torch.from_numpy(xq[:EXACT_ROWS]).to(dev)
+        cen = torch.from_numpy(index.center).to(dev)
+        d64 = m_eden64(q, cen, y, l2)
+        scale = ((q - cen).double().square().sum(1) + l2.double().max()
+                 + 2 * (q - cen).double().norm(dim=1) * y.double().norm(dim=1).max())
+        err = m_rows_vs64(f"M-c. {desc}", Dm, Im, d64, torch.arange(NB, device=dev),
+                          scale=scale.cpu().numpy())
+        print(f"M-c. {desc}: train {t_train:.2f} s, encode {t_add:.2f} s for {NB} rows "
+              f"(peak {peak_add:.2f} GiB), search {sec * 1e3:.1f} ms (peak {peak:.2f} "
+              f"GiB), {index.sa_code_size()} bytes a code, {recall_str(Im, gt)}; 64 "
+              f"rows vs float64 of the estimator: largest error {err:.3g} of |q - c|^2 "
+              f"+ max l2 + 2 |q - c| max |y| ({CARD})", flush=True)
+        if desc == "EDEN4":
+            keep = index
+        else:
+            del index
+        torch.cuda.empty_cache()
+    ivf = ft.IndexIVFEDEN(m_flat_q(ft, cent, dev), D, NLIST, ft.METRIC_L2, 4, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ivf.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    ivf.nprobe = M_NPROBE
+    ivf._build_device()
+    (Dm, Im), sec, peak = m_driven(fused_knn, tally, "M-c. IVF4096,EDEN4",
+                                   lambda: ivf.search(xq, K))
+    probes = m_probed(ivf, xq, M_NPROBE)
+    c, f = ivf.eden.unpack(ivf._codes_host)
+    f = torch.from_numpy(f).to(dev)
+    lists = torch.from_numpy(ivf._listnos_host.astype(np.int64)).to(dev)
+    cents = torch.from_numpy(cent).to(dev)[lists].double()
+    y = ivf.eden.scaled(torch.from_numpy(c).to(dev), f).double()
+    q = torch.from_numpy(xq[:EXACT_ROWS]).to(dev).double()
+    # |q - c_l - y|^2 - |y|^2 + l2: the estimator of each row against its list
+    d64 = ((q.square().sum(1)[:, None] - 2 * q @ (cents + y).T)
+           + (cents.square().sum(1) + 2 * (cents * y).sum(1)
+              + f[:, 0].double())[None]).clamp_min(0.0)
+    inl = (lists[None, :, None] == probes[:, None, :]).any(-1)
+    d64 = torch.where(inl, d64, float("inf"))
+    t = cents.square().sum(1) + 2 * (cents * y).sum(1) + f[:, 0].double()
+    scale = q.square().sum(1) + t.max() + 2 * q.norm(dim=1) * (cents + y).norm(dim=1).max()
+    err = m_rows_vs64("M-c. IVF4096,EDEN4", Dm, Im, d64,
+                      torch.from_numpy(ivf._ids_host).to(dev), scale=scale.cpu().numpy())
+    print(f"M-c. IVF4096,EDEN4: encode {t_add:.2f} s for {NB} rows, {NQ} q at nprobe "
+          f"{M_NPROBE}: {sec * 1e3:.1f} ms (peak {peak:.2f} GiB), "
+          f"{ivf.sa_code_size()} bytes a code, {recall_str(Im, gt)}; 64 rows vs "
+          f"float64 of the estimator over the probed lists: largest error "
+          f"{err:.3g} of |q|^2 + max t + 2 |q| max |z| ({CARD})", flush=True)
+    del ivf, y, d64
+    torch.cuda.empty_cache()
+    return keep
+
+
+def m_atoms64(dim, r2):
+    """The check's own enumeration of the Zn sphere's atoms (non-increasing
+    non-negative integer vectors with sum of squares r2)."""
+    out = []
+
+    def rec(prefix, rem, top):
+        if rem == 0:
+            out.append(prefix + [0] * (dim - len(prefix)))
+            return
+        if len(prefix) == dim:
+            return
+        for v in range(min(top, int(rem ** 0.5)), 0, -1):
+            rec(prefix + [v], rem - v * v, v)
+
+    rec([], r2, r2)
+    return np.asarray(out, np.float64)
+
+
+def m_lattice_phase(ft, fused_knn, tally, xb, xt, xq, gt, dev):
+    """M-d: ZnLattice8x8_r2 at d = 128 (dsq 16), r2 the largest of 32..8
+    whose codec enumerates in under 10 s; decode(encode) against the
+    float64 nearest sphere vertex on 64 rows."""
+    from faiss_tpu_torch.codecs.lattice import ZnSphereCodec
+
+    dsq = D // M_LATTICE_NSQ
+    for r2 in range(32, 7, -1):
+        t0 = time.time()
+        ZnSphereCodec(dsq, r2, device=dev)
+        t_enum = time.time() - t0
+        if t_enum < 10:
+            break
+    desc = f"ZnLattice{M_LATTICE_NSQ}x{M_LATTICE_SCALE}_{r2}"
+    index = ft.index_factory(D, desc)
+    codec = index.zn_sphere_codec
+    index.train(xt)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    (Dm, Im), sec, peak = m_driven(fused_knn, tally, f"M-d. {desc}",
+                                   lambda: index.search(xq, K),
+                                   need=(M_FLAT_KERNELS,))
+    # decode(encode) of 64 rows against the float64 nearest vertex
+    sub = xq[:EXACT_ROWS].reshape(-1, dsq).astype(np.float64)
+    fields = index._encode_fields(xq[:EXACT_ROWS])
+    got = codec.decode_ids(torch.from_numpy(fields[:, :, 1].ravel()).to(dev)).cpu().numpy()
+    atoms = m_atoms64(dsq, r2)
+    order = np.argsort(-np.abs(sub), axis=1, kind="stable")
+    best = atoms[np.argmax(np.take_along_axis(np.abs(sub), order, 1) @ atoms.T, 1)]
+    want = np.zeros_like(sub)
+    np.put_along_axis(want, order, best, 1)
+    want = np.where(sub < 0, -want, want)
+    check(np.array_equal(got, want), f"M-d. {desc}: vertices differ from float64's "
+          f"on {int((got != want).any(1).sum())} subvectors")
+    print(f"M-d. {desc} (nv {codec.nv}, {codec.natom} atoms enumerated in "
+          f"{t_enum * 1e3:.1f} ms, {index.nsq * (index.scale_nbit + index.lattice_nbit)} "
+          f"bits a code): encode and decode of {NB} rows {t_add:.2f} s, search "
+          f"{NQ} q {sec * 1e3:.1f} ms (peak {peak:.2f} GiB), {recall_str(Im, gt)}; "
+          f"decode(encode) = the float64 nearest vertex on {len(sub)} subvectors "
+          f"({CARD})", flush=True)
+    return index
+
+
+def m_qinco_phase(ft, fused_knn, tally, xb, xt, xq, gt, dev):
+    """M-e: train_qinco over 100k rows on the card (K 256, M 8, L 2, h 256,
+    4 epochs), the loss falling every epoch; IndexQINCo over the 1M rows."""
+    from faiss_tpu_torch.utils.neuralnet import qinco_init, train_qinco
+
+    p = M_QINCO
+    xr = xt[: p["rows"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    init = qinco_init(D, p["K"], p["L"], p["M"], p["h"], xr, device=dev)
+    model = train_qinco(xr, p["K"], p["M"], p["L"], p["h"], epochs=p["epochs"],
+                        init_state=init, device=dev)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    losses = model.train_losses
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"M-e. the QINCo loss did not fall every epoch: {losses}")
+    index = ft.IndexQINCo(D, p["M"], 8, p["L"], p["h"])
+    index.set_net(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    index.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    peak_add = torch.cuda.max_memory_allocated() / 2**30
+    rec = index.reconstruct_n(0, 100_000)
+    mse = float(((rec.astype(np.float64) - xb[:100_000]) ** 2).sum(1).mean())
+    # the starting level-0 codebook alone (k-means of K * 64 rows)
+    cb0 = torch.from_numpy(init["codebook0.weight"]).to(dev)
+    x0 = torch.from_numpy(xb[:100_000]).to(dev)
+    mse0 = float(torch.cdist(x0, cb0).min(1).values.double().square().mean())
+    (Dm, Im), sec, peak = m_driven(fused_knn, tally, "M-e. IndexQINCo",
+                                   lambda: index.search(xq, K),
+                                   need=(M_FLAT_KERNELS,))
+    print(f"M-e. train_qinco over {p['rows']} rows (K {p['K']}, M {p['M']}, L {p['L']}, "
+          f"h {p['h']}, {p['epochs']} epochs): {t_train:.2f} s, peak {peak_train:.2f} "
+          f"GiB, losses {', '.join(f'{v:.5f}' for v in losses)}; IndexQINCo: encode "
+          f"{NB} rows {t_add:.2f} s (peak {peak_add:.2f} GiB), MSE {mse:.5f} (the "
+          f"starting level-0 codebook alone {mse0:.5f}), search "
+          f"{NQ} q {sec * 1e3:.1f} ms (decode and IndexFlat; peak {peak:.2f} GiB), "
+          f"{recall_str(Im, gt)} ({CARD})", flush=True)
+    del index, model
+    torch.cuda.empty_cache()
+
+
+def m_small_ivf_phase(ft, fused_knn, tally, xb, xt, xq, gt, cent, dev):
+    """M-f: IVFFlatDedup over the set with 10% of its rows duplicated,
+    RowwiseMinMax / FP16 over SQ8, IVFIndependentQuantizer and
+    IVFSpectralHash at nprobe 16."""
+    rs = np.random.RandomState(11)
+    src = rs.randint(0, NB, NB // 10)
+    dup = np.concatenate([xb, xb[src]])
+    ids = np.arange(len(dup), dtype=np.int64)
+    dd = ft.IndexIVFFlatDedup(m_flat_q(ft, cent, dev), D, NLIST, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dd.add_with_ids(dup, ids)
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    back = {}
+    for rep, dups in dd.instances.items():
+        for j in dups:
+            back[j] = rep
+    # every duplicate id comes back, under the id of its row in the set
+    check(dd.ntotal == NB and sorted(back) == list(range(NB, len(dup)))
+          and all(back[NB + i] == int(s) for i, s in enumerate(src)),
+          "M-f. IVFFlatDedup: the duplicates are not all in instances")
+    dd.nprobe = M_NPROBE
+    dd.expand_instances = True
+    qd = xb[src[:EXACT_ROWS]]
+    (De, Ie), sec, _ = m_driven(fused_knn, tally, "M-f. IVFFlatDedup expanded",
+                                lambda: dd.search(qd, K))
+    for r, s in enumerate(src[:EXACT_ROWS]):
+        want = [int(s)] + dd.instances.get(int(s), [])
+        check(set(want[:K]) <= set(Ie[r]), f"M-f. IVFFlatDedup: row {r}'s duplicates "
+              "are not in its expanded results")
+    dd.expand_instances = False
+    (Dm, Im), sec_b, _ = m_driven(fused_knn, tally, "M-f. IVFFlatDedup",
+                                  lambda: dd.search(xq, K))
+    print(f"M-f. IVFFlatDedup: {len(dup)} rows ({NB // 10} duplicates) added in "
+          f"{t_add:.2f} s, {dd.ntotal} stored, every duplicate in instances; 64 "
+          f"duplicated rows searched with expand_instances {sec * 1e3:.1f} ms, each "
+          f"row's duplicates returned; {NQ} q at nprobe {M_NPROBE} {sec_b * 1e3:.1f} ms, "
+          f"{recall_str(Im, gt)} ({CARD})", flush=True)
+    del dd
+    torch.cuda.empty_cache()
+    for cls in (ft.IndexRowwiseMinMax, ft.IndexRowwiseMinMaxFP16):
+        mm = cls(ft.IndexScalarQuantizer(D, ft.QuantizerType.QT_8bit, device=dev))
+        mm.train(xt)
+        t0 = time.time()
+        codes = mm.sa_encode(xb)
+        t_enc = time.time() - t0
+        t0 = time.time()
+        rec = mm.sa_decode(codes)
+        t_dec = time.time() - t0
+        flat = ft.IndexFlatL2(D, device=dev)
+        flat.add(rec)
+        (Dm, Im), sec, _ = m_driven(fused_knn, tally, f"M-f. {cls.__name__} decoded",
+                                    lambda: flat.search(xq, K), need=(M_FLAT_KERNELS,))
+        mse = float(((rec[:100_000].astype(np.float64) - xb[:100_000]) ** 2).sum(1).mean())
+        print(f"M-f. {cls.__name__}(SQ8): sa_encode {t_enc:.2f} s, sa_decode {t_dec:.2f} s "
+              f"for {NB} rows, {mm.sa_code_size()} bytes a code, MSE {mse:.6f}; the "
+              f"decoded rows by IndexFlatL2 {sec * 1e3:.1f} ms, {recall_str(Im, gt)} "
+              f"({CARD})", flush=True)
+        del flat, rec, codes
+    vt = ft.RandomRotationMatrix(D, D, device=dev)
+    vt.init()
+    iq = ft.IndexIVFIndependentQuantizer(
+        m_flat_q(ft, cent, dev),
+        ft.IndexIVFFlat(ft.IndexFlat(D, device=dev), D, NLIST, device=dev), vt)
+    iq.train(xt)
+    t0 = time.time()
+    iq.add(xb)
+    t_add = time.time() - t0
+    iq.index_ivf.nprobe = M_NPROBE
+    (Dm, Im), sec, _ = m_driven(fused_knn, tally, "M-f. IVFIndependentQuantizer",
+                                lambda: iq.search(xq, K))
+    print(f"M-f. IVFIndependentQuantizer (flat coarse quantizer, IVF4096,Flat over "
+          f"rotated rows): add {t_add:.2f} s, {NQ} q at nprobe {M_NPROBE} "
+          f"{sec * 1e3:.1f} ms, {recall_str(Im, gt)} ({CARD})", flush=True)
+    del iq
+    sh = ft.IndexIVFSpectralHash(m_flat_q(ft, cent, dev), D, NLIST, M_SH_NBIT, device=dev)
+    sh.train(xt)
+    t0 = time.time()
+    sh.add(xb)
+    t_add = time.time() - t0
+    sh.nprobe = M_NPROBE
+    (Dm, Im), sec, _ = m_driven(fused_knn, tally, "M-f. IVFSpectralHash",
+                                lambda: sh.search(xq, K))
+    check(np.isfinite(Dm).all() and (Dm == np.round(Dm)).all(),
+          "M-f. IVFSpectralHash: distances are not bit counts")
+    print(f"M-f. IVFSpectralHash ({M_SH_NBIT} bits): add {t_add:.2f} s, {NQ} q at "
+          f"nprobe {M_NPROBE} {sec * 1e3:.1f} ms, {recall_str(Im, gt)} ({CARD})",
+          flush=True)
+    del sh
+    torch.cuda.empty_cache()
+
+
+def m_partition_phase(ft, dev):
+    """M-g: partition_fuzzy on [8192, 65536] float32 rows with ties, held
+    against a torch.sort-based check: the threshold is the q_min-th sorted
+    value, q_out the count up to it clipped to [q_min, q_max], the first
+    q_out values <= it and the rest >= it, each part in its original order,
+    the values a permutation of the row's."""
+    n, w, qmin, qmax = M_PART
+    g = torch.Generator(device=dev).manual_seed(5)
+    vals = torch.randint(-2000, 2000, (n, w), generator=g, device=dev).float() / 8
+    pos = torch.arange(w, device=dev).expand(n, w)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: ft.partition_fuzzy(vals, pos, qmin, qmax), 3)
+    vo, io, th, qo = ft.partition_fuzzy(vals, pos, qmin, qmax)
+    srt = torch.sort(vals, dim=1).values
+    t = srt[:, qmin - 1]
+    le = (vals <= t[:, None]).sum(1)
+    ok = torch.equal(th, t) and torch.equal(qo.long(), le.clamp(qmin, qmax))
+    col = torch.arange(w, device=dev)[None]
+    head = col < qo[:, None]
+    ok = ok and bool(((vo <= t[:, None]) | ~head).all() and ((vo >= t[:, None]) | head).all())
+    ok = ok and torch.equal(torch.sort(vo, 1).values, srt)
+    dpos = io[:, 1:] - io[:, :-1]
+    inner = (col[:, 1:] != qo[:, None])  # the step between the two parts
+    ok = ok and bool(((dpos > 0) | ~inner).all())
+    ok = ok and torch.equal(torch.gather(vals, 1, io), vo)
+    check(ok, "M-g. partition_fuzzy disagrees with the sort-based check")
+    print(f"M-g. partition_fuzzy [{n}, {w}] float32, q in [{qmin}, {qmax}]: "
+          f"{ms:.2f} ms; equal to the torch.sort-based check ({CARD})", flush=True)
+
+
+def m_files_phase(ft, indexes, xq):
+    """M-h: write_index / read_index of EDEN4, FlatPanorama8 and the lattice
+    index; each read index's search equals its search before the write."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for index in indexes:
+            name = type(index).__name__
+            D0, I0 = index.search(xq, K)
+            path = str(Path(tmp) / "m.npz")
+            t0 = time.time()
+            ft.write_index(index, path)
+            back = ft.read_index(path)
+            D1, I1 = back.search(xq, K)
+            sec = time.time() - t0
+            check(type(back) is type(index) and np.array_equal(D0, D1)
+                  and np.array_equal(I0, I1), f"M-h. {name}: the read index searches "
+                  "otherwise")
+            print(f"M-h. {name}: write, read and search {sec:.2f} s "
+                  f"({Path(path).stat().st_size / 2**20:.1f} MiB); {NQ} q equal to the "
+                  f"search before the write", flush=True)
+            del back
+
+
+def codec_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+    """Phase M. Returns the launches of each kernel on phase M's paths, by
+    the name of its entry in the kernels' line."""
+    t_all = time.time()
+    tally = {}
+    times = {}
+    t0 = time.time()
+    cent = m_quantizer(ft, xt, dev)
+    m_metrics_phase(ft, fused_knn, tally, xb, xq, cent, dev)
+    times["M-a"] = time.time() - t0
+    t0 = time.time()
+    pano = m_panorama_phase(ft, fused_knn, tally, xb, xq, cent, dev)
+    times["M-b"] = time.time() - t0
+    t0 = time.time()
+    eden = m_eden_phase(ft, fused_knn, tally, xb, xt, xq, gt, cent, dev)
+    times["M-c"] = time.time() - t0
+    t0 = time.time()
+    lattice = m_lattice_phase(ft, fused_knn, tally, xb, xt, xq, gt, dev)
+    times["M-d"] = time.time() - t0
+    t0 = time.time()
+    m_files_phase(ft, (eden, pano, lattice), xq)
+    times["M-h"] = time.time() - t0
+    del eden, pano, lattice
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    m_qinco_phase(ft, fused_knn, tally, xb, xt, xq, gt, dev)
+    times["M-e"] = time.time() - t0
+    t0 = time.time()
+    m_small_ivf_phase(ft, fused_knn, tally, xb, xt, xq, gt, cent, dev)
+    times["M-f"] = time.time() - t0
+    t0 = time.time()
+    m_partition_phase(ft, dev)
+    times["M-g"] = time.time() - t0
+    print(f"phase M: {time.time() - t_all:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(times.items()))
+          + f"); launches {tally} ({CARD})", flush=True)
+    return tally
+
+
 def main():
     # ``--only K`` runs phases 1-3 and phase K alone (the graph indexes and
     # the IMI), ``--only L`` phases 1-3 and phase L (the additive quantizers
-    # and RaBitQ), with no kernels' line
+    # and RaBitQ), ``--only M`` phases 1-3 and phase M (the extra metrics and
+    # the codecs of faiss_tpu's remainder), with no kernels' line
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("K", "L"):
-        print("usage: chip_smoke.py [--only K|L]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("K", "L", "M"):
+        print("usage: chip_smoke.py [--only K|L|M]", file=sys.stderr)
         return 2
     only_k = only == "K"
     if not torch.cuda.is_available():
@@ -4740,6 +5418,8 @@ def main():
             graph_phases(ft, fused_knn, xb, xt, xq, gt, dev)
             del xb, xt, xq
             deep10m_phases(ft, fused_knn, dev, only_k=True)
+        elif only == "M":
+            codec_phases(ft, fused_knn, xb, xt, xq, gt, dev)
         else:
             aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
         print(card)
@@ -4778,6 +5458,10 @@ def main():
         next(e for e in kernels if e["name"] == name)["k_a_launches"] = n
     torch.cuda.empty_cache()
     aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+    torch.cuda.empty_cache()
+    # phase M's launches in a field of their own, as K-a's
+    for name, n in codec_phases(ft, fused_knn, xb, xt, xq, gt, dev).items():
+        next(e for e in kernels if e["name"] == name)["m_launches"] = n
     del xb, xt, xq
     torch.cuda.empty_cache()
     kernels.append(deep10m_phases(ft, fused_knn, dev))

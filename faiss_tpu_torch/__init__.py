@@ -84,6 +84,17 @@ Ported so far:
     ..., eight classes); RaBitQ — ``RaBitQuantizer``, ``MultiBitRaBitQ``,
     ``IndexRaBitQ``, ``IndexRaBitQFastScan``, ``IndexIVFRaBitQ`` and
     ``IndexIVFRaBitQFastScan``, 1-bit and multi-bit, ID selectors honoured;
+  - the rest of faiss_tpu's codecs and small indexes — every metric of
+    ``IndexFlat`` and ``IndexIVFFlat`` (L1, Linf, Lp, Canberra, BrayCurtis,
+    JensenShannon, Jaccard, NaNEuclidean, ABS_INNER_PRODUCT, GOWER, with
+    ``metric_arg``); ``partition_fuzzy`` and ``histogram_shifted``;
+    ``EDENQuantizer``, ``IndexEDEN`` and ``IndexIVFEDEN``; the Zn lattice
+    (``ZnSphereSearch``, ``ZnSphereCodec``, ``ZnSphereCodecAlt``,
+    ``IndexLattice``); ``IndexFlatPanorama`` and ``IndexIVFFlatPanorama``;
+    the neural codecs (``utils.neuralnet.QINCo`` and ``train_qinco``,
+    ``IndexNeuralNetCodec``, ``IndexQINCo``); ``IndexIVFFlatDedup``,
+    ``IndexRowwiseMinMax``, ``IndexRowwiseMinMaxFP16``,
+    ``IndexIVFIndependentQuantizer`` and ``IndexIVFSpectralHash``;
   - ``index_factory`` over the classes above, and index files
     (``write_index``, ``read_index``, ``serialize_index``,
     ``deserialize_index``, ``write_index_binary``, ``read_index_binary``,
@@ -91,10 +102,9 @@ Ported so far:
     the other's.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue-1 item: the other codecs (EDEN, the Panorama flat indexes, the
-lattice) and the metrics other than L2 and inner product
-(item 10), the multi-device meta indexes (item 11), ``reverse_index_factory``
-and the reference-format reader ``io_ref`` (item 12).
+queue-1 item: the multi-device meta indexes (item 11),
+``reverse_index_factory`` and the reference-format reader ``io_ref``
+(item 12).
 """
 
 import torch
@@ -152,7 +162,29 @@ from .codecs.aq import (  # noqa: E402,F401
 from .codecs.pq import ProductQuantizer  # noqa: E402,F401
 from .codecs.rabitq import MultiBitRaBitQ, RaBitQuantizer  # noqa: E402,F401
 from .codecs.sq import QuantizerType, RangeStat, ScalarQuantizer  # noqa: E402,F401
-from .metric import METRIC_INNER_PRODUCT, METRIC_L2, MetricType  # noqa: E402,F401
+from .metric import (  # noqa: E402,F401
+    METRIC_ABS_INNER_PRODUCT,
+    METRIC_BrayCurtis,
+    METRIC_Canberra,
+    METRIC_GOWER,
+    METRIC_INNER_PRODUCT,
+    METRIC_Jaccard,
+    METRIC_JensenShannon,
+    METRIC_L1,
+    METRIC_L2,
+    METRIC_Linf,
+    METRIC_Lp,
+    METRIC_NaNEuclidean,
+    MetricType,
+    is_similarity_metric,
+)
+from .ops.partitioning import histogram_shifted, partition_fuzzy  # noqa: E402,F401
+from .codecs.eden import EDENQuantizer, EDENScaleType  # noqa: E402,F401
+from .codecs.lattice import (  # noqa: E402,F401
+    ZnSphereCodec,
+    ZnSphereCodecAlt,
+    ZnSphereSearch,
+)
 from .models.flat import (  # noqa: E402,F401
     IndexFlat,
     IndexFlat1D,
@@ -178,7 +210,18 @@ from .models.binary import (  # noqa: E402,F401
     IndexBinaryMultiHash,
 )
 from .models.lsh import IndexLSH  # noqa: E402,F401
-from .models.extra_indexes import Index2Layer  # noqa: E402,F401
+from .models.extra_indexes import (  # noqa: E402,F401
+    Index2Layer,
+    IndexIVFFlatDedup,
+    IndexIVFIndependentQuantizer,
+    IndexIVFSpectralHash,
+    IndexRowwiseMinMax,
+    IndexRowwiseMinMaxFP16,
+)
+from .models.eden import IndexEDEN, IndexIVFEDEN  # noqa: E402,F401
+from .models.lattice import IndexLattice  # noqa: E402,F401
+from .models.neuralnet_codec import IndexNeuralNetCodec, IndexQINCo  # noqa: E402,F401
+from .models.panorama import IndexFlatPanorama, IndexIVFFlatPanorama  # noqa: E402,F401
 from .models.hnsw import (  # noqa: E402,F401
     HNSW,
     HNSWStats,

@@ -73,11 +73,14 @@ class SearchParameters:
 class Index:
     """Abstract index over float32 vectors (reference: faiss/Index.h:101).
 
-    ``device`` is required: every tensor the index owns lives there."""
+    ``device`` is required: every tensor the index owns lives there.
+    ``metric_arg`` is the metric's parameter (p of METRIC_Lp;
+    faiss_tpu/base.py:118)."""
 
-    def __init__(self, d: int, metric_type, *, device):
+    def __init__(self, d: int, metric_type, metric_arg: float = 0.0, *, device):
         self.d = int(d)
         self.metric_type = MetricType(metric_type)
+        self.metric_arg = float(metric_arg)
         self.device = torch.device(device)
         self.ntotal = 0
         self.is_trained = True

@@ -76,6 +76,20 @@ r.rabitq.P, r.rabitq.center, r._bits, r._factors, fastscan=..., qb=r.qb,
 device=...)`` and an IVF one ``ir`` is ``ivf_rabitq_from_arrays(
 ir.quantizer.vectors(), ir.nb_bits, ir._codes_host, ir._listnos_host,
 ir._ids_host, fastscan=..., qb=ir.qb, device=...)``.
+
+An ``IndexEDEN`` named ``e`` is ``eden_from_arrays(e.d, e.eden.nb_bits,
+e.eden.scale_type, e.center, e._codes, e._factors, e.metric_type,
+device=...)`` and an ``IndexIVFEDEN`` named ``ie`` is
+``ivf_eden_from_arrays(ie.quantizer.vectors(), ie.eden.nb_bits,
+ie.eden.scale_type, ie._codes_host, ie._listnos_host, ie._ids_host, ...)``;
+an ``IndexLattice`` named ``l`` is ``lattice_from_arrays(l.d, l.nsq,
+l.scale_nbit, l.zn_sphere_codec.r2, l.trained, l._codes, device=...)``; an
+``IndexFlatPanorama`` named ``p`` is ``panorama_from_arrays(p.vectors(),
+p.num_levels, device=...)`` and an ``IndexIVFFlatPanorama`` named ``ip``
+``ivf_panorama_from_arrays(ip.quantizer.vectors(), ip._codes_host,
+ip._listnos_host, ip._ids_host, ip.n_levels, device=...)``; a faiss_tpu
+``QINCo`` state dict (``utils.neuralnet._qinco_init``'s, or numpy arrays of
+a trained one) is ``qinco_from_state(state, d, K, L, M, h, device=...)``.
 """
 
 from __future__ import annotations
@@ -108,6 +122,10 @@ from .models.rabitq import (
     IndexRaBitQ,
     IndexRaBitQFastScan,
 )
+from .models.eden import IndexEDEN, IndexIVFEDEN
+from .models.lattice import IndexLattice
+from .models.panorama import IndexFlatPanorama, IndexIVFFlatPanorama
+from .utils.neuralnet import QINCo
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -572,3 +590,68 @@ def ivf_rabitq_from_arrays(centroids, nb_bits, codes, listnos, ids, *,
     index.is_trained = True
     index.add_encoded(codes, listnos, ids)
     return index
+
+
+def eden_from_arrays(d, nb_bits, scale_type, center, codes, factors,
+                     metric=MetricType.L2, *, device) -> IndexEDEN:
+    """IndexEDEN from its center [d] and, in add order, its unpacked codes
+    [n, d] uint8 and factors [n, 2] float32."""
+    index = IndexEDEN(d, metric, nb_bits, scale_type, device=device)
+    index.center = np.ascontiguousarray(center, np.float32)
+    index.is_trained = True
+    index.add_codes(np.ascontiguousarray(codes, np.uint8),
+                    np.ascontiguousarray(factors, np.float32))
+    return index
+
+
+def ivf_eden_from_arrays(centroids, nb_bits, scale_type, codes, listnos, ids,
+                         metric=MetricType.L2, *, device) -> IndexIVFEDEN:
+    """IndexIVFEDEN from coarse centroids [nlist, d] and the lists' entries in
+    add order: packed codes [n, code_size] uint8, list numbers and ids."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(codes))
+    nlist, d = centroids.shape
+    index = IndexIVFEDEN(_quantizer(centroids, metric, device), d, nlist, metric,
+                         nb_bits, scale_type, device=device)
+    index.add_encoded(codes, listnos, ids)
+    return index
+
+
+def lattice_from_arrays(d, nsq, scale_nbit, r2, trained, fields,
+                        metric=MetricType.L2, *, device) -> IndexLattice:
+    """IndexLattice from its trained norm range [2, nsq] and, in add order,
+    its fields [n, nsq, 2] int64 (norm code, lattice id)."""
+    index = IndexLattice(d, nsq, scale_nbit, r2, metric, device=device)
+    index.trained = np.asarray(trained, np.float32)
+    index.is_trained = True
+    index.add_fields(fields)
+    return index
+
+
+def panorama_from_arrays(xb, num_levels=4, *, device) -> IndexFlatPanorama:
+    """IndexFlatPanorama holding the rows ``xb`` [n, d] in order."""
+    xb = np.ascontiguousarray(xb, np.float32)
+    index = IndexFlatPanorama(xb.shape[1], num_levels, device=device)
+    index.add(xb)
+    return index
+
+
+def ivf_panorama_from_arrays(centroids, xb, listnos, ids, n_levels=4, *,
+                             device) -> IndexIVFFlatPanorama:
+    """IndexIVFFlatPanorama from coarse centroids and the lists' vectors,
+    list numbers and ids in add order."""
+    xb = np.ascontiguousarray(xb, np.float32)
+    centroids, listnos, ids = _ivf_arrays(centroids, listnos, ids, len(xb))
+    nlist, d = centroids.shape
+    index = IndexIVFFlatPanorama(_quantizer(centroids, MetricType.L2, device), d,
+                                 nlist, n_levels, device=device)
+    index.add_encoded(xb, listnos, ids)
+    return index
+
+
+def qinco_from_state(state, d, K, L, M, h, *, device) -> QINCo:
+    """A QINCo module on ``device`` loaded from a numpy state dict of
+    faiss_tpu's names."""
+    model = QINCo(d, K, L, M, h).to(device)
+    model.load_state(state)
+    return model

@@ -29,13 +29,18 @@ everything. The port builds:
     ``_Nqint4``, ``_Ncqint8``, ``_Ncqint4``, ``_Nlsq2x4`` or ``_Nrq2x4`` on
     the non-FastScan tokens, and RaBitQ, ``RaBitQ[n]`` and
     ``RaBitQfs[n][_bbs]`` (n bits a dimension, flat and in IVF);
+  - ``EDEN[n][BIASED|BIAS]`` (IndexEDEN, IndexIVFEDEN),
+    ``FlatPanorama[n]`` (IndexFlatPanorama, and IndexIVFFlatPanorama with
+    an optional ``_m`` suffix in IVF) and ``ZnLatticeNxS_R`` (IndexLattice,
+    flat only);
   - ``RFlat`` and ``Refine(Flat)`` (IndexRefineFlat), ``Refine(SQ8)``
     (IndexRefineFlat with an SQ8 store) and ``Refine(<any string>)``
     (IndexRefine over the index that string builds).
 
-A token whose class the port does not have yet raises NotImplementedError
-naming its ROADMAP queue-1 item; a string that faiss_tpu's grammar does not
-parse raises ValueError, as faiss_tpu does."""
+A string that faiss_tpu's grammar does not parse raises ValueError, as
+faiss_tpu does. ``metric_arg`` (p of METRIC_Lp) goes to every index of the
+tree that takes one (faiss_tpu's factory has no such argument; its indexes
+keep 0)."""
 
 from __future__ import annotations
 
@@ -73,11 +78,13 @@ from .models.meta import (
     IndexRefine,
     IndexRefineFlat,
 )
+from .models.eden import IndexEDEN, IndexIVFEDEN
+from .models.lattice import IndexLattice
+from .models.panorama import IndexFlatPanorama, IndexIVFFlatPanorama
 from .codecs.aq import AdditiveQuantizer
+from .codecs.eden import EDENScaleType
 from .codecs.sq import QuantizerType
 from . import transforms as T
-
-_ITEM10 = "ROADMAP queue 1 item 10"
 
 # the scalar-quantizer tokens (faiss_tpu/factory.py:31-48;
 # index_factory.cpp:160-179 sq_types)
@@ -100,13 +107,6 @@ _SQ_TYPES = {
     "SQtq4": QuantizerType.QT_4bit_tq,
     "SQtq5": QuantizerType.QT_5bit_tq,
 }
-
-# faiss_tpu's tokens for the codecs the port does not have yet (ROADMAP
-# queue 1 item 10): they parse, then raise
-_UNPORTED_CODECS = (
-    r"EDEN[1-8]?(BIASED|BIAS)?", r"FlatPanorama(\d+)?(_\d+)?",
-    r"ZnLattice\d+x\d+_\d+",
-)
 
 # the AQ norm-storage suffixes (faiss_tpu factory.py:52-71;
 # index_factory.cpp:193 aq_norm_pattern) and the tokens that take them
@@ -184,10 +184,15 @@ def _coded_encoding(tok: str, d: int, metric, device, ivf=None):
             or _rabitq_encoding(tok, d, metric, device, ivf))
 
 
-def _unported(tok: str, what: str):
-    raise NotImplementedError(
-        f"index_factory: {what} {tok!r} is not ported yet ({_ITEM10})"
-    )
+def _eden_encoding(tok: str, d: int, metric, device, ivf=None):
+    """``EDEN[n][BIASED|BIAS]`` (faiss_tpu factory.py:231, :312), flat or
+    with ``ivf`` = (quantizer, nlist); or None."""
+    if m := re.fullmatch(r"EDEN([1-8])?(BIASED|BIAS)?", tok):
+        st = EDENScaleType.BIASED if m.group(2) else EDENScaleType.UNBIASED
+        head = (ivf[0], d, ivf[1]) if ivf else (d,)
+        cls = IndexIVFEDEN if ivf else IndexEDEN
+        return cls(*head, metric, int(m.group(1) or 1), st, device=device)
+    return None
 
 
 def _parse_transform(tok: str, d: int, device):
@@ -235,10 +240,14 @@ def _parse_coarse(tok: str, d: int, metric, device):
 
 
 def _parse_ivf_encoding(tok: str, quantizer, d: int, nlist: int, metric,
-                        device):
+                        device, metric_arg=0.0):
     """Encoding inside IVF (index_factory.cpp:367 parse_IndexIVF)."""
     if tok == "Flat":
-        return IndexIVFFlat(quantizer, d, nlist, metric, device=device)
+        return IndexIVFFlat(quantizer, d, nlist, metric, device=device,
+                            metric_arg=metric_arg)
+    if m := re.fullmatch(r"FlatPanorama(\d+)?(?:_\d+)?", tok):
+        return IndexIVFFlatPanorama(quantizer, d, nlist, int(m.group(1) or 4),
+                                    metric, device=device)
     if m := re.fullmatch(r"PQ(\d+)x4fs(?:_(\d+))?", tok):
         bbs = int(m.group(2)) if m.group(2) else 32
         return IndexIVFPQFastScan(quantizer, d, nlist, int(m.group(1)), 4,
@@ -255,18 +264,19 @@ def _parse_ivf_encoding(tok: str, quantizer, d: int, nlist: int, metric,
     if tok in _SQ_TYPES:
         return IndexIVFScalarQuantizer(quantizer, d, nlist, _SQ_TYPES[tok],
                                        metric, device=device)
-    coded = _coded_encoding(tok, d, metric, device, (quantizer, nlist))
-    if coded is not None:
-        return coded
-    if any(re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
-        _unported(tok, "the IVF encoding")
-    return None
+    return (_coded_encoding(tok, d, metric, device, (quantizer, nlist))
+            or _eden_encoding(tok, d, metric, device, (quantizer, nlist)))
 
 
-def _parse_flat_encoding(tok: str, d: int, metric, device):
+def _parse_flat_encoding(tok: str, d: int, metric, device, metric_arg=0.0):
     """Standalone encodings (index_factory.cpp parse_other_indexes)."""
     if tok == "Flat":
-        return IndexFlat(d, metric, device=device)
+        return IndexFlat(d, metric, metric_arg, device=device)
+    if m := re.fullmatch(r"FlatPanorama(\d+)?", tok):
+        return IndexFlatPanorama(d, int(m.group(1) or 4), metric, device=device)
+    if m := re.fullmatch(r"ZnLattice(\d+)x(\d+)_(\d+)", tok):
+        return IndexLattice(d, int(m.group(1)), int(m.group(2)), int(m.group(3)),
+                            metric, device=device)
     if tok == "Flat1D":
         return IndexFlat1D(device=device)
     if tok in _SQ_TYPES:
@@ -288,12 +298,8 @@ def _parse_flat_encoding(tok: str, d: int, metric, device):
     if m := re.fullmatch(r"NNDescent(\d+)?", tok):
         return IndexNNDescentFlat(d, int(m.group(1) or 32), metric,
                                   device=device)
-    coded = _coded_encoding(tok, d, metric, device)
-    if coded is not None:
-        return coded
-    if any(re.fullmatch(p, tok) for p in _UNPORTED_CODECS):
-        _unported(tok, "the encoding")
-    return None
+    return (_coded_encoding(tok, d, metric, device)
+            or _eden_encoding(tok, d, metric, device))
 
 
 def _parse_graph_index(kind: str, gM: int, suffix, d: int, metric, device):
@@ -351,7 +357,7 @@ def _split_toplevel(description: str):
 
 
 def index_factory(d: int, description: str, metric=MetricType.L2, *,
-                  device="cuda") -> Index:
+                  device="cuda", metric_arg: float = 0.0) -> Index:
     """Build an index from a factory string (index_factory.h:17) on
     ``device`` (the card unless the caller passes another)."""
     metric = MetricType(metric)
@@ -382,7 +388,7 @@ def index_factory(d: int, description: str, metric=MetricType.L2, *,
                 raise ValueError(f"IVF spec {tok!r} needs an encoding token")
             i += 1
             enc = _parse_ivf_encoding(toks[i], quantizer, cur_d, nlist, metric,
-                                      device)
+                                      device, metric_arg)
             if enc is None:
                 raise ValueError(f"cannot parse IVF encoding {toks[i]!r}")
             if isinstance(quantizer, MultiIndexQuantizer):
@@ -404,7 +410,7 @@ def index_factory(d: int, description: str, metric=MetricType.L2, *,
                 m.group(1), int(m.group(2) or 32), nxt, cur_d, metric, device)
             i += 2 if used_suffix else 1
             continue
-        enc = _parse_flat_encoding(tok, cur_d, metric, device)
+        enc = _parse_flat_encoding(tok, cur_d, metric, device, metric_arg)
         if enc is not None:
             if core is not None:
                 raise ValueError(f"unexpected token {tok!r} after index spec")

@@ -21,11 +21,16 @@ and the sub-indexes), also as the coarse quantizer of an IVF index, the
 additive-quantizer indexes, flat and IVF, FastScan and product forms (the
 codebooks, the norm codec's state, the codes and, flat, their norms), and
 the RaBitQ indexes, flat and IVF, 1-bit and multi-bit, FastScan (the
-rotation and center of a flat one, ``nb_bits``, ``qb``, ``bbs``).
-IndexHNSW2Level and IndexBinaryHNSW are refused with TypeError, as faiss_tpu
-refuses them (neither has a file form there). A class tag of
-faiss_tpu that the port does not have raises NotImplementedError naming its
-ROADMAP queue-1 item.
+rotation and center of a flat one, ``nb_bits``, ``qb``, ``bbs``), IndexEDEN
+(center, unpacked codes, factors) and IndexIVFEDEN (its lists' packed
+bytes), IndexFlatPanorama and IndexIVFFlatPanorama (their levels and prune
+factor), and IndexLattice (the trained norm range and the [n, nsq, 2]
+fields). IndexFlat keeps its ``metric_arg``. IndexHNSW2Level and
+IndexBinaryHNSW are refused with TypeError, as faiss_tpu refuses them
+(neither has a file form there); so are the classes faiss_tpu does not write
+(IndexRowwiseMinMax, IndexIVFIndependentQuantizer, the neural codecs), and
+IndexIVFFlatDedup and IndexIVFSpectralHash are written as faiss_tpu writes
+them but not read back (TypeError, as there).
 
 ``read_index`` builds the index on ``device`` (the card unless the caller
 passes another). An IVF index gets its host lists (codes, list numbers,
@@ -77,6 +82,10 @@ from .models.rabitq import (
     IndexRaBitQFastScan,
 )
 from .codecs.sq import QuantizerType
+from .models.eden import IndexEDEN, IndexIVFEDEN
+from .models.lattice import IndexLattice
+from .models.panorama import IndexFlatPanorama, IndexIVFFlatPanorama
+from .codecs.eden import EDENScaleType
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -90,12 +99,6 @@ from . import transforms as T
 IO_FLAG_MMAP = 0x646F0000  # map the array payloads in place
 IO_FLAG_READ_ONLY = 2
 
-# faiss_tpu's class tags whose classes the port does not have yet: the
-# codecs of ROADMAP queue 1 item 10
-_ITEM10_CLASSES = frozenset((
-    "IndexFlatPanorama", "IndexIVFFlatPanorama", "IndexEDEN", "IndexIVFEDEN",
-    "IndexLattice",
-))
 _RABITQ_CLASSES = {"IndexRaBitQ": IndexRaBitQ,
                    "IndexRaBitQFastScan": IndexRaBitQFastScan,
                    "IndexIVFRaBitQ": IndexIVFRaBitQ,
@@ -246,6 +249,12 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
             meta["qb"] = index.qb
             if isinstance(index, IndexIVFRaBitQFastScan):
                 meta["bbs"] = index.bbs
+        if isinstance(index, IndexIVFEDEN):  # faiss_tpu io.py:196-201
+            meta["nb_bits"] = index.eden.nb_bits
+            meta["scale_type"] = int(index.eden.scale_type)
+        if isinstance(index, IndexIVFFlatPanorama):  # faiss_tpu io.py:209-212
+            meta["n_levels"] = index.n_levels
+            meta["prune_factor"] = index.prune_factor
         if isinstance(index, IndexIVFAdditiveQuantizer):  # io.py:213-230
             meta["aq"] = {"class": type(index.aq).__name__, "M": index.aq.M,
                           "nbits": index.aq.nbits}
@@ -304,6 +313,25 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
             arrays[f"{path}/codes"] = index._codes_int
             arrays[f"{path}/norms"] = index._norms
         return meta
+    if isinstance(index, IndexEDEN):  # faiss_tpu io.py:325
+        meta.update(d=index.d, metric=int(index.metric_type),
+                    nb_bits=index.eden.nb_bits,
+                    scale_type=int(index.eden.scale_type),
+                    is_trained=index.is_trained)
+        arrays[f"{path}/center"] = index.center
+        if index._codes is not None:
+            arrays[f"{path}/codes"] = index.codes_host
+            arrays[f"{path}/factors"] = index.factors_host
+        return meta
+    if isinstance(index, IndexLattice):  # faiss_tpu io.py:378
+        meta.update(d=index.d, nsq=index.nsq, scale_nbit=index.scale_nbit,
+                    r2=index.zn_sphere_codec.r2, metric=int(index.metric_type),
+                    is_trained=index.is_trained)
+        if index.trained is not None:
+            arrays[f"{path}/trained"] = index.trained
+        if index._codes is not None:
+            arrays[f"{path}/codes"] = index._codes
+        return meta
     if isinstance(index, IndexRaBitQ):  # faiss_tpu io.py:359
         meta.update(d=index.d, is_trained=index.is_trained, nb_bits=index.nb_bits,
                     qb=index.qb)
@@ -335,10 +363,14 @@ def _dump(index, arrays: Dict[str, np.ndarray], path: str):
             arrays[f"{path}/codes"] = codes.cpu().numpy()
         return meta
     if isinstance(index, IndexFlat):
-        meta.update(d=index.d, metric=int(index.metric_type), metric_arg=0.0,
+        meta.update(d=index.d, metric=int(index.metric_type),
+                    metric_arg=index.metric_arg,
                     storage_dtype=np.dtype(index.storage_dtype).name)
         if isinstance(index, IndexFlat1D):
             meta["continuous_update"] = index.continuous_update
+        if isinstance(index, IndexFlatPanorama):  # faiss_tpu io.py:285-289
+            meta["num_levels"] = index.num_levels
+            meta["prune_factor"] = index.prune_factor
         arrays[f"{path}/xb"] = index.vectors()
         return meta
     raise TypeError(f"don't know how to serialize {type(index).__name__}")
@@ -388,7 +420,8 @@ def _load(meta, arrays, path: str, device):
         return index
     if cls in ("IndexIVFFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
                "IndexIVFPQR", "IndexIVFScalarQuantizer", "IndexIVFRaBitQ",
-               "IndexIVFRaBitQFastScan") or cls in AQ_IVF_CLASSES:
+               "IndexIVFRaBitQFastScan", "IndexIVFEDEN",
+               "IndexIVFFlatPanorama") or cls in AQ_IVF_CLASSES:
         return _load_ivf(meta, arrays, path, device)
     if cls in AQ_FLAT_CLASSES:  # faiss_tpu io.py:813
         index = aq_index(cls, meta["d"], meta["M"], meta["nbits"], meta["metric"],
@@ -501,23 +534,42 @@ def _load(meta, arrays, path: str, device):
         if f"{path}/codes" in arrays:
             index.add_codes(arrays[f"{path}/codes"])
         return index
-    if cls in ("IndexFlat", "IndexFlatL2", "IndexFlatIP", "IndexFlat1D"):
+    if cls == "IndexEDEN":  # faiss_tpu io.py:882
+        index = IndexEDEN(meta["d"], MetricType(meta["metric"]), meta["nb_bits"],
+                          EDENScaleType(meta["scale_type"]), device=device)
+        index.center = np.ascontiguousarray(arrays[f"{path}/center"], np.float32)
+        index.is_trained = meta["is_trained"]
+        if f"{path}/codes" in arrays:
+            index.add_codes(arrays[f"{path}/codes"], arrays[f"{path}/factors"])
+        return index
+    if cls == "IndexLattice":  # faiss_tpu io.py:918
+        index = IndexLattice(meta["d"], meta["nsq"], meta["scale_nbit"], meta["r2"],
+                             MetricType(meta["metric"]), device=device)
+        if f"{path}/trained" in arrays:
+            index.trained = np.asarray(arrays[f"{path}/trained"])
+        index.is_trained = meta["is_trained"]
+        if f"{path}/codes" in arrays:
+            index.add_fields(arrays[f"{path}/codes"])
+        return index
+    if cls in ("IndexFlat", "IndexFlatL2", "IndexFlatIP", "IndexFlat1D",
+               "IndexFlatPanorama"):
         if cls == "IndexFlatL2":
             index = IndexFlatL2(meta["d"], device=device)
         elif cls == "IndexFlatIP":
             index = IndexFlatIP(meta["d"], device=device)
         elif cls == "IndexFlat1D":
             index = IndexFlat1D(meta.get("continuous_update", True), device=device)
+        elif cls == "IndexFlatPanorama":
+            index = IndexFlatPanorama(meta["d"], meta["num_levels"], device=device)
+            index.prune_factor = meta["prune_factor"]
         else:
-            index = IndexFlat(meta["d"], MetricType(meta["metric"]), device=device)
+            index = IndexFlat(meta["d"], MetricType(meta["metric"]),
+                              meta.get("metric_arg", 0.0), device=device)
         index.storage_dtype = np.dtype(meta.get("storage_dtype", "float32")).type
         xb = arrays[f"{path}/xb"]
         if len(xb):
             index.add(xb)
         return index
-    if cls in _ITEM10_CLASSES:
-        raise NotImplementedError(
-            f"read_index: {cls} is not ported yet (ROADMAP queue 1 item 10)")
     raise TypeError(f"unknown serialized class {cls}")
 
 
@@ -567,6 +619,13 @@ def _load_ivf(meta, arrays, path, device):
     d, nlist, metric = meta["d"], meta["nlist"], MetricType(meta["metric"])
     if cls == "IndexIVFFlat":
         index = IndexIVFFlat(quantizer, d, nlist, metric, device=device)
+    elif cls == "IndexIVFFlatPanorama":  # faiss_tpu io.py:575
+        index = IndexIVFFlatPanorama(quantizer, d, nlist, meta["n_levels"], metric,
+                                     device=device)
+        index.prune_factor = meta["prune_factor"]
+    elif cls == "IndexIVFEDEN":  # faiss_tpu io.py:596
+        index = IndexIVFEDEN(quantizer, d, nlist, metric, meta["nb_bits"],
+                             EDENScaleType(meta["scale_type"]), device=device)
     elif cls == "IndexIVFScalarQuantizer":
         index = IndexIVFScalarQuantizer(
             quantizer, d, nlist, QuantizerType(meta["qtype"]), metric,

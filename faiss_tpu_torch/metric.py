@@ -5,6 +5,7 @@ indexes and user code translate between the two packages directly.
 
   - METRIC_INNER_PRODUCT: similarity, higher is better ("max" metric).
   - METRIC_L2: *squared* L2 distance, lower is better.
+  - the other metrics are "min" metrics but ABS_INNER_PRODUCT.
 """
 
 from __future__ import annotations
@@ -32,6 +33,16 @@ class MetricType(enum.IntEnum):
 
 METRIC_INNER_PRODUCT = MetricType.INNER_PRODUCT
 METRIC_L2 = MetricType.L2
+METRIC_L1 = MetricType.L1
+METRIC_Linf = MetricType.Linf
+METRIC_Lp = MetricType.Lp
+METRIC_Canberra = MetricType.Canberra
+METRIC_BrayCurtis = MetricType.BrayCurtis
+METRIC_JensenShannon = MetricType.JensenShannon
+METRIC_Jaccard = MetricType.Jaccard
+METRIC_NaNEuclidean = MetricType.NaNEuclidean
+METRIC_GOWER = MetricType.GOWER
+METRIC_ABS_INNER_PRODUCT = MetricType.ABS_INNER_PRODUCT
 
 
 def is_similarity_metric(metric: MetricType) -> bool:

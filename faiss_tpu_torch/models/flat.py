@@ -1,9 +1,9 @@
 """Exact flat indexes (counterpart of faiss_tpu/models/flat.py).
 
-IndexFlat stores the vectors on its device and answers exact k-NN for
-METRIC_L2 and METRIC_INNER_PRODUCT. Its search takes the reference's three
-device paths, chosen by the same thresholds, so both packages take the same
-path on the same index:
+IndexFlat stores the vectors on its device and answers exact k-NN under
+every metric. For METRIC_L2 and METRIC_INNER_PRODUCT its search takes the
+reference's three device paths, chosen by the same thresholds, so both
+packages take the same path on the same index:
 
   - the bf16 hi/lo **screen** for k <= SCREEN_MAX_K (kernel K2 over two bf16
     planes, an exact re-rank of the 128 screened candidates and a per-row
@@ -14,8 +14,10 @@ path on the same index:
     and for all of the rest of a search once certification fails on more
     than a quarter of a sub-batch (a "storm": distance-concentrated data).
 
-Smaller stores (ntotal < PALLAS_MIN_NB) and k > 2048 use the chunked plain
-k-NN of ops/distances. faiss_tpu gates its kernel paths off on its CPU
+Smaller stores (ntotal < PALLAS_MIN_NB), k > 2048 and the extra metrics
+(L1, Linf, Lp with ``metric_arg`` = p, Canberra, BrayCurtis, JensenShannon,
+Jaccard, NaNEuclidean, ABS_INNER_PRODUCT, GOWER) use the chunked exact k-NN
+of ops/distances. faiss_tpu gates its kernel paths off on its CPU
 backend; here the same paths run on every device, the kernels' plain PyTorch
 versions standing in on CPU tensors.
 
@@ -202,13 +204,9 @@ class IndexFlat(Index):
     flat_striped = True
     flat_striped_max_bytes = 12 << 30
 
-    def __init__(self, d: int, metric=MetricType.L2, *, device):
-        super().__init__(d, metric, device=device)
-        if self.metric_type not in (MetricType.L2, MetricType.INNER_PRODUCT):
-            raise NotImplementedError(
-                "IndexFlat: only METRIC_L2 and METRIC_INNER_PRODUCT are "
-                "ported (ROADMAP queue 1 item 10)"
-            )
+    def __init__(self, d: int, metric=MetricType.L2, metric_arg: float = 0.0, *,
+                 device):
+        super().__init__(d, metric, metric_arg, device=device)
         self._pending = []  # host-side adds not yet on the device
         self._xb = None  # consolidated device tensor [ntotal, d]
         self._norms = None  # float32 norms of the stored rows (L2 only)
@@ -348,7 +346,8 @@ class IndexFlat(Index):
         for start, padded, real in query_buckets(len(x)):
             xq = _pad_rows(self._to_device(x[start : start + real]), padded)
             d, i = dops.knn(xq, xb.float(), k, metric=self.metric_type,
-                            y_norms=self._norms, y_mask=y_mask)
+                            y_norms=self._norms, y_mask=y_mask,
+                            metric_arg=self.metric_arg)
             D[start : start + real] = d[:real].cpu().numpy()
             I[start : start + real] = i[:real].cpu().numpy()
         return D, I
@@ -377,7 +376,7 @@ class IndexFlat(Index):
                 for c0 in range(0, self.ntotal, self.RANGE_TILE_ROWS):
                     c1 = min(c0 + self.RANGE_TILE_ROWS, self.ntotal)
                     dt = dops.pairwise_distances(xq, self._rows(c0, c1),
-                                                 self.metric_type)
+                                                 self.metric_type, self.metric_arg)
                     hit = dt > radius if largest else dt < radius
                     if mask is not None:
                         hit &= mask[None, c0:c1]
@@ -389,9 +388,10 @@ class IndexFlat(Index):
 
     def _use_fused_kernel(self, k: int) -> bool:
         """faiss_tpu flat.py:457 without its backend gate: the kernel paths
-        run on every device."""
+        run on every device, for L2 and inner product."""
         return (
-            k <= fused_knn.MAX_K_LANES
+            self.metric_type in (MetricType.L2, MetricType.INNER_PRODUCT)
+            and k <= fused_knn.MAX_K_LANES
             and self.ntotal >= self.PALLAS_MIN_NB
             and self.d <= 2048
         )

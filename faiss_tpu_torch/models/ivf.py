@@ -18,8 +18,10 @@ probe step of ``range_search`` (``_probe_step``); the scan receives each
 probe's coarse distance (||q - c||^2, or q . c for inner product:
 IndexIVFPQ's bias term; IVF-Flat's scan ignores it).
 
-METRIC_L2 and METRIC_INNER_PRODUCT are served; inner product trains the
-coarse quantizer by spherical k-means, as faiss_tpu does. A coarse quantizer
+Every metric is served; inner product trains the coarse quantizer by
+spherical k-means, as faiss_tpu does, and the others by L2 k-means. A flat
+coarse quantizer assigns and probes by its own metric (and ``metric_arg``);
+the IVF-Flat scan scores the index's metric over the gathered list rows. A coarse quantizer
 other than flat is trained by k-means and then filled with the centroids
 (an HNSW graph is built over them), or, with ``quantizer_trains_alone``
 (the IMI), trains itself; the codecs read its centroids through one device
@@ -90,11 +92,11 @@ class Level1Quantizer:
     """Coarse-quantizer management (reference: IndexIVF.h:30)."""
 
     def __init__(self, quantizer: Optional[Index], nlist: int, d: int, metric, *,
-                 device):
+                 device, metric_arg: float = 0.0):
         self.nlist = int(nlist)
         self.quantizer = (
             quantizer if quantizer is not None
-            else IndexFlat(d, metric, device=device)
+            else IndexFlat(d, metric, metric_arg, device=device)
         )
         self.cp = ClusteringParameters()
         # 1: the quantizer trains itself on the data (the IMI; faiss_tpu
@@ -124,15 +126,11 @@ class IndexIVF(Index, Level1Quantizer):
     the codec (encode_vectors, decode_vectors)."""
 
     def __init__(self, quantizer: Optional[Index], d: int, nlist: int,
-                 metric=MetricType.L2, *, device):
-        Index.__init__(self, d, metric, device=device)
-        if self.metric_type not in (MetricType.L2, MetricType.INNER_PRODUCT):
-            raise NotImplementedError(
-                "IndexIVF: only METRIC_L2 and METRIC_INNER_PRODUCT are ported "
-                "(ROADMAP queue 1 item 10)"
-            )
+                 metric=MetricType.L2, *, device, metric_arg: float = 0.0):
+        Index.__init__(self, d, metric, metric_arg, device=device)
         Level1Quantizer.__init__(
-            self, quantizer, nlist, d, self.metric_type, device=device
+            self, quantizer, nlist, d, self.metric_type, device=device,
+            metric_arg=metric_arg,
         )
         self.nprobe = 1
         self.max_codes = 0
@@ -186,7 +184,7 @@ class IndexIVF(Index, Level1Quantizer):
         q = self.quantizer
         if isinstance(q, IndexFlat):
             return dops.knn(xq, q._consolidate(), k, metric=q.metric_type,
-                            y_norms=q._norms)
+                            y_norms=q._norms, metric_arg=q.metric_arg)
         if hasattr(q, "_search_dev"):
             d, i = q._search_dev(xq, k)
         else:
@@ -200,7 +198,8 @@ class IndexIVF(Index, Level1Quantizer):
         faiss_tpu assigns (ivf.py:133-144)."""
         q = self.quantizer
         if isinstance(q, IndexFlat):
-            return dops.assign_flat(x, q._consolidate(), metric=q.metric_type)[1]
+            return dops.assign_flat(x, q._consolidate(), metric=q.metric_type,
+                                    metric_arg=q.metric_arg)[1]
         return self._quantizer_search(x, 1)[1][:, 0]
 
     def train(self, x) -> None:
@@ -338,7 +337,7 @@ class IndexIVF(Index, Level1Quantizer):
         def step(ln, cd):
             del cd
             dist = flat_probe_dists(xq, ln, dev["codes"], self.metric_type, xn,
-                                    dev["code_norms"])
+                                    dev["code_norms"], self.metric_arg)
             return (dist,) + probe_slots(ln, dev["slot_ids"], dev["lengths"], sel)
 
         return step
@@ -462,7 +461,7 @@ class IndexIVF(Index, Level1Quantizer):
         return ivf_flat_scan(
             xq, probes, dev["codes"], dev["slot_ids"], dev["lengths"], k,
             metric=self.metric_type, code_norms=dev["code_norms"],
-            sel_mask=sel,
+            sel_mask=sel, metric_arg=self.metric_arg,
         )
 
     def _search_params(self, params):

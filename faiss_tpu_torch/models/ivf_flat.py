@@ -18,8 +18,8 @@ faiss_tpu's two device paths, at faiss_tpu's gates and thresholds:
     against the vectors. With strict probing the results are exact within
     the nprobe nearest lists, the contract of faiss's IndexIVFFlat;
   - **by probe** for everything else (IndexIVF.search: nq below the
-    threshold, k > 64, ``max_codes``, an ID selector, the inner-product
-    metric): an exact scan of the probed lists.
+    threshold, k > 64, ``max_codes``, an ID selector, any metric but L2):
+    an exact scan of the probed lists.
 
 ``remove_ids``, ``merge_from`` and ``update_vectors`` (IndexIVF) drop the
 big-batch layout through IndexIVF._drop_caches, so the next big batch
@@ -115,8 +115,9 @@ class IndexIVFFlat(IndexIVF):
     soft_engage_frac = 0.7
 
     def __init__(self, quantizer, d: int, nlist: int, metric=MetricType.L2, *,
-                 device):
-        super().__init__(quantizer, d, nlist, metric, device=device)
+                 device, metric_arg: float = 0.0):
+        super().__init__(quantizer, d, nlist, metric, device=device,
+                         metric_arg=metric_arg)
         self.code_size = d * 4
 
     def encode_vectors(self, x: torch.Tensor, listnos: torch.Tensor) -> np.ndarray:

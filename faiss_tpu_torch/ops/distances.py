@@ -5,7 +5,13 @@ matrix products (TF32 is off, see the package ``__init__``), chunked so no
 large distance matrix is materialised at once. faiss_tpu computes its
 float32 products as six bf16 passes because the TPU's float32 matrix product
 is slow; on the card a float32 ``torch.matmul`` is the plain form. These are
-the large products the reference leaves to XLA outside any Pallas kernel."""
+the large products the reference leaves to XLA outside any Pallas kernel.
+
+The extra metrics (L1, Linf, Lp, Canberra, BrayCurtis, JensenShannon,
+Jaccard, NaNEuclidean, ABS_INNER_PRODUCT, GOWER; faiss's
+utils/extra_distances-inl.h) are elementwise float32 reductions over
+broadcast [queries, rows, d] blocks, cut so that one block stays under
+EXTRA_BLOCK_BYTES whatever the tile's size."""
 
 from __future__ import annotations
 
@@ -19,6 +25,10 @@ from .topk import merge_topk, topk
 # Database rows per score tile of the chunked k-NN scan: a [2048, 2^17]
 # float32 tile is 1 GiB (faiss_tpu/ops/distances.py:35).
 DEFAULT_DB_CHUNK = 1 << 17
+
+# Bytes of one broadcast [qb, yb, d] float32 block of the extra metrics; the
+# elementwise terms of one block are a few such transients.
+EXTRA_BLOCK_BYTES = 128 << 20
 
 
 def l2_norms(x: torch.Tensor, chunk: int = 1 << 20) -> torch.Tensor:
@@ -52,23 +62,95 @@ def pairwise_l2sqr(
     return (x_norms[:, None] + y_norms[None, :] - 2.0 * ip).clamp_min(0.0)
 
 
-def _score_tile(x, y, metric, x_norms, y_norms):
+def _metric_reduce(xf, yf, metric: MetricType, metric_arg: float, d: int):
+    """The extra metric of broadcastable float32 rows ``xf``, ``yf`` [..., d],
+    reduced over the last axis (faiss_tpu/ops/distances.py:142-199, with its
+    0/0 and NaN rules)."""
+    if metric == MetricType.L1:
+        return (xf - yf).abs().sum(-1)
+    if metric == MetricType.Linf:
+        return (xf - yf).abs().amax(-1)
+    if metric == MetricType.Lp:
+        return (xf - yf).abs().pow(metric_arg).sum(-1)
+    if metric == MetricType.Canberra:
+        num = (xf - yf).abs()
+        den = xf.abs() + yf.abs()
+        return torch.where(den > 0, num / den, 0.0).sum(-1)
+    if metric == MetricType.BrayCurtis:
+        num = (xf - yf).abs().sum(-1)
+        den = (xf + yf).abs().sum(-1)
+        return torch.where(den > 0, num / den, 0.0)
+    if metric == MetricType.JensenShannon:
+        # in float64: a near neighbour's terms a log(a / m) nearly cancel,
+        # and float32 leaves ~1e-5 of the distance in rounding
+        xd, yd = xf.double(), yf.double()
+        m = 0.5 * (xd + yd)
+
+        def kl(a, b):  # 0 log 0 = 0
+            return torch.where(a > 0, a * torch.log(a / b), 0.0)
+
+        return (0.5 * (kl(xd, m) + kl(yd, m))).sum(-1).float()
+    if metric == MetricType.Jaccard:
+        # 1 - sum min / sum max, as sum |x - y| / sum max (max - min =
+        # |x - y|): no cancellation for near rows
+        num = (xf - yf).abs().sum(-1)
+        den = torch.maximum(xf, yf).sum(-1)
+        return torch.where(den > 0, num / den, 1.0)
+    if metric == MetricType.NaNEuclidean:
+        # sklearn's nan_euclidean: scaled by d / the dimensions present
+        present = ~torch.isnan(xf) & ~torch.isnan(yf)
+        diff = torch.where(present, xf - yf, 0.0)
+        npresent = present.sum(-1, dtype=torch.int32)
+        s = diff.square().sum(-1)
+        return torch.where(npresent > 0, d * s / npresent, float("inf"))
+    if metric == MetricType.ABS_INNER_PRODUCT:
+        return (xf * yf).abs().sum(-1)
+    if metric == MetricType.GOWER:
+        # numeric dimensions (both >= 0): |x - y|; a negative pair is
+        # categorical: 0 if equal, else 1; NaN dimensions left out
+        both_num = (xf >= 0) & (yf >= 0)
+        valid = ~torch.isnan(xf) & ~torch.isnan(yf)
+        per_dim = torch.where(both_num, (xf - yf).abs(),
+                              torch.where(xf == yf, 0.0, 1.0))
+        per_dim = torch.where(valid, per_dim, 0.0)
+        nvalid = valid.sum(-1, dtype=torch.int32)
+        return torch.where(nvalid > 0, per_dim.sum(-1) / nvalid, float("nan"))
+    raise ValueError(f"unsupported extra metric {metric!r}")
+
+
+def extra_metric_tile(x: torch.Tensor, y: torch.Tensor, metric: MetricType,
+                      metric_arg: float = 0.0) -> torch.Tensor:
+    """[nx, d] x [ny, d] -> [nx, ny] float32 distances of an extra metric,
+    in broadcast blocks of at most EXTRA_BLOCK_BYTES."""
+    x, y = x.float(), y.float()
+    nx, ny, d = x.shape[0], y.shape[0], x.shape[1]
+    out = torch.empty(nx, ny, device=x.device)
+    yb = max(1, min(ny, EXTRA_BLOCK_BYTES // (4 * max(d, 1))))
+    qb = max(1, EXTRA_BLOCK_BYTES // (4 * max(d, 1) * yb))
+    for q0 in range(0, nx, qb):
+        xf = x[q0 : q0 + qb, None, :]
+        for y0 in range(0, ny, yb):
+            out[q0 : q0 + qb, y0 : y0 + yb] = _metric_reduce(
+                xf, y[None, y0 : y0 + yb, :], metric, metric_arg, d)
+    return out
+
+
+def _score_tile(x, y, metric, x_norms, y_norms, metric_arg=0.0):
     """Distances of a query block to a database tile
     (faiss_tpu/ops/distances.py:360)."""
     if metric == MetricType.L2:
         return pairwise_l2sqr(x, y, y_norms, x_norms)
     if metric == MetricType.INNER_PRODUCT:
         return pairwise_inner_product(x, y)
-    raise NotImplementedError(
-        f"knn: metric {metric!r} is ROADMAP queue 1 item 10"
-    )
+    return extra_metric_tile(x, y, metric, metric_arg)
 
 
 def pairwise_distances(
-    x: torch.Tensor, y: torch.Tensor, metric: MetricType = MetricType.L2
+    x: torch.Tensor, y: torch.Tensor, metric: MetricType = MetricType.L2,
+    metric_arg: float = 0.0,
 ) -> torch.Tensor:
     """The full [nx, ny] distance matrix (faiss_tpu/ops/distances.py:202)."""
-    return _score_tile(x, y, metric, None, None)
+    return _score_tile(x, y, metric, None, None, metric_arg)
 
 
 def knn(
@@ -79,15 +161,16 @@ def knn(
     y_norms: Optional[torch.Tensor] = None,
     db_chunk: int = DEFAULT_DB_CHUNK,
     y_mask: Optional[torch.Tensor] = None,  # [nb] bool: rows that may match
+    metric_arg: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact brute-force k-NN of x against y (faiss_tpu/ops/distances.py:
     220): score tiles of ``db_chunk`` rows, each reduced to its top-k and
     merged. The last tile is clamped to [nb - db_chunk, nb), and the rows the
     previous tile already scored are masked off (``col >= ci * db_chunk``).
     ``y_mask`` (an ID selector as a score mask) excludes rows the same way.
-    Returns (D [nq, k] f32, I [nq, k] int64) best-first; where fewer than k
-    rows qualify the tail is filled with -1 and +inf (-inf for inner
-    product)."""
+    Returns (D [nq, k] f32, I [nq, k] int64) best-first (largest first for
+    the similarity metrics); where fewer than k rows qualify the tail is
+    filled with -1 and +inf (-inf for a similarity)."""
     nq, nb = x.shape[0], y.shape[0]
     largest = is_similarity_metric(metric)
     sentinel = float("-inf") if largest else float("inf")
@@ -102,7 +185,7 @@ def knn(
     x_norms = l2_norms(x) if metric == MetricType.L2 else None
 
     if nb <= db_chunk:
-        scores = _score_tile(x, y, metric, x_norms, y_norms)
+        scores = _score_tile(x, y, metric, x_norms, y_norms, metric_arg)
         if y_mask is not None:
             scores = torch.where(y_mask[None, :], scores, sentinel)
         vals, ids = topk(scores, kk, largest=largest)
@@ -120,7 +203,7 @@ def knn(
             tile = slice(start, start + db_chunk)
             scores = _score_tile(
                 x, y[tile], metric, x_norms,
-                y_norms[tile] if metric == MetricType.L2 else None,
+                y_norms[tile] if metric == MetricType.L2 else None, metric_arg,
             )
             col = cols + start
             valid = col >= ci * db_chunk  # tail-overlap rows already scored
@@ -147,15 +230,18 @@ def assign_flat(
     centroids: torch.Tensor,  # [nc, d] float32
     metric: MetricType = MetricType.L2,
     chunk: int = 1 << 14,
+    metric_arg: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 assignment of a large batch against a flat centroid set, chunked
     over rows (faiss_tpu/ops/distances.py:323). Returns (dist [n] f32,
-    assign [n] int64): the nearest centroid by L2, or the largest inner
-    product for METRIC_INNER_PRODUCT."""
+    assign [n] int64): the nearest centroid by L2, the largest inner
+    product for METRIC_INNER_PRODUCT, else the best by the extra metric
+    (its exact k-NN at k = 1)."""
     if metric not in (MetricType.L2, MetricType.INNER_PRODUCT):
-        raise NotImplementedError(
-            f"assign_flat: metric {metric!r} is ROADMAP queue 1 item 10"
-        )
+        dist, assign = zip(*(knn(x[s : s + chunk].float(), centroids, 1, metric,
+                                 metric_arg=metric_arg)
+                             for s in range(0, len(x), chunk)))
+        return torch.cat(dist)[:, 0], torch.cat(assign)[:, 0]
     c_norms = l2_norms(centroids)
     dist, assign = [], []
     for s in range(0, len(x), chunk):
@@ -180,6 +266,7 @@ def rerank_exact(
     xb_n2: Optional[torch.Tensor] = None,  # [nb] precomputed ||xb||^2
     sq_scale: Optional[torch.Tensor] = None,  # [d]: xb holds SQ8 codes
     sq_off: Optional[torch.Tensor] = None,  # [d]
+    metric_arg: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact re-rank of per-query candidate lists (the IndexRefineFlat
     inner loop as one gather + batched contraction;
@@ -188,19 +275,25 @@ def rerank_exact(
     With ``sq_scale``/``sq_off`` the store holds uint8 SQ8 codes
     (Refine(SQ8)): the gathered rows dequantize per dimension as
     ``row * sq_scale + sq_off`` after the gather, as faiss_tpu does.
-    L2 ascending, inner product descending. Returns (D [nq, min(k, kc)]
-    f32, I int64), -1 where D is the sentinel (+inf, or -inf for inner
-    product)."""
-    largest = metric == MetricType.INNER_PRODUCT
+    L2 ascending, inner product descending; an extra metric is scored
+    exactly on the gathered rows (faiss_tpu scores it as an inner product
+    here). Returns (D [nq, min(k, kc)] f32, I int64), -1 where D is the
+    sentinel (+inf, or -inf for a similarity)."""
+    largest = is_similarity_metric(metric)
     safe = cand.clamp_min(0).long()
     cv = xb[safe].float()  # [nq, kc, d]
     if sq_scale is not None:
         cv = cv * sq_scale + sq_off
-    ip = (xq[:, None, :] * cv).sum(-1)
+    if metric not in (MetricType.L2, MetricType.INNER_PRODUCT):
+        d = _metric_reduce(xq.float()[:, None, :], cv, metric, metric_arg,
+                           cv.shape[-1])
+        ip = None
+    else:
+        ip = (xq[:, None, :] * cv).sum(-1)
     if metric == MetricType.L2:
         cn2 = xb_n2[safe] if xb_n2 is not None else cv.square().sum(-1)
         d = (xq.square().sum(-1)[:, None] + cn2 - 2.0 * ip).clamp_min(0.0)
-    else:
+    elif ip is not None:
         d = ip
     sentinel = float("-inf") if largest else float("inf")
     d = torch.where(cand >= 0, d, torch.full_like(d, sentinel))

@@ -2,7 +2,9 @@
 and :124).
 
 IVF-Flat's inverted lists are padded dense tensors ``codes [nlist, max_len,
-d]`` with per-list lengths; IVF-PQ's are one CSR, a :class:`RaggedLists`
+d]`` with per-list lengths, scored by L2, inner product or an extra metric
+(elementwise over the gathered rows, exactly: faiss_tpu scores every metric
+but L2 as an inner product there, ROADMAP queue 3); IVF-PQ's are one CSR, a :class:`RaggedLists`
 (an IMI's 2^20 skewed lists would not fit padded). A probe step gathers
 each query's p-th list, scores it (IVF-Flat: one batched float32 product;
 IVF-PQ: table gathers, over the lists padded only to the longest list of
@@ -20,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..metric import MetricType
+from ..metric import MetricType, is_similarity_metric
+from .distances import _metric_reduce
 from .hamming import popcount32
 from .topk import merge_topk
 
@@ -72,18 +75,21 @@ def ivf_flat_scan(
     metric: MetricType = MetricType.L2,
     code_norms: Optional[torch.Tensor] = None,  # [nlist, max_len] (L2)
     sel_mask: Optional[torch.Tensor] = None,  # [ntotal] bool over slots
+    metric_arg: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan each query's probed lists: (dists [nq, k] float32, slots [nq, k]
-    int32), best-first (smallest L2, largest inner product), +inf (-inf) and
-    -1 where a query has fewer than k candidates. L2 distances are
+    int32), best-first (smallest distance, largest similarity), +inf (-inf)
+    and -1 where a query has fewer than k candidates. L2 distances are
     ``max(||q||^2 + ||c||^2 - 2 q.c, 0)``, with ``code_norms`` when given.
     ``sel_mask`` (an ID selector over slots) drops the slots it clears."""
     nq, d = xq.shape
     max_len = codes.shape[1]
-    rows = max(1, SCAN_GATHER_BYTES // max(1, max_len * d * 4))
+    # an extra metric's elementwise terms are a few gathers' size each
+    extra = metric not in (MetricType.L2, MetricType.INNER_PRODUCT)
+    rows = max(1, SCAN_GATHER_BYTES // max(1, max_len * d * (16 if extra else 4)))
     parts = [
         _scan_rows(xq[r : r + rows], probes[r : r + rows], codes, slot_ids,
-                   lengths, k, metric, code_norms, sel_mask)
+                   lengths, k, metric, code_norms, sel_mask, metric_arg)
         for r in range(0, max(nq, 1), rows)
     ]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
@@ -103,13 +109,16 @@ def probe_slots(ln, slot_ids, lengths, sel_mask=None):
     return valid, torch.where(valid, sl, -1)
 
 
-def flat_probe_dists(xq, ln, codes, metric, x_norms=None, code_norms=None):
+def flat_probe_dists(xq, ln, codes, metric, x_norms=None, code_norms=None,
+                     metric_arg=0.0):
     """[nq, max_len] distances of each query to every slot of its list
     ``ln`` (pads and -1 probes included; probe_slots masks them): one
     batched float32 product, the L2 norm expansion clamped at 0, or the
-    inner product."""
+    inner product; an extra metric elementwise over the gathered rows."""
     safe = ln.clamp_min(0).long()
     cl = codes[safe]  # [nq, max_len, d]
+    if metric not in (MetricType.L2, MetricType.INNER_PRODUCT):
+        return _metric_reduce(xq[:, None, :], cl, metric, metric_arg, cl.shape[-1])
     ip = torch.bmm(cl, xq[:, :, None])[:, :, 0]
     if metric != MetricType.L2:
         return ip
@@ -204,16 +213,17 @@ def pq_probe_hamming(qcodes, cl):
 
 
 def _scan_rows(xq, probes, codes, slot_ids, lengths, k, metric, code_norms,
-               sel_mask):
+               sel_mask, metric_arg=0.0):
     nq = xq.shape[0]
-    largest = metric == MetricType.INNER_PRODUCT
+    largest = is_similarity_metric(metric)
     sentinel = float("-inf") if largest else float("inf")
     x_norms = xq.square().sum(-1) if metric == MetricType.L2 else None
     vals = torch.full((nq, k), sentinel, device=xq.device)
     ids = torch.full((nq, k), -1, dtype=torch.int32, device=xq.device)
     for p in range(probes.shape[1]):
         ln = probes[:, p].long()
-        dist = flat_probe_dists(xq, ln, codes, metric, x_norms, code_norms)
+        dist = flat_probe_dists(xq, ln, codes, metric, x_norms, code_norms,
+                                metric_arg)
         valid, sl = probe_slots(ln, slot_ids, lengths, sel_mask)
         dist = torch.where(valid, dist, sentinel)
         vals, ids = merge_topk(vals, ids, dist, sl, k, largest=largest)

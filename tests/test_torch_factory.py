@@ -1,9 +1,8 @@
 """Port parity for index_factory (faiss_tpu_torch/factory.py against
 faiss_tpu/factory.py): the tree the port builds from each supported string
 has faiss_tpu's classes, dimensions, list counts, PQ shapes, transforms and
-refine store; tokens whose classes the port does not have raise
-NotImplementedError naming their ROADMAP item, and malformed strings raise
-ValueError in both packages. Also the data of the slice's configuration:
+refine store (the EDEN, Panorama and lattice tokens too, with their codecs'
+settings), and malformed strings raise ValueError in both packages. Also the data of the slice's configuration:
 chip_smoke.py's copy of the Deep10M-like generator against
 benchs/bench_deep10m.py's, bit for bit."""
 
@@ -76,6 +75,16 @@ def tree(index):
                      aq.code_size, getattr(aq, "nsplits", None),
                      [type(s).__name__ for s in getattr(aq, "subs", [])])
         out["code_size"] = getattr(index, "code_size", None)
+    if hasattr(index, "eden"):
+        out["eden"] = (index.eden.d, index.eden.nb_bits, int(index.eden.scale_type),
+                       index.eden.code_size)
+    for name in ("num_levels", "n_levels", "prune_factor"):  # Panorama
+        if hasattr(index, name):
+            out[name] = getattr(index, name)
+    if hasattr(index, "zn_sphere_codec"):
+        out["lattice"] = (index.nsq, index.dsq, index.scale_nbit,
+                          index.zn_sphere_codec.r2, index.zn_sphere_codec.nv,
+                          index.lattice_nbit, index.code_size)
     if hasattr(index, "rabitq"):
         out["rabitq"] = (type(index.rabitq).__name__, index.nb_bits, index.qb,
                          index.rabitq.code_size, getattr(index, "code_size", None),
@@ -141,17 +150,19 @@ def test_factory_tree_matches_reference(d, desc, metric):
         assert isinstance(port.index.base_index, ftt.IndexIVFPQFastScan)
 
 
-UNPORTED = [
+CODECS = [
     "EDEN4", "EDEN2BIASED", "IVF16,EDEN", "IVF16,EDEN3BIAS", "FlatPanorama8",
     "IVF16,FlatPanorama", "IVF16,FlatPanorama4", "ZnLattice2x4_6", "ZnLattice4x4_8",
 ]
 
 
-@pytest.mark.parametrize("desc", UNPORTED)
-def test_unported_tokens_raise_naming_their_item(desc):
-    ftj.index_factory(32, desc)  # faiss_tpu builds it
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        ftt.index_factory(32, desc, device="cpu")
+@pytest.mark.parametrize("desc", CODECS)
+def test_codec_tokens_build_the_reference_tree(desc):
+    """The EDEN, Panorama and Zn-lattice tokens, flat and in IVF, build
+    faiss_tpu's tree with its codecs' settings (sizes, levels, bits)."""
+    port = ftt.index_factory(32, desc, device="cpu")
+    assert tree(port) == tree(ftj.index_factory(32, desc))
+    assert port.device.type == "cpu"
 
 
 MALFORMED = ["Foo", "IVF16", "Flat,Flat", "IVF16,Bar", "", "IDMap", "OPQ4",

@@ -280,5 +280,8 @@ def test_small_store_plain_path_and_roles():
     xb16 = xb.astype(np.float16).astype(np.float32)
     np.testing.assert_allclose(f16._consolidate().float().numpy(), xb16)
     np.testing.assert_allclose(f16._norms.numpy(), (xb16**2).sum(1), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ftt.IndexFlat(D, ftt.MetricType.L1, device="cpu")
+    # the other metrics take the plain k-NN, never the kernel paths
+    # (tests/test_torch_metrics.py checks them against float64)
+    l1 = ftt.IndexFlat(D, ftt.MetricType.L1, device="cpu")
+    l1.add(np.tile(xb, (6, 1)))
+    assert l1.ntotal >= l1.PALLAS_MIN_NB and not l1._use_fused_kernel(5)

@@ -351,10 +351,12 @@ def test_io_compat_files_and_golden_results():
 
 def test_refusals(data, tmp_path, monkeypatch):
     xb, _ = data
-    # a faiss_tpu class the port does not have
-    with pytest.raises(NotImplementedError, match="IndexEDEN .*item 10"):
-        ftt.deserialize_index(ftj.serialize_index(ftj.index_factory(D, "EDEN4")),
-                              device="cpu")
+    # a class that faiss_tpu writes and neither package reads back
+    dedup = ftj.IndexIVFFlatDedup(ftj.IndexFlat(D), D, 4)
+    dedup.train(xb)
+    dedup.add(xb)
+    with pytest.raises(TypeError, match="unknown serialized class IndexIVFFlatDedup"):
+        ftt.deserialize_index(ftj.serialize_index(dedup), device="cpu")
     # the reference library's own format (io_ref)
     ref_file = tmp_path / "ref.faissindex"
     ref_file.write_bytes(b"IxF2" + bytes(60))

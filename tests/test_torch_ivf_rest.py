@@ -152,8 +152,15 @@ def test_inner_product_train_on_the_port(data):
     ip = xq.astype(np.float64) @ xb.T.astype(np.float64)
     want = -np.sort(-ip, axis=1)[:, :K]
     assert (np.abs(Dt - want) <= tol_of(xq, xb)[:, None]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        ftt.IndexIVFFlat(None, D, NLIST, ftt.MetricType.L1, device="cpu")
+    # another metric builds its flat quantizer under that metric and scans
+    # by probe (tests/test_torch_metrics.py checks it against float64)
+    l1 = ftt.IndexIVFFlat(None, D, NLIST, ftt.MetricType.L1, device="cpu")
+    assert l1.quantizer.metric_type == ftt.MetricType.L1
+    l1.cp.niter = 2
+    l1.cp.min_points_per_centroid = 1
+    l1.train(xb)
+    l1.add(xb)
+    assert l1.ntotal and not l1._big_batch_gate(np.tile(xq, (8, 1)), K, None)[1]
 
 
 # -- spherical k-means -----------------------------------------------------
