@@ -12,7 +12,8 @@ scalar-quantizer family on the same 1M x 128 set (K2, K3; phase I); the
 PQ and Hamming family there (BASELINE rows 1-3, K2 under
 IndexBinaryFromFloat; phase J); the graph indexes and the non-flat coarse
 quantizers (phase K); the additive quantizers and RaBitQ, flat and IVF
-(no kernel; phase L);
+(no kernel; phase L); the rest of faiss_tpu (phase M); the multi-device
+layer, four shards on the card (phase N);
 OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory over the Deep10M-like
 10M x 96 set (K1, phase F); and last k-means of BASELINE row 12, 8.1M x 784
 uint8 points into 256 centroids (phase H).
@@ -424,6 +425,32 @@ print stands beside the card's name and power limit:
      kernels' line: the flat and IVF-Flat searches behind Panorama, the
      lattice, QINCo, MinMax's decoded rows and Dedup). ``python3
      chip_smoke.py --only M`` runs phases 1-3 and phase M alone.
+ N. (after M, on the 1M x 128 set, reusing phase 4's index) the
+     multi-device layer, on a mesh of four shards on the one card
+     (``make_mesh(devices=[dev] * 4)``): N-a ShardedFlat (8192 q, k=10)
+     against the unsharded ``ops.distances.knn`` tie-aware, 64 rows
+     against float64, recall@10; N-b an IVF4096,Flat on phase 4's
+     centroids, ShardedIVF and an IndexShardsIVF of
+     ``ivflib.shard_ivf_index_centroids`` at nprobe 1 and 16 against the
+     index's search_preassigned on the same probes; N-c ShardedIVFPQ over
+     phase 4's base at nprobe 1 and 16 against its search_preassigned and a
+     one-shard mesh (ADC keys within lut_tol); N-d ShardedRefinedIVFPQ
+     (fp16, k_factor 8, nprobe 1): 64 rows exact to the fp16 store, never
+     worse than one shard at any rank, recall@10; N-e
+     ShardedIVFPQBuilder(128, 4096, 32, 4) trained on the 200k rows, the 1M
+     added in chunks: one ``sharded_kmeans_iter`` against the unsharded
+     reduction (counts exact, sums 1e-5), 64 rows at nprobe 16 against a
+     float64 ADC over their lists, recall@10 within 0.02 of phase 4's
+     unrefined; N-f IndexShards of two ``clone_index`` halves of phase 4's
+     index at the main operating point (K1 must launch, recall@10 >= 0.95,
+     exact to the fp16 store), IndexReplicas of the index and its clone
+     (equal up to K1's ties), IndexShards of four IndexFlatL2 quarters
+     against N-a (the flat kernel must launch); N-g ``merge_into`` of the
+     halves' bases against phase 4's base, one ``SlidingIndexWindow.step``,
+     an ``OnDiskInvertedLists`` round trip of N-b's lists under the
+     git-ignored ``faiss_tpu_torch/_build/``. Each part prints its time and
+     peak memory; N-f's launches are ``n_launches`` in the kernels' line.
+     ``python3 chip_smoke.py --only N`` runs phases 1-4 and phase N alone.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -675,11 +702,14 @@ def compare_lanes(keys, slots, rkeys, rslots, tol, what, ids_agree_tie_aware):
     return max_abs_err
 
 
-def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
+def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev, main_only=False):
     """Phases 4-14: the IVF4096,PQ32x4fs,RFlat path and K1, then the rest of
     IVF-PQ search on the same index. Returns the entries of K1, K4, K5, K1
-    penalized and K2 masked in the kernels' JSON line, and K2's unmasked
-    launches and max_abs_err on the IVF-PQ path."""
+    penalized and K2 masked in the kernels' JSON line, K2's unmasked
+    launches and max_abs_err on the IVF-PQ path, and phase 4's state (its
+    index, centroids, PQ codebooks, results and recall). With
+    ``main_only`` phase 4 alone (the main path's search and its checks),
+    returning the state only."""
     from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims
     from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
 
@@ -730,6 +760,10 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     d_chk = ((xq[:256, None, :] - xb16) ** 2).sum(-1)
     check(np.allclose(Dm[:256], d_chk, rtol=1e-4, atol=1e-3),
           "distances are not the exact L2 to the fp16 store")
+    state = {"cent": base.quantizer.vectors(), "pq": base.pq.centroids,
+             "recall": recall, "index": index, "D": Dm, "I": Im}
+    if main_only:
+        return state
 
     # K1 against its plain version on the first real sub-batch
     qt = 256
@@ -771,8 +805,6 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev):
                plain_ms, *dyn_cost(br, cmap, qt, br["yT"], (xq_p,), False))
     out, k2_ivf = strict_and_adc_phases(fused_knn, base, index, br, xb, xq,
                                         gt, dev, msteps)
-    state = {"cent": base.quantizer.vectors(), "pq": base.pq.centroids,
-             "recall": recall, "index": index, "D": Dm, "I": Im}
     return [k1] + out, k2_ivf, state
 
 
@@ -5303,14 +5335,500 @@ def codec_phases(ft, fused_knn, xb, xt, xq, gt, dev):
     return tally
 
 
+# ---------------------------------------------------------------------------
+# Phase N: the multi-device layer (parallel/sharded.py, IndexShards,
+# IndexReplicas, IndexShardsIVF, ivflib, invlists) on the 1M x 128 set, with
+# phase 4's index; four shards on the one card
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+N_NQ_PROBE = 2048  # the queries of the nprobe-16 comparisons and N-e's recall
+N_RECALL_GAP = 0.02  # N-e's recall@10 against phase 4's index, unrefined
+
+
+def n_tol(xq, y_n2_max):
+    """Per-row float32 scale of an L2 distance by the norm expansion:
+    1e-5 (|q|^2 + max |y|^2)."""
+    return 1e-5 * ((xq.astype(np.float64) ** 2).sum(1) + float(y_n2_max))
+
+
+def n_equal(what, Da, Ia, Db, Ib, tol):
+    """Two ascending results: finite at the same places, distances within
+    ``tol`` [nq], ids equal up to ties at it. Returns the rows bitwise
+    equal."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    fin = np.isfinite(Db)
+    check((np.isfinite(Da) == fin).all(), f"{what}: infinite distances differ")
+    err = np.abs(np.where(fin, Da.astype(np.float64) - Db, 0.0))
+    check((err <= tol[:, None]).all(), f"{what}: distances differ by "
+                                       f"{float((err / tol[:, None]).max()):.3g} x tol")
+    agree = ids_agree_tie_aware(np.where(fin, Da, 0), Ia, np.where(fin, Db, 0),
+                                Ib, tol)
+    check(agree.all(), f"{what}: ids differ on {int((~agree).sum())} rows")
+    return int(((Da == Db) & (Ia == Ib)).all(1).sum())
+
+
+def n_probes(xq_d, cent_d, nprobe):
+    """(coarse distances, probes) numpy of the sharded searches' own coarse
+    quantization (ops.distances.knn over the centroids)."""
+    from faiss_tpu_torch.ops import distances as dops
+
+    cd, pr = dops.knn(xq_d, cent_d, nprobe)
+    return cd.cpu().numpy(), pr.cpu().numpy()
+
+
+def adc_tol(cb, term2, xq_d, cent):
+    """1e-5 of each row's sum over m of its largest |table entry| (the
+    query's -2 q.y and the largest list-side term2), plus 1e-5 (|q|^2 +
+    max |c|^2) of the coarse distance's norm expansion: the scale of a
+    float32 ADC sum's error, by residual in L2."""
+    from faiss_tpu_torch.ops import pq_ops
+
+    tab = (-2.0 * pq_ops.pq_ip_tables(xq_d, cb)).abs() + term2.abs().amax(0)[None]
+    cn2 = float(cent.double().square().sum(1).max())
+    return lut_tol(tab) + n_tol(xq_d.cpu().numpy(), cn2)
+
+
+def n_part(times, peaks, name, t0):
+    torch.cuda.synchronize()
+    times[name] = time.time() - t0
+    peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+
+def n_flat(ft, xb, xq, gt, dev, mesh):
+    """N-a. ShardedFlat over the 1M rows against the port's unsharded exact
+    k-NN; 64 rows against float64."""
+    from faiss_tpu_torch.ops import distances as dops
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    sf = ft.ShardedFlat(D, mesh)
+    sf.add(xb)
+    sf.search(xq[:128], K)  # the upload to the shards
+    torch.cuda.synchronize()
+    t0 = time.time()
+    Ds, Is = sf.search(xq, K)
+    torch.cuda.synchronize()
+    t_search = time.time() - t0
+    Du, Iu = dops.knn(torch.from_numpy(xq).to(dev), torch.from_numpy(xb).to(dev), K)
+    xn2 = float((xb.astype(np.float64) ** 2).sum(1).max())
+    tol = n_tol(xq, xn2)
+    same = n_equal("N-a. ShardedFlat against the unsharded k-NN", Ds, Is,
+                   Du.cpu().numpy(), Iu.cpu().numpy(), tol)
+    r = slice(0, EXACT_ROWS)
+    d64 = ((xq[r, None, :].astype(np.float64) - xb[Is[r]].astype(np.float64)) ** 2).sum(-1)
+    err = np.abs(Ds[r] - d64)
+    check((err <= tol[r, None]).all(), f"N-a. ShardedFlat's distances differ "
+                                       f"from float64 by {float(err.max()):.3e}")
+    recall = recall_at_k(Is, gt, K)
+    print(f"N-a. ShardedFlat over {N_SHARDS} shards of {NB // N_SHARDS} rows: "
+          f"{NQ} q k={K} in {t_search * 1e3:.1f} ms ({NQ / t_search:.0f} QPS); "
+          f"equals the unsharded ops.distances.knn tie-aware ({same} rows "
+          f"bitwise); {EXACT_ROWS} rows vs float64 max err {float(err.max()):.3e}; "
+          f"recall@10 {recall:.4f} ({CARD})", flush=True)
+    del sf
+    return Ds, Is
+
+
+def n_ivf(ft, state, xb, xq, dev, mesh):
+    """N-b. IVF4096,Flat over phase 4's coarse centroids; ShardedIVF and an
+    IndexShardsIVF of ivflib.shard_ivf_index_centroids, each against the
+    unsharded index's search_preassigned on the same probes."""
+    q = ft.IndexFlatL2(D, device=dev)
+    q.add(state["cent"])
+    ivf = ft.IndexIVFFlat(q, D, NLIST, device=dev)
+    t0 = time.time()
+    ivf.add(xb)
+    ivf._build_device()
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    sivf = ft.ShardedIVF(ivf, mesh)
+    hsh = ft.IndexShardsIVF(ivf.quantizer, D, NLIST)
+    for shard in ft.shard_ivf_index_centroids(ivf, N_SHARDS):
+        hsh.add_shard(shard)
+    check(hsh.ntotal == NB, f"N-b. the IndexShardsIVF shards hold {hsh.ntotal} rows")
+    cent_d = torch.from_numpy(state["cent"]).to(dev)
+    xn2 = float((xb.astype(np.float64) ** 2).sum(1).max())
+    notes = []
+    for nprobe in (1, 16):
+        nq = NQ if nprobe == 1 else N_NQ_PROBE
+        x = xq[:nq]
+        cd, pr = n_probes(torch.from_numpy(x).to(dev), cent_d, nprobe)
+        Dr, Ir = ivf.search_preassigned(x, K, pr, cd)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        Ds, Is = sivf.search(x, K, nprobe=nprobe)
+        torch.cuda.synchronize()
+        t_s = time.time() - t0
+        tol = n_tol(x, xn2)
+        a = n_equal(f"N-b. ShardedIVF nprobe {nprobe}", Ds, Is, Dr, Ir, tol)
+        hsh.nprobe = nprobe
+        Dh, Ih = hsh.search(x, K)
+        cdq, prq = ivf.quantizer.search(x, nprobe)
+        Dq, Iq = ivf.search_preassigned(x, K, prq, cdq)
+        b = n_equal(f"N-b. IndexShardsIVF nprobe {nprobe}", Dh, Ih, Dq, Iq, tol)
+        notes.append(f"nprobe {nprobe} ({nq} q): ShardedIVF {t_s * 1e3:.1f} ms, "
+                     f"{a} rows bitwise; IndexShardsIVF {b} rows bitwise")
+    print(f"N-b. IVF{NLIST},Flat on phase 4's centroids built in {t_build:.2f} s; "
+          f"ShardedIVF and IndexShardsIVF ({N_SHARDS} shards) equal its "
+          f"search_preassigned on the same probes tie-aware: "
+          + "; ".join(notes) + f" ({CARD})", flush=True)
+    del sivf, hsh
+    return ivf
+
+
+def n_ivfpq(ft, base, xq, dev, mesh):
+    """N-c. ShardedIVFPQ over phase 4's base, unrefined, at nprobe 1 and 16,
+    against the base's search_preassigned on the same probes and a one-shard
+    mesh."""
+    sp4 = ft.ShardedIVFPQ(base, mesh)
+    sp1 = ft.ShardedIVFPQ(base, ft.make_mesh(devices=[dev]))
+    cent_d = base._centroids_dev()
+    notes = []
+    for nprobe in (1, 16):
+        nq = NQ if nprobe == 1 else N_NQ_PROBE
+        x = xq[:nq]
+        xd = torch.from_numpy(x).to(dev)
+        cd, pr = n_probes(xd, cent_d, nprobe)
+        Dr, Ir = base.search_preassigned(x, K, pr, cd)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        D4, I4 = sp4.search(x, K, nprobe=nprobe)
+        torch.cuda.synchronize()
+        t4 = time.time() - t0
+        D1, I1 = sp1.search(x, K, nprobe=nprobe)
+        tol = adc_tol(base.pq._dev(), base._maybe_term2(), xd, cent_d)
+        a = n_equal(f"N-c. ShardedIVFPQ nprobe {nprobe}", D4, I4, Dr, Ir, tol)
+        b = n_equal(f"N-c. ShardedIVFPQ 4 vs 1 shard nprobe {nprobe}", D4, I4,
+                    D1, I1, tol)
+        notes.append(f"nprobe {nprobe} ({nq} q): {t4 * 1e3:.1f} ms, {a} rows "
+                     f"bitwise to search_preassigned, {b} to one shard, max "
+                     f"|D - ref| {float(np.abs(D4 - Dr).max()):.3e}")
+    print(f"N-c. ShardedIVFPQ over phase 4's base ({N_SHARDS} CSR shards of "
+          f"{base.nlist // N_SHARDS} lists): " + "; ".join(notes) + f" ({CARD})",
+          flush=True)
+
+
+def n_refined(ft, state, xb, xq, gt, dev, mesh):
+    """N-d. ShardedRefinedIVFPQ (fp16 store, k_factor 8, nprobe 1) on 4
+    shards and on one."""
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    base = state["index"].base_index
+    r4 = ft.ShardedRefinedIVFPQ(base, mesh, xb, store_float16=True, k_factor=K_FACTOR)
+    r1 = ft.ShardedRefinedIVFPQ(base, ft.make_mesh(devices=[dev]), xb,
+                                store_float16=True, k_factor=K_FACTOR)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    D4, I4 = r4.search(xq, K, nprobe=NPROBE)
+    torch.cuda.synchronize()
+    t4 = time.time() - t0
+    D1, I1 = r1.search(xq, K, nprobe=NPROBE)
+    check(np.isfinite(D4).all() and (I4 >= 0).all(), "N-d. missing results")
+    r = slice(0, EXACT_ROWS)
+    x16 = xb[I4[r]].astype(np.float16).astype(np.float64)
+    d64 = ((xq[r, None, :].astype(np.float64) - x16) ** 2).sum(-1)
+    err = float(np.abs(D4[r] - d64).max())
+    check(np.allclose(D4[r], d64, rtol=1e-5, atol=1e-5),
+          f"N-d. distances are not exact to the fp16 store ({err:.3e})")
+    # the union of the shards' top-kc holds the one-shard top-kc
+    tol = 1e-6 * (1.0 + np.abs(D1))
+    worse = D4 > D1 + tol
+    check(not worse.any(), f"N-d. 4 shards worse than one at {int(worse.sum())} "
+                           "(row, rank) places")
+    recall4, recall1 = recall_at_k(I4, gt, K), recall_at_k(I1, gt, K)
+    print(f"N-d. ShardedRefinedIVFPQ (fp16 store, k_factor {K_FACTOR}, nprobe "
+          f"{NPROBE}, kc {min(K * K_FACTOR, 8 * r4.max_len)}): {NQ} q in "
+          f"{t4 * 1e3:.1f} ms; {EXACT_ROWS} rows exact to the fp16 store (max "
+          f"err {err:.3e}); never worse than one shard ({int((D4 < D1 - tol).sum())} "
+          f"places better); recall@10 {recall4:.4f} (one shard {recall1:.4f}; "
+          f"the main path {state['recall']:.4f}) ({CARD})", flush=True)
+
+
+def n_builder(ft, state, xb, xt, xq, gt, dev, mesh):
+    """N-e. ShardedIVFPQBuilder(128, 4096, 32, 4): trained on the training
+    rows, the 1M rows added in chunks, finalized; checked by one k-means
+    iteration against the unsharded reduction, 64 rows against float64 and
+    its recall against phase 4's index."""
+    from faiss_tpu_torch.ops.kmeans_ops import kmeans_assign_update
+    from faiss_tpu_torch.parallel.sharded import _shard_pad
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    b = ft.ShardedIVFPQBuilder(D, NLIST, M, NBITS, mesh)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b.train(xt, niter=NITER)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    t0 = time.time()
+    for c0 in range(0, NB, NB // 4):
+        b.add(xb[c0 : c0 + NB // 4])
+    out = b.finalize()
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+
+    # one data-parallel iteration against the unsharded reduction
+    xp, _ = _shard_pad(xt, N_SHARDS)
+    cent = torch.from_numpy(b.centroids).to(dev)
+    ss, sc, so = ft.sharded_kmeans_iter(mesh, xp, b.centroids)
+    us, uc, uo, _ = kmeans_assign_update(torch.from_numpy(xp).to(dev), cent)
+    ndiff = int((sc != uc).sum())
+    check(ndiff == 0, f"N-e. sharded k-means counts differ on {ndiff} centroids")
+    serr = float((ss - us).abs().max() / us.abs().max())
+    check(serr <= 1e-5, f"N-e. sharded k-means sums differ by {serr:.3e} relative")
+    oerr = abs(float(so) - float(uo)) / abs(float(uo))
+    check(oerr <= 1e-5, f"N-e. sharded k-means objective differs by {oerr:.3e}")
+
+    # 64 rows at nprobe 16 against a float64 ADC over the probed lists
+    x = xq[:EXACT_ROWS]
+    cd, pr = n_probes(torch.from_numpy(x).to(dev), cent, 16)
+    Dp, Ip = out.search(x, K, nprobe=16)
+    c64 = b.centroids.astype(np.float64)
+    cb = b.pq.centroids.astype(np.float64)
+    lps = out.lists_per_shard
+    tol = adc_tol(out.pq_codebooks[0], torch.cat(out.term2), torch.from_numpy(x).to(dev),
+                  cent)
+    for q in range(EXACT_ROWS):
+        ds, ids = [], []
+        for ln in pr[q]:
+            s, l = divmod(int(ln), lps)
+            lists = out.lists[s]
+            o, n = int(lists.offsets[l]), int(lists.lengths[l])
+            codes = lists.codes[o : o + n].long().cpu().numpy()
+            rec = c64[ln] + np.concatenate([cb[m, codes[:, m]] for m in range(M)], 1)
+            ds.append(((x[q].astype(np.float64) - rec) ** 2).sum(1))
+            ids.append(out._ids_host[lists.slot_ids[o : o + n].cpu().numpy()])
+        ds, ids = np.concatenate(ds), np.concatenate(ids)
+        order = np.argsort(ds, kind="stable")[:K]
+        n_equal(f"N-e. builder row {q} against float64", Dp[q : q + 1], Ip[q : q + 1],
+                ds[order][None], ids[order][None], tol[q : q + 1])
+
+    # recall against phase 4's index, unrefined, at nprobe 16
+    base = state["index"].base_index
+    x = xq[:N_NQ_PROBE]
+    base.nprobe = 16
+    _, Ib = base.search(x, K)
+    base.nprobe = NPROBE
+    _, Is = out.search(x, K, nprobe=16)
+    rb, rs_ = recall_at_k(Ib, gt[:N_NQ_PROBE], K), recall_at_k(Is, gt[:N_NQ_PROBE], K)
+    check(abs(rs_ - rb) <= N_RECALL_GAP, f"N-e. the builder's recall@10 {rs_:.4f} "
+                                         f"against phase 4's index {rb:.4f}")
+    print(f"N-e. ShardedIVFPQBuilder({D}, {NLIST}, {M}, {NBITS}) on {N_SHARDS} "
+          f"shards: train ({NT} rows, {NITER} data-parallel iterations, PQ) "
+          f"{t_train:.2f} s, add of {NB} rows in 4 chunks + finalize "
+          f"{t_add:.2f} s; one iteration equals the unsharded reduction (counts "
+          f"exact, sums {serr:.2e}, objective {oerr:.2e} relative); "
+          f"{EXACT_ROWS} rows at nprobe 16 equal a float64 ADC over their "
+          f"lists; recall@10 at nprobe 16 {rs_:.4f} against phase 4's "
+          f"{rb:.4f} ({N_NQ_PROBE} q) ({CARD})", flush=True)
+
+
+def n_main_knobs(index):
+    """The main path's search settings: phases 5-14 change them on phase
+    4's index (phase 14 re-stages it without the decoded store)."""
+    base = index.base_index
+    base.nprobe = NPROBE
+    base.strict_probe = False
+    base.pipeline_batch = BATCH
+    if base.recon_scan_max_bytes != type(base).recon_scan_max_bytes:
+        base.recon_scan_max_bytes = type(base).recon_scan_max_bytes
+        base._drop_caches()
+    index.k_factor = K_FACTOR
+
+
+def n_compositions(ft, fused_knn, tally, state, xb, xq, gt, dev, flat_res):
+    """N-f. IndexShards over two cloned, reset and refilled halves of phase
+    4's index at the main operating point (K1), IndexReplicas of phase 4's
+    index and its clone, IndexShards of four IndexFlatL2 quarters. Returns
+    the halves."""
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    index = state["index"]
+    n_main_knobs(index)
+    t0 = time.time()
+    half_a = ft.clone_index(index)
+    t_clone = time.time() - t0
+    half_a.reset()
+    half_b = ft.clone_index(half_a)
+    half_a.add(xb[: NB // 2])
+    half_b.add(xb[NB // 2 :])
+    shards = ft.IndexShards(D, successive_ids=True)
+    for h in (half_a, half_b):
+        n_main_knobs(h)
+        shards.add_shard(h)
+    check(shards.ntotal == NB, f"N-f. IndexShards holds {shards.ntotal} rows")
+    (Ds, Is), t_sh, peak = m_driven(fused_knn, tally, "N-f. IndexShards",
+                                    lambda: shards.search(xq, K),
+                                    need=("ivf_recon_fused_dyn",))
+    k1_shards = fused_knn.ivf_recon_fused_dyn.launches
+    recall = recall_at_k(Is, gt, K)
+    check(recall >= RECALL_MIN, f"N-f. IndexShards recall@10 {recall:.4f}")
+    x16 = xb[Is[:256]].astype(np.float16).astype(np.float32)
+    check(np.allclose(Ds[:256], ((xq[:256, None, :] - x16) ** 2).sum(-1),
+                      rtol=1e-4, atol=1e-3),
+          "N-f. IndexShards distances are not the exact L2 to the fp16 store")
+
+    replica = ft.clone_index(index)
+    n_main_knobs(replica)
+    reps = ft.IndexReplicas(D)
+    reps.add_replica(index)
+    reps.add_replica(replica)
+    D0, I0 = index.search(xq, K)
+    (Dr, Ir), t_rep, _ = m_driven(fused_knn, tally, "N-f. IndexReplicas",
+                                  lambda: reps.search(xq, K),
+                                  need=("ivf_recon_fused_dyn",))
+    k1_reps = fused_knn.ivf_recon_fused_dyn.launches
+    other = rows_equal_up_to_k1_ties("N-f. IndexReplicas against phase 4's index",
+                                     D0, I0, Dr, Ir)
+    del reps, replica
+
+    quarters = ft.IndexShards(D, successive_ids=True)
+    for q in range(4):
+        f = ft.IndexFlatL2(D, device=dev)
+        f.add(xb[q * NB // 4 : (q + 1) * NB // 4])
+        quarters.add_shard(f)
+    (Dq, Iq), t_q, _ = m_driven(fused_knn, tally, "N-f. IndexShards of IndexFlatL2",
+                                lambda: quarters.search(xq, K),
+                                need=(M_FLAT_KERNELS,))
+    flat_n = {n: c for n, c in m_counts(fused_knn).items() if c}
+    xn2 = float((xb.astype(np.float64) ** 2).sum(1).max())
+    same = n_equal("N-f. IndexShards of IndexFlatL2 against N-a", Dq, Iq,
+                   *flat_res, n_tol(xq, xn2))
+    del quarters
+    print(f"N-f. clone_index of phase 4's index {t_clone:.2f} s; IndexShards of "
+          f"two IVF{NLIST},PQ{M}x{NBITS}fs,RFlat halves ({NB // 2} rows each; nprobe {NPROBE} "
+          f"soft, k_factor {K_FACTOR}): {NQ} q in {t_sh * 1e3:.1f} ms "
+          f"({NQ / t_sh:.0f} QPS), K1 x{k1_shards}, recall@10 {recall:.4f}, peak "
+          f"{peak:.2f} GiB; IndexReplicas (index + clone): {t_rep * 1e3:.1f} ms, "
+          f"K1 x{k1_reps}, equal to the index on {NQ - other} of {NQ} rows (the "
+          f"rest tied at K1's cut); IndexShards of four IndexFlatL2 quarters: "
+          f"{t_q * 1e3:.1f} ms, kernels {flat_n}, equal to N-a tie-aware ({same} "
+          f"rows bitwise) ({CARD})", flush=True)
+    return half_a, half_b
+
+
+def n_tools(ft, state, half_a, half_b, ivf, xb, xq, dev):
+    """N-g. ivflib.merge_into of the N-f halves' bases against phase 4's
+    base, one SlidingIndexWindow.step, an OnDiskInvertedLists round trip of
+    N-b's lists."""
+    base = state["index"].base_index
+    a, b_ = half_a.base_index, half_b.base_index
+    t0 = time.time()
+    ft.merge_into(a, b_, shift_ids=True)
+    t_merge = time.time() - t0
+    check(a.ntotal == NB and b_.ntotal == 0
+          and np.array_equal(a._ids_host, base._ids_host),
+          f"N-g. merge_into left {a.ntotal} + {b_.ntotal} entries")
+    ncodes = int((a._codes_host != base._codes_host).any(1).sum())
+    x = xq[:N_NQ_PROBE]
+    xd = torch.from_numpy(x).to(dev)
+    cd, pr = n_probes(xd, base._centroids_dev(), 16)
+    Dm, Im = a.search_preassigned(x, K, pr, cd)
+    Db, Ib = base.search_preassigned(x, K, pr, cd)
+    same = n_equal("N-g. merge_into against phase 4's base", Dm, Im, Db, Ib,
+                   adc_tol(base.pq._dev(), base._maybe_term2(), xd,
+                           base._centroids_dev()))
+
+    # the window: drop the merged entries, append a sub-index of a tenth
+    n_sub = NB // 10
+    sub = ft.IndexIVFPQFastScan(base.quantizer, D, NLIST, M, NBITS, device=dev)
+    sub.pq.set_centroids(base.pq.centroids)
+    sub.is_trained = True
+    sub.add(xb[:n_sub])
+    win = ft.SlidingIndexWindow(a)
+    t0 = time.time()
+    win.step(sub, remove_oldest=True)
+    t_step = time.time() - t0
+    check(win.n_slice == 1 and a.ntotal == n_sub and a._device is None,
+          f"N-g. the window holds {a.ntotal} entries in {win.n_slice} slices")
+    x = xq[:256]
+    cd, pr = n_probes(torch.from_numpy(x).to(dev), base._centroids_dev(), 4)
+    Dw, Iw = a.search_preassigned(x, K, pr, cd)
+    Dsub, Isub = sub.search_preassigned(x, K, pr, cd)
+    check(np.array_equal(Dw, Dsub) and np.array_equal(Iw, Isub),
+          "N-g. the window's search differs from its sub-index's")
+
+    # the IVF-Flat lists through a file and back
+    path = ROOT / "faiss_tpu_torch" / "_build" / "phase_n.ivfdata"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    il = ft.ArrayInvertedLists.from_index(ivf)
+    od = ft.OnDiskInvertedLists(NLIST, il.code_size, str(path))
+    od.merge_from_multiple([il])
+    back = ft.shard_ivf_index_centroids(ivf, 1)[0]
+    ft.replace_invlists(back, od)
+    t_disk = time.time() - t0
+    size = path.stat().st_size
+    x = xq[:N_NQ_PROBE]
+    cd, pr = n_probes(torch.from_numpy(x).to(dev),
+                      torch.from_numpy(state["cent"]).to(dev), 16)
+    Do, Io = back.search_preassigned(x, K, pr, cd)
+    Di, Ii = ivf.search_preassigned(x, K, pr, cd)
+    od.close()
+    path.unlink()
+    check(np.array_equal(Do, Di) and np.array_equal(Io, Ii),
+          "N-g. the IVF-Flat read back from OnDiskInvertedLists searches otherwise")
+    print(f"N-g. merge_into of the two halves' bases {t_merge:.2f} s: equal to "
+          f"phase 4's base at nprobe 16 ({N_NQ_PROBE} q; {same} rows bitwise, "
+          f"{ncodes} of {NB} codes differ from phase 4's encode); "
+          f"SlidingIndexWindow.step (drop {NB}, append {n_sub}) {t_step:.3f} s, its "
+          f"search equal to the sub-index's; OnDiskInvertedLists of the "
+          f"IVF{NLIST},Flat lists ({size / 2**20:.0f} MiB file, from_index + "
+          f"merge_from_multiple + replace_invlists {t_disk:.2f} s) searches "
+          f"bit for bit as before ({CARD})", flush=True)
+
+
+def sharded_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
+    """Phase N. Returns the launches of each kernel on N-f's user-facing
+    searches (IndexShards, IndexReplicas), by the name of its entry in the
+    kernels' line."""
+    t_all = time.time()
+    times, peaks, tally = {}, {}, {}
+    mesh = ft.make_mesh(devices=[dev] * N_SHARDS)
+    check(mesh.size == N_SHARDS, f"N. mesh {mesh}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    flat_res = n_flat(ft, xb, xq, gt, dev, mesh)
+    n_part(times, peaks, "N-a", t0)
+    t0 = time.time()
+    ivf = n_ivf(ft, state, xb, xq, dev, mesh)
+    n_part(times, peaks, "N-b", t0)
+    t0 = time.time()
+    n_ivfpq(ft, state["index"].base_index, xq, dev, mesh)
+    n_part(times, peaks, "N-c", t0)
+    t0 = time.time()
+    n_refined(ft, state, xb, xq, gt, dev, mesh)
+    n_part(times, peaks, "N-d", t0)
+    t0 = time.time()
+    n_builder(ft, state, xb, xt, xq, gt, dev, mesh)
+    n_part(times, peaks, "N-e", t0)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    half_a, half_b = n_compositions(ft, fused_knn, tally, state, xb, xq, gt, dev,
+                                    flat_res)
+    n_part(times, peaks, "N-f", t0)
+    t0 = time.time()
+    n_tools(ft, state, half_a, half_b, ivf, xb, xq, dev)
+    n_part(times, peaks, "N-g", t0)
+    del half_a, half_b, ivf
+    torch.cuda.empty_cache()
+    print(f"phase N: {time.time() - t_all:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s / {peaks[k]:.2f} GiB peak"
+                      for k, v in sorted(times.items()))
+          + f"); launches {tally} ({CARD})", flush=True)
+    return tally
+
+
 def main():
     # ``--only K`` runs phases 1-3 and phase K alone (the graph indexes and
     # the IMI), ``--only L`` phases 1-3 and phase L (the additive quantizers
     # and RaBitQ), ``--only M`` phases 1-3 and phase M (the extra metrics and
-    # the codecs of faiss_tpu's remainder), with no kernels' line
+    # the codecs of faiss_tpu's remainder), ``--only N`` phases 1-4 and
+    # phase N (the multi-device layer), with no kernels' line
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("K", "L", "M"):
-        print("usage: chip_smoke.py [--only K|L|M]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("K", "L", "M", "N"):
+        print("usage: chip_smoke.py [--only K|L|M|N]", file=sys.stderr)
         return 2
     only_k = only == "K"
     if not torch.cuda.is_available():
@@ -5420,6 +5938,9 @@ def main():
             deep10m_phases(ft, fused_knn, dev, only_k=True)
         elif only == "M":
             codec_phases(ft, fused_knn, xb, xt, xq, gt, dev)
+        elif only == "N":
+            state = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev, main_only=True)
+            sharded_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
         else:
             aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
         print(card)
@@ -5431,7 +5952,8 @@ def main():
     torch.cuda.empty_cache()
     refine_sq8_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
     io_phases(ft, fused_knn, state, xq, dev)
-    del state["index"]
+    # phase N reuses the index: its list-built layouts go until then
+    state["index"].base_index._drop_caches()
     torch.cuda.empty_cache()
     kernels += flat_phases(ft, fused_knn, xb, xq, gt, dev, k2_ivf)
     torch.cuda.empty_cache()
@@ -5462,7 +5984,11 @@ def main():
     # phase M's launches in a field of their own, as K-a's
     for name, n in codec_phases(ft, fused_knn, xb, xt, xq, gt, dev).items():
         next(e for e in kernels if e["name"] == name)["m_launches"] = n
-    del xb, xt, xq
+    torch.cuda.empty_cache()
+    # phase N's launches (IndexShards, IndexReplicas) in a field of their own
+    for name, n in sharded_phases(ft, fused_knn, state, xb, xt, xq, gt, dev).items():
+        next(e for e in kernels if e["name"] == name)["n_launches"] = n
+    del xb, xt, xq, state
     torch.cuda.empty_cache()
     kernels.append(deep10m_phases(ft, fused_knn, dev))
     torch.cuda.empty_cache()

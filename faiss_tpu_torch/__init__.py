@@ -99,12 +99,20 @@ Ported so far:
     (``write_index``, ``read_index``, ``serialize_index``,
     ``deserialize_index``, ``write_index_binary``, ``read_index_binary``,
     ``IO_FLAG_MMAP``) in faiss_tpu's npz container, each package reading
-    the other's.
+    the other's;
+  - the multi-device layer — ``parallel.sharded`` (``make_mesh`` over a
+    list of devices, ``ShardedFlat``, ``ShardedIVF``, ``ShardedIVFPQ``,
+    ``ShardedIVFPQBuilder``, ``ShardedRefinedIVFPQ``,
+    ``sharded_kmeans_iter``) and the host compositions ``IndexShards``,
+    ``IndexReplicas`` and ``IndexShardsIVF``; the IVF list tooling
+    ``ivflib`` (``merge_into``, ``shard_ivf_index_centroids``,
+    ``clone_index``, ``SlidingIndexWindow``, ...) and ``invlists``
+    (array, slice, hstack, vstack and on-disk inverted lists,
+    ``replace_invlists``).
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue-1 item: the multi-device meta indexes (item 11),
-``reverse_index_factory`` and the reference-format reader ``io_ref``
-(item 12).
+Not ported yet: ``reverse_index_factory`` and the reference-format reader
+``io_ref`` (ROADMAP queue 1 item 12; ``io_ref`` raises
+NotImplementedError naming it).
 """
 
 import torch
@@ -285,6 +293,9 @@ from .models.meta import (  # noqa: E402,F401
     IndexRandom,
     IndexRefine,
     IndexRefineFlat,
+    IndexReplicas,
+    IndexShards,
+    IndexShardsIVF,
     IndexSplitVectors,
 )
 from .transforms import (  # noqa: E402,F401
@@ -312,3 +323,35 @@ from .io import (  # noqa: E402,F401
     write_index_binary,
 )
 from .utils.evaluation import recall_at_k  # noqa: E402,F401
+from .ivflib import (  # noqa: E402,F401
+    SlidingIndexWindow,
+    add_preassigned,
+    clone_index,
+    extract_index_ivf,
+    get_invlist_range,
+    merge_into,
+    replace_ivf_quantizer,
+    search_preassigned,
+    shard_ivf_index_centroids,
+    try_extract_index_ivf,
+)
+from .invlists import (  # noqa: E402,F401
+    ArrayInvertedLists,
+    HStackInvertedLists,
+    InvertedLists,
+    InvertedListsIOHook,
+    OnDiskInvertedLists,
+    SliceInvertedLists,
+    VStackInvertedLists,
+    replace_invlists,
+)
+from .parallel.sharded import (  # noqa: E402,F401
+    Mesh,
+    ShardedFlat,
+    ShardedIVF,
+    ShardedIVFPQ,
+    ShardedIVFPQBuilder,
+    ShardedRefinedIVFPQ,
+    make_mesh,
+    sharded_kmeans_iter,
+)

@@ -90,6 +90,20 @@ p.num_levels, device=...)`` and an ``IndexIVFFlatPanorama`` named ``ip``
 ip._listnos_host, ip._ids_host, ip.n_levels, device=...)``; a faiss_tpu
 ``QINCo`` state dict (``utils.neuralnet._qinco_init``'s, or numpy arrays of
 a trained one) is ``qinco_from_state(state, d, K, L, M, h, device=...)``.
+
+The sharded indexes take a port mesh (``parallel.sharded.make_mesh``) in
+place of a device; their unsharded index lives on ``mesh.devices[0]``. A
+faiss_tpu ``ShardedFlat`` over rows ``xb`` is ``sharded_flat_from_arrays(
+xb, mesh, metric)``; a ``ShardedIVF`` over an IVF-Flat ``ivf`` is
+``sharded_ivf_from_arrays(ivf.quantizer.vectors(), ivf._codes_host,
+ivf._listnos_host, ivf._ids_host, mesh, metric=...)``; a ``ShardedIVFPQ``
+over an IVF-PQ ``ivfpq`` is ``sharded_ivfpq_from_arrays`` with
+:func:`ivfpq_from_arrays`' arrays and the mesh, and a
+``ShardedRefinedIVFPQ`` adds its ``xb_t`` rows
+(``sharded_refined_ivfpq_from_arrays``); a trained
+``ShardedIVFPQBuilder`` named ``b`` is ``ivfpq_builder_from_arrays(
+b.centroids, b.pq.centroids, mesh, metric=b.metric_type,
+by_residual=b.by_residual)``.
 """
 
 from __future__ import annotations
@@ -126,6 +140,13 @@ from .models.eden import IndexEDEN, IndexIVFEDEN
 from .models.lattice import IndexLattice
 from .models.panorama import IndexFlatPanorama, IndexIVFFlatPanorama
 from .utils.neuralnet import QINCo
+from .parallel.sharded import (
+    ShardedFlat,
+    ShardedIVF,
+    ShardedIVFPQ,
+    ShardedIVFPQBuilder,
+    ShardedRefinedIVFPQ,
+)
 from .models.meta import (
     IndexIDMap,
     IndexIDMap2,
@@ -655,3 +676,60 @@ def qinco_from_state(state, d, K, L, M, h, *, device) -> QINCo:
     model = QINCo(d, K, L, M, h).to(device)
     model.load_state(state)
     return model
+
+
+def sharded_flat_from_arrays(xb, mesh, metric=MetricType.L2) -> ShardedFlat:
+    """ShardedFlat over ``mesh`` holding the rows ``xb`` [n, d] in order."""
+    xb = np.ascontiguousarray(xb, np.float32)
+    index = ShardedFlat(xb.shape[1], mesh, metric)
+    index.add(xb)
+    return index
+
+
+def sharded_ivf_from_arrays(centroids, xb, listnos, ids, mesh, *,
+                            metric=MetricType.L2) -> ShardedIVF:
+    """ShardedIVF over ``mesh`` of the :func:`ivfflat_from_arrays` index
+    (built on ``mesh.devices[0]``)."""
+    return ShardedIVF(ivfflat_from_arrays(centroids, xb, listnos, ids,
+                                          device=mesh.devices[0], metric=metric),
+                      mesh)
+
+
+def sharded_ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids,
+                              mesh, *, by_residual=True,
+                              metric=MetricType.L2) -> ShardedIVFPQ:
+    """ShardedIVFPQ over ``mesh`` of the :func:`ivfpq_from_arrays` index
+    (built on ``mesh.devices[0]``)."""
+    return ShardedIVFPQ(ivfpq_from_arrays(
+        centroids, pq_centroids, codes, listnos, ids, device=mesh.devices[0],
+        by_residual=by_residual, metric=metric), mesh)
+
+
+def sharded_refined_ivfpq_from_arrays(centroids, pq_centroids, codes, listnos,
+                                      ids, xb_t, mesh, *, store_float16=True,
+                                      k_factor=4, by_residual=True,
+                                      metric=MetricType.L2
+                                      ) -> ShardedRefinedIVFPQ:
+    """ShardedRefinedIVFPQ over ``mesh`` of the :func:`ivfpq_from_arrays`
+    index, its refine store the rows ``xb_t`` [n, d] in add order."""
+    index = ivfpq_from_arrays(centroids, pq_centroids, codes, listnos, ids,
+                              device=mesh.devices[0], by_residual=by_residual,
+                              metric=metric)
+    return ShardedRefinedIVFPQ(index, mesh, xb_t, store_float16=store_float16,
+                               k_factor=k_factor)
+
+
+def ivfpq_builder_from_arrays(centroids, pq_centroids, mesh, *,
+                              metric=MetricType.L2, by_residual=True
+                              ) -> ShardedIVFPQBuilder:
+    """A trained ShardedIVFPQBuilder over ``mesh`` from coarse centroids
+    [nlist, d] and PQ codebooks [M, ksub, dsub], ready to ``add``."""
+    centroids = np.ascontiguousarray(centroids, np.float32)
+    M, ksub, _ = np.shape(pq_centroids)
+    builder = ShardedIVFPQBuilder(centroids.shape[1], len(centroids), M,
+                                  ksub.bit_length() - 1, mesh, metric=metric,
+                                  by_residual=by_residual)
+    builder.centroids = centroids
+    builder.pq.set_centroids(pq_centroids)
+    builder.is_trained = True
+    return builder

@@ -1,10 +1,16 @@
-"""The meta-indexes (counterpart of faiss_tpu/models/meta.py:41-665):
-IndexPreTransform, the id maps, the refinement indexes, IndexSplitVectors
-and IndexRandom. IndexShards, IndexReplicas and IndexShardsIVF are ROADMAP
-queue 1 item 11."""
+"""The meta-indexes (counterpart of faiss_tpu/models/meta.py:21-704):
+IndexPreTransform, the id maps, the refinement indexes, IndexShards,
+IndexReplicas, IndexSplitVectors, IndexRandom and IndexShardsIVF.
+
+The shard and replica compositions are host compositions of independently
+built indexes, each searched by its own ``search`` (so an IndexShards of
+refined IVF-PQ shards runs their fused kernels); their results merge by the
+k-select of :func:`_merge_result_tables`. The sharded indexes over a mesh of
+devices are parallel/sharded.py."""
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
@@ -17,6 +23,32 @@ from ..ops.topk import topk
 from .flat import IndexFlat, IndexFlatSQ8
 from .ivf import IndexIVF
 from .ivf_pq import IndexIVFPQ
+
+
+def _merge_result_tables(D_list, I_list, k, largest):
+    """Merge per-shard result tables [nq, k_s] (numpy arrays or torch
+    tensors) into the best k of each row (IndexShards.h:84 merge_tables;
+    faiss_tpu meta.py:21): a partition to the k survivors first, then a
+    stable sort of those only."""
+    if isinstance(D_list[0], torch.Tensor):
+        D, I = torch.cat(D_list, dim=1), torch.cat(I_list, dim=1)
+        key = -D if largest else D
+        if k < key.shape[1]:
+            part = torch.topk(key, k, dim=1, largest=False).indices
+            key, D, I = key.gather(1, part), D.gather(1, part), I.gather(1, part)
+        order = torch.sort(key, dim=1, stable=True).indices[:, :k]
+        return D.gather(1, order), I.gather(1, order)
+    D = np.concatenate(D_list, axis=1)
+    I = np.concatenate(I_list, axis=1)
+    key = -D if largest else D
+    n = key.shape[1]
+    if k < n:
+        part = np.argpartition(key, k - 1, axis=1)[:, :k]
+        key = np.take_along_axis(key, part, axis=1)
+        D = np.take_along_axis(D, part, axis=1)
+        I = np.take_along_axis(I, part, axis=1)
+    order = np.argsort(key, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(D, order, axis=1), np.take_along_axis(I, order, axis=1)
 
 
 class IndexPreTransform(Index):
@@ -423,6 +455,141 @@ class IndexRefineFlat(IndexRefine):
         self.store = store
 
 
+class IndexShards(Index):
+    """Vector-split sharding over independently built indexes
+    (IndexShards.h:20; faiss_tpu meta.py:462). Queries fan out to every
+    shard, serially or, with ``threaded``, from a thread pool (each shard's
+    search waits on its device with the interpreter lock released); the
+    results merge by k-select. With ``successive_ids`` shard i's ids are
+    shifted by the sizes of the shards before it. The metric and the
+    device are the first shard's."""
+
+    def __init__(self, d: int, threaded: bool = False, successive_ids: bool = True):
+        self.shards: List[Index] = []
+        self.threaded = threaded
+        self.successive_ids = successive_ids
+        self._d = int(d)
+        self._initialized = False
+
+    def _init_from(self, index: Index):
+        if not self._initialized:
+            Index.__init__(self, self._d, index.metric_type, index.metric_arg,
+                           device=index.device)
+            self._initialized = True
+
+    def add_shard(self, index: Index) -> None:
+        if index.d != self._d:
+            raise ValueError("shard dimension mismatch")
+        self._init_from(index)
+        self.shards.append(index)
+        self.ntotal = sum(s.ntotal for s in self.shards)
+        self.is_trained = all(s.is_trained for s in self.shards)
+
+    def count(self) -> int:
+        return len(self.shards)
+
+    def at(self, i: int) -> Index:
+        return self.shards[i]
+
+    def train(self, x) -> None:
+        for s in self.shards:
+            s.train(x)
+        self.is_trained = True
+
+    def add(self, x) -> None:
+        """Split the batch evenly across the shards, in order
+        (IndexShards::add_with_ids)."""
+        x = self._check_input(x)
+        n, ns = len(x), len(self.shards)
+        at = 0
+        for i, s in enumerate(self.shards):
+            cnt = n // ns + (1 if i < n % ns else 0)
+            if cnt:
+                s.add(x[at : at + cnt])
+                at += cnt
+        self.ntotal += n
+
+    def search(self, x, k, *, params=None):
+        x = self._check_input(x)
+        offsets = np.cumsum([0] + [s.ntotal for s in self.shards])[:-1]
+
+        def one(i_s):
+            i, s = i_s
+            D, I = s.search(x, k, params=params)
+            if self.successive_ids:
+                I = np.where(I >= 0, I + offsets[i], -1)
+            return D, I
+
+        if self.threaded and len(self.shards) > 1:
+            with ThreadPoolExecutor(len(self.shards)) as ex:
+                results = list(ex.map(one, enumerate(self.shards)))
+        else:
+            results = [one(p) for p in enumerate(self.shards)]
+        return _merge_result_tables([r[0] for r in results],
+                                    [r[1] for r in results], k,
+                                    is_similarity_metric(self.metric_type))
+
+    def reset(self) -> None:
+        for s in self.shards:
+            s.reset()
+        self.ntotal = 0
+
+
+class IndexReplicas(Index):
+    """Full replicas of one index; the queries are split across them in
+    order (IndexReplicas.h:42; faiss_tpu meta.py:549)."""
+
+    def __init__(self, d: int):
+        self.replicas: List[Index] = []
+        self._d = int(d)
+        self._initialized = False
+
+    def add_replica(self, index: Index) -> None:
+        if not self._initialized:
+            Index.__init__(self, self._d, index.metric_type, index.metric_arg,
+                           device=index.device)
+            self._initialized = True
+        self.replicas.append(index)
+        self.ntotal = index.ntotal
+        self.is_trained = index.is_trained
+
+    def count(self) -> int:
+        return len(self.replicas)
+
+    def at(self, i: int) -> Index:
+        return self.replicas[i]
+
+    def train(self, x) -> None:
+        for r in self.replicas:
+            r.train(x)
+        self.is_trained = True
+
+    def add(self, x) -> None:
+        for r in self.replicas:
+            r.add(x)
+        self.ntotal = self.replicas[0].ntotal if self.replicas else 0
+
+    def search(self, x, k, *, params=None):
+        x = self._check_input(x)
+        nq, nr = len(x), len(self.replicas)
+        largest = is_similarity_metric(self.metric_type)
+        D = np.full((nq, k), -np.inf if largest else np.inf, np.float32)
+        I = np.full((nq, k), -1, np.int64)
+        at = 0
+        for i, r in enumerate(self.replicas):
+            cnt = nq // nr + (1 if i < nq % nr else 0)
+            if cnt:
+                D[at : at + cnt], I[at : at + cnt] = r.search(
+                    x[at : at + cnt], k, params=params)
+                at += cnt
+        return D, I
+
+    def reset(self) -> None:
+        for r in self.replicas:
+            r.reset()
+        self.ntotal = 0
+
+
 class IndexSplitVectors(Index):
     """Dimension-sliced composition, inner product only (MetaIndexes.h:24;
     faiss_tpu meta.py:605): sub-index i answers for its slice of the
@@ -484,3 +651,39 @@ class IndexRandom(Index):
     def reconstruct(self, key):
         rs = np.random.RandomState(self.seed + int(key))
         return rs.rand(self.d).astype(np.float32)
+
+
+class IndexShardsIVF(IndexShards):
+    """IVF shards sharing one coarse quantizer (IndexShardsIVF.h:19;
+    faiss_tpu meta.py:668): the coarse assignment is computed once and each
+    shard scans its lists by ``search_preassigned``. The results keep the
+    shards' own ids (``successive_ids`` is not applied, as in faiss_tpu):
+    the shards of ``ivflib.shard_ivf_index_centroids`` carry the global
+    ones."""
+
+    def __init__(self, quantizer, d: int, nlist: int, nprobe: int = 1):
+        super().__init__(d)
+        self.quantizer = quantizer
+        self.nlist = int(nlist)
+        self.nprobe = nprobe
+
+    def add_shard(self, index) -> None:
+        if not isinstance(index, IndexIVF):
+            raise TypeError("IndexShardsIVF shards must be IndexIVF")
+        if index.nlist != self.nlist:
+            raise ValueError("shard nlist mismatch")
+        super().add_shard(index)
+
+    def search(self, x, k, *, params=None):
+        x = self._check_input(x)
+        nprobe = self.nprobe
+        if params is not None and getattr(params, "nprobe", 0):
+            nprobe = params.nprobe
+        coarse_dis, assign = self.quantizer.search(x, nprobe)
+        Ds, Is = [], []
+        for s in self.shards:
+            D, I = s.search_preassigned(x, k, assign, coarse_dis, params=params)
+            Ds.append(D)
+            Is.append(I)
+        return _merge_result_tables(Ds, Is, k,
+                                    is_similarity_metric(self.metric_type))

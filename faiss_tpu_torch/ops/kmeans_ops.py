@@ -81,6 +81,32 @@ def _assign_chunk(xc: torch.Tensor, planes, c_norms: torch.Tensor):
     return best.clamp_min(0.0), assign
 
 
+def kmeans_assign_update(x: torch.Tensor, centroids: torch.Tensor):
+    """One Lloyd iteration's reduction over the float32 points ``x`` [n, d]
+    (faiss_tpu/ops/kmeans_ops.py:29), in chunks of 16,384 points (faiss_tpu's
+    default), so no [n, k] matrix is held at once: (sums [k, d]
+    float32, counts [k] float32, objective float32 scalar, assignment [n]
+    int64). The objective is the sum of the squared distances to the nearest
+    centroid, each clamped at 0. The reduction of
+    parallel/sharded.sharded_kmeans_iter on each shard."""
+    k, d = centroids.shape
+    c_norms = centroids.square().sum(-1)
+    sums = torch.zeros(k, d, device=x.device)
+    counts = torch.zeros(k, device=x.device)
+    obj = torch.zeros((), dtype=torch.float64, device=x.device)
+    assign = []
+    for s in range(0, len(x), 1 << 14):
+        xc = x[s : s + (1 << 14)].float()
+        best, a = _assign_chunk(xc, (centroids,), c_norms)
+        add_to_centroids(sums, a, xc)
+        counts += torch.bincount(a, minlength=k).float()
+        obj += best.sum(dtype=torch.float64)
+        assign.append(a)
+    a = torch.cat(assign) if assign else torch.zeros(0, dtype=torch.int64,
+                                                     device=x.device)
+    return sums, counts, obj.float(), a
+
+
 def _new_centroids(c, sums, counts, generator, *, spherical, int_centroids,
                    frozen, split):
     """The update of one iteration (faiss_tpu :283-296): means of the

@@ -35,3 +35,19 @@ def merge_topk(
     ids = torch.cat([ids_a, ids_b], dim=-1)
     v, pos = topk(vals, k, largest=largest)
     return v, torch.gather(ids, -1, pos)
+
+
+def merge_topk_many(
+    vals: torch.Tensor,
+    ids: torch.Tensor,
+    k: int,
+    *,
+    largest: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge the results of S sources, ``vals``/``ids`` [..., S, k'], as one
+    reselect over the flattened candidate axis (faiss_tpu/ops/topk.py:70;
+    IndexShards::merge_tables). The shard merge of parallel/sharded.py."""
+    flat_vals = vals.reshape(*vals.shape[:-2], -1)
+    flat_ids = ids.reshape(*ids.shape[:-2], -1)
+    v, pos = topk(flat_vals, k, largest=largest)
+    return v, torch.gather(flat_ids, -1, pos)

@@ -26,6 +26,7 @@ import faiss_tpu_torch as ftt
 from faiss_tpu_torch import convert
 from faiss_tpu_torch.codecs import aq as aqt
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K, NLIST = 16, 1500, 32, 10, 8
 

@@ -22,6 +22,7 @@ from faiss_tpu_torch import convert
 from faiss_tpu_torch.ops import hamming as ht
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 from test_torch_io import assert_same_file
+from torch_threads import one_torch_thread  # noqa: F401
 
 NB, NQ, K, D = 3000, 64, 10, 32
 

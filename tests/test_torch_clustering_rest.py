@@ -28,6 +28,7 @@ import faiss_tpu_torch as ftt
 from faiss_tpu_torch import clustering as ct
 from faiss_tpu_torch.ops import adsampling as adt
 from faiss_tpu_torch.ops import kmeans_ops as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def blobs(seed, n, d, ncent, scale=4.0, noise=0.3):

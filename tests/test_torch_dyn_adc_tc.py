@@ -37,6 +37,7 @@ from faiss_tpu_torch.ops import fused_knn
 from faiss_tpu_torch.ops.fused_knn import ivfpq_fused_dyn, ivfpq_fused_dyn_ref
 from faiss_tpu_torch.ops.topk import merge_topk
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 NQ, QT, M, NLIST, CT, NB, KC = 128, 64, 4, 200, 256, 1500, 40
 LANES = 128

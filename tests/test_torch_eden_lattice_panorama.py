@@ -27,6 +27,7 @@ from faiss_tpu_torch import convert
 from faiss_tpu_torch.codecs import eden as edt
 from faiss_tpu_torch.codecs import lattice as latt
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K, NLIST = 16, 2000, 32, 10, 8
 

@@ -14,6 +14,7 @@ import pytest
 
 import faiss_tpu as ftj
 import faiss_tpu_torch as ftt
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

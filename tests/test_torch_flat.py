@@ -22,6 +22,7 @@ from faiss_tpu_torch.models import flat as port_flat
 from faiss_tpu_torch.ops import distances as port_dops
 from faiss_tpu_torch.ops import fused_knn
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ = 16, 31000, 200  # NB >= PALLAS_MIN_NB, and wide enough to stripe
 

@@ -18,6 +18,7 @@ from faiss_tpu_torch.ops.fused_knn import (
     knn_fused_ref,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def bf16_to_torch(a):

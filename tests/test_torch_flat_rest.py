@@ -28,6 +28,7 @@ from faiss_tpu_torch.convert import (
     refine_sq8_from_arrays,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K = 16, 3000, 128, 10
 

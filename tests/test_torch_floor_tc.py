@@ -38,6 +38,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from faiss_tpu_torch.ops import fused_knn
 from faiss_tpu_torch.ops.fused_knn import recon_floor, recon_floor_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 LANES = 128
 HEADER = (fused_knn.CSRC / "recon_mma.cuh").read_text()

@@ -17,6 +17,7 @@ from faiss_tpu_torch.ops.fused_knn import (
     ivf_recon_fused_dyn_ref,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, CT, QT, NQ, KC = 16, 256, 3000, 256, 128, 256, 40
 

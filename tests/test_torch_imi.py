@@ -34,6 +34,7 @@ from faiss_tpu_torch.convert import (
 )
 from faiss_tpu_torch.models import ivf_pq as port_pq
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K = 16, 3000, 64, 10
 

@@ -23,6 +23,7 @@ import torch
 import faiss_tpu as ftj
 import faiss_tpu_torch as ftt
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K = 16, 1200, 40, 5
 IO_COMPAT = Path(__file__).resolve().parent / "io_compat"

@@ -31,6 +31,7 @@ from faiss_tpu_torch.convert import ivfflat_from_arrays, ivfpq_from_arrays
 from faiss_tpu_torch.models import ivf_pq as port_pq
 from faiss_tpu_torch.ops import kmeans_ops as kt
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, NQ, M, K = 16, 64, 3000, 128, 4, 10
 KC = max(2 * K, K + 32)

@@ -41,6 +41,7 @@ from faiss_tpu_torch.models import ivf_flat as port_mod
 from faiss_tpu_torch.models import ivf_pq as port_pq
 from faiss_tpu_torch.ops.ivf_ops import ivf_flat_scan
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, NQ, CT, K, QT = 16, 256, 3000, 128, 256, 10, 128
 KC = max(2 * K, K + 32)

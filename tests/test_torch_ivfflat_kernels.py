@@ -37,6 +37,7 @@ from faiss_tpu_torch.ops.fused_knn import (
     ivf_recon_fused_ref,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 NQ, QT, NLIST, CT, NB, D, D_PAD, KC = 128, 64, 256, 256, 3000, 16, 128, 40
 MASK = 1e9

@@ -28,6 +28,7 @@ from faiss_tpu_torch.convert import refine_flat_from_arrays
 from faiss_tpu_torch.models import ivf_pq as port_mod
 from faiss_tpu_torch.ops import pq_ops as port_pq
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, NQ, M, CT, K, KF = 16, 256, 3000, 128, 4, 256, 10, 4
 KC, QT = K * KF, 128

@@ -43,6 +43,7 @@ from faiss_tpu_torch.ops.fused_knn import (
     ivfpq_fused_ref,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 NQ, QT, M, KSUB, NLIST, CT, NB, D, KC = 128, 64, 4, 16, 200, 256, 1500, 16, 40
 MASK = 1e9

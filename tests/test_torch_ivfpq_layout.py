@@ -9,6 +9,7 @@ import torch
 import faiss_tpu as ftj
 import faiss_tpu_torch as ftt
 from faiss_tpu_torch.convert import refine_flat_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, M, CT = 16, 256, 3000, 4, 256
 

@@ -38,6 +38,7 @@ from faiss_tpu_torch.convert import (
 from faiss_tpu_torch.ops import ivf_ops as port_ivf
 from faiss_tpu_torch.ops import pq_ops as port_pq
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, NQ, M = 16, 64, 3000, 128, 4
 

@@ -12,6 +12,7 @@ import faiss_tpu as ftj
 from faiss_tpu.ops import kmeans_ops as kj
 from faiss_tpu_torch import clustering as ct_clustering
 from faiss_tpu_torch.ops import kmeans_ops as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def blobs(seed, n, d, ncent):

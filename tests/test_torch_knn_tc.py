@@ -44,6 +44,7 @@ from faiss_tpu.ops.pallas_knn import knn_fused_pallas
 from faiss_tpu_torch.ops import fused_knn
 from faiss_tpu_torch.ops.fused_knn import knn_fused, knn_fused_ref
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADER = (fused_knn.CSRC / "knn_mma.cuh").read_text()
 SOURCE = (fused_knn.CSRC / "knn_fused.cu").read_text()

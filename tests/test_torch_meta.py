@@ -32,6 +32,7 @@ from faiss_tpu_torch.convert import (
     transform_from_arrays,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, NLIST, M, K = 16, 1500, 128, 32, 4, 10
 

@@ -24,6 +24,7 @@ from faiss_tpu.ops import partitioning as pj
 from faiss_tpu_torch.metric import MetricType as MT
 from faiss_tpu_torch.ops import distances as dt
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K = 16, 1500, 24, 8
 EXTRA = [MT.L1, MT.Linf, MT.Lp, MT.Canberra, MT.BrayCurtis, MT.JensenShannon,

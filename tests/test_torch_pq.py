@@ -34,6 +34,7 @@ from faiss_tpu_torch.codecs.pq import ProductQuantizer as PQT
 from faiss_tpu_torch.ops import pq_ops as port_pq
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 from test_torch_ivfpq_probe import exact_agree
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K, M = 32, 3000, 64, 10, 8
 

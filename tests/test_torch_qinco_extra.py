@@ -21,6 +21,7 @@ import faiss_tpu_torch as ftt
 from faiss_tpu_torch import convert
 from faiss_tpu_torch.utils import neuralnet as nnt
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K, NLIST = 16, 2000, 32, 10, 8
 QD, QK, QL, QM, QH = 8, 16, 1, 3, 16  # the tiny QINCo

@@ -26,6 +26,7 @@ from faiss_tpu_torch import convert
 from faiss_tpu_torch.codecs import rabitq as rbt
 from faiss_tpu_torch.ops import ivf_ops
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K, NLIST = 32, 2000, 32, 10, 8
 

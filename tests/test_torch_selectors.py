@@ -24,6 +24,7 @@ from faiss_tpu_torch.convert import (
     ivfpq_from_arrays,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, NQ, M, K = 16, 32, 3000, 128, 4, 10
 

@@ -21,6 +21,7 @@ from faiss_tpu_torch.convert import (
     refine_flat_from_arrays,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NLIST, NB, NQ, M, CT, K, KF, MSTEPS = 16, 256, 3000, 512, 4, 256, 10, 4, 4
 

@@ -20,6 +20,7 @@ from faiss_tpu_torch.codecs import sq as sqt
 from faiss_tpu_torch.models import flat as flat_t
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
 from test_torch_io import assert_same_file
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, NB, NQ, K, NLIST = 16, 3000, 48, 10, 16
 QT = sqj.QuantizerType

@@ -19,6 +19,7 @@ import pytest
 import faiss_tpu as ftj
 import faiss_tpu_torch as ftt
 from faiss_tpu_torch.convert import transform_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, N = 16, 2000
 

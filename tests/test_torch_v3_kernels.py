@@ -44,6 +44,7 @@ from faiss_tpu_torch.ops.fused_knn import (
     recon_floor_ref,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 NQ, QT, M, KSUB, NLIST, CT, NB, KC = 16, 16, 4, 16, 200, 256, 900, 24
 

@@ -43,6 +43,7 @@ from faiss_tpu_torch.ops import quantize_lut as port_q
 from faiss_tpu_torch.ops.fused_knn import ivfpq_fused_v3, ivfpq_fused_v3_ref
 from faiss_tpu_torch.ops.topk import merge_topk
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from torch_threads import one_torch_thread  # noqa: F401
 
 NQ, QT, M, KSUB, NLIST, CT, NB, KC = 72, 8, 5, 16, 200, 256, 900, 24
 LANES = 128
