@@ -13,7 +13,9 @@ PQ and Hamming family there (BASELINE rows 1-3, K2 under
 IndexBinaryFromFloat; phase J); the graph indexes and the non-flat coarse
 quantizers (phase K); the additive quantizers and RaBitQ, flat and IVF
 (no kernel; phase L); the rest of faiss_tpu (phase M); the multi-device
-layer, four shards on the card (phase N);
+layer, four shards on the card (phase N); faiss_tpu's tools over the main
+path's index (phase O: the reference format, reverse_index_factory,
+autotune, bench_fw, extra, stats, datasets, contrib and the C API);
 OPQ32,IVF8192,PQ32x4fs,RFlat built by index_factory over the Deep10M-like
 10M x 96 set (K1, phase F); and last k-means of BASELINE row 12, 8.1M x 784
 uint8 points into 256 centroids (phase H).
@@ -451,6 +453,40 @@ print stands beside the card's name and power limit:
      git-ignored ``faiss_tpu_torch/_build/``. Each part prints its time and
      peak memory; N-f's launches are ``n_launches`` in the kernels' line.
      ``python3 chip_smoke.py --only N`` runs phases 1-4 and phase N alone.
+ O. (after N, on the 1M x 128 set, reusing phase 4's index with the main
+     path's knobs and decoded store restored, as N does) faiss_tpu's tools
+     over the port: O-a ``reverse_index_factory`` of the index and the
+     index ``index_factory`` builds from the string (the same classes and
+     sizes); O-b ``write_ref_index`` of the index in the reference
+     library's own format under the git-ignored ``faiss_tpu_torch/_build/``
+     (its bytes against the model 1M x (16 code + 8 id + 512 float32
+     refine) + centroids + PQ), ``read_index`` (sniffed) onto the card, the
+     8192 queries at the main operating point (K1 must launch): equal to
+     phase 5's up to rows tied at K1's cut, recall@10 >= 0.95; O-c
+     ``ParameterSpace.explore`` over the read index, nprobe {1, 2, 4, 8, 16}
+     x k_factor_rf {4, 8, 16}, OneRecallAtRCriterion(8192, 10) against
+     bench_gt_cache.npz: the optimal points, the main point >= 0.95; O-d a
+     ``Benchmark`` over the 1M set (a port Dataset whose ground truth is the
+     cache) of O-b's file at nprobe {1, 4, 16} and of "IVF4096,Flat"
+     trained and added on the card at nprobe {1, 16}, saved and reloaded by
+     ``BenchmarkIO``; ``SyntheticDataset(128, 100000, 1000000,
+     8192).get_groundtruth(100)`` (K2 must launch; 64 rows equal float64);
+     O-e ``extra.knn`` of the 8192 queries against the cache (ids
+     tie-aware), ``knn_ground_truth`` over ``database_iterator`` against
+     ``extra.knn``, ``big_batch_search`` of O-d's IVF4096,Flat at nprobe 16
+     against that index's own search (tie-aware; 64 rows against float64);
+     O-f ``OfflineIVF`` over the 1M set saved as four .npy files
+     (IVF4096,Flat, nprobe 16, k 10: train, shard, merge by
+     ``merge_ondisk``, search by ``big_batch_search``, evaluate), each
+     step's seconds; O-g a ``SearchServer`` on localhost over the read
+     index queried by ``ClientIndex`` (equal to the direct search, K1
+     launches), ``torch_utils.search_with_torch`` with query tensors on the
+     card (tensors on the card, equal to the numpy search), the C API built
+     with gcc and its example run with device "cuda". Also ``MatrixStats``
+     of the database. Each part prints its time and peak memory; the K1
+     and K2 launches of O's searches are ``o_launches`` in the kernels'
+     line. ``python3 chip_smoke.py --only O`` runs phases 1-4 and phase O
+     alone.
 Every K1 and K2 comparison prints the launch's splits (of the worklist or
 of the columns across blocks) and K1's skipped PAD steps; phase 22 prints
 the note of phase 7 at K2 hi/lo's shape (three products).
@@ -480,6 +516,7 @@ lookups per key at 32 a clock per SM, as a note.
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -5820,15 +5857,422 @@ def sharded_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
     return tally
 
 
+# ---------------------------------------------------------------------------
+# Phase O: faiss_tpu's tools over the port (the reference format,
+# reverse_index_factory, autotune, bench_fw, extra, stats, datasets, contrib,
+# the C API) on the 1M x 128 set, with phase 4's index
+# ---------------------------------------------------------------------------
+
+O_DIR = ROOT / "faiss_tpu_torch" / "_build" / "phase_o"
+O_NPROBES, O_KFACTORS = [1, 2, 4, 8, 16], [4, 8, 16]
+O_SYN = (128, 100_000, 1_000_000, NQ)  # SyntheticDataset(d, nt, nb, nq)
+
+
+def o_gt64(what, xb, xq, I, dev):
+    """The first EXACT_ROWS rows of an exact k-NN ``I`` against a float64
+    brute force on the card: ids tie-aware within 1e-6 (|q|^2 + max |y|^2)."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    d64, ymax = d64_rows(xb, xq, dev)
+    k = I.shape[1]
+    vals, ids = torch.topk(d64, k, largest=False)
+    got = torch.gather(d64, 1, torch.from_numpy(I[:EXACT_ROWS]).to(dev))
+    got, order = torch.sort(got, 1)
+    mine = np.take_along_axis(I[:EXACT_ROWS], order.cpu().numpy(), 1)
+    q2 = (xq[:EXACT_ROWS].astype(np.float64) ** 2).sum(1)
+    tol = 1e-6 * (q2 + ymax)
+    agree = ids_agree_tie_aware(vals.cpu().numpy(), ids.cpu().numpy(),
+                                got.cpu().numpy(), mine, tol)
+    check(agree.all(), f"{what}: {int((~agree).sum())} of {EXACT_ROWS} rows "
+                       "differ from float64 beyond ties")
+    del d64
+
+
+def o_sorted64(xb, xq, I, dev):
+    """float64 squared L2 of each row's ids, sorted ascending, with the ids
+    in that order (the tie-aware comparison of two id tables)."""
+    q = torch.from_numpy(xq).to(dev, torch.float64)
+    out_d, out_i = [], []
+    for s in range(0, len(xq), 1024):
+        i = torch.from_numpy(I[s : s + 1024]).to(dev)
+        y = torch.from_numpy(xb).to(dev)[i].double()
+        d, o = torch.sort((q[s : s + 1024, None, :] - y).square().sum(-1), 1)
+        out_d.append(d.cpu().numpy())
+        out_i.append(torch.gather(i, 1, o).cpu().numpy())
+    return np.concatenate(out_d), np.concatenate(out_i)
+
+
+def o_ids_equal(what, xb, xq, Ia, Ib, dev):
+    """Two exact id tables equal up to ties within 1e-5 (|q|^2 + max |y|^2)
+    of their float64 distances. Returns the rows whose id sets differ."""
+    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+
+    da, ia = o_sorted64(xb, xq, Ia, dev)
+    db, ib = o_sorted64(xb, xq, Ib, dev)
+    tol = n_tol(xq, float((xb.astype(np.float64) ** 2).sum(1).max()))
+    agree = ids_agree_tie_aware(da, ia, db, ib, tol)
+    check(agree.all(), f"{what}: ids differ beyond ties on {int((~agree).sum())} rows")
+    return int((np.sort(Ia, 1) != np.sort(Ib, 1)).any(1).sum())
+
+
+def o_dataset(ft_datasets, xb, xt, xq, gt, dev):
+    """The 1M x 128 set as a port Dataset whose ground truth is
+    bench_gt_cache.npz."""
+    class Cached(ft_datasets.Dataset):
+        def __init__(self):
+            self.d, self.nt, self.nb, self.nq = D, len(xt), len(xb), len(xq)
+            self.device = dev
+
+        def get_train(self, maxtrain=None):
+            return xt if maxtrain is None else xt[:maxtrain]
+
+        def get_database(self):
+            return xb
+
+        def get_queries(self):
+            return xq
+
+        def get_groundtruth(self, k=100):
+            check(k <= gt.shape[1], f"the cache holds {gt.shape[1]} neighbours")
+            return gt[:, :k]
+
+    return Cached()
+
+
+def o_ref_format(ft, fused_knn, tally, state, xq, gt, dev):
+    """O-a and O-b: reverse_index_factory, then the index through the
+    reference library's own format and back onto the card. Returns the
+    read index and its file."""
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
+
+    index = state["index"]
+    base = index.base_index
+    s = ft.reverse_index_factory(index)
+    rebuilt = ft.index_factory(D, s, device=dev)
+    rb = rebuilt.base_index
+    check(s == f"IVF{NLIST},PQ{M}x{NBITS}fs,RFlat" and type(rebuilt) is type(index)
+          and type(rb) is type(base) and type(rb.quantizer) is type(base.quantizer)
+          and (rb.nlist, rb.pq.M, rb.pq.nbits, rb.bbs, rebuilt.refine_index.d)
+          == (base.nlist, base.pq.M, base.pq.nbits, base.bbs, D),
+          f"O-a. reverse_index_factory gave {s!r}, which builds {class_tree(rebuilt)}")
+    print(f"O-a. reverse_index_factory of phase 4's index: {s!r}; index_factory "
+          f"builds {class_tree(rebuilt)} (nlist {rb.nlist}, PQ{rb.pq.M}x{rb.pq.nbits}, "
+          f"bbs {rb.bbs})", flush=True)
+    del rebuilt, rb
+
+    O_DIR.mkdir(parents=True, exist_ok=True)
+    path = O_DIR / "ivf4096_pq32x4fs_rflat.faissindex"
+    t0 = time.time()
+    ft.write_ref_index(index, str(path))
+    t_write = time.time() - t0
+    size = path.stat().st_size
+    model = NB * (M * NBITS // 8 + 8 + 4 * D) + NLIST * D * 4 + M * (1 << NBITS) * (D // M) * 4
+    check(model <= size <= 1.01 * model, f"O-b. the file holds {size} B, the model {model} B")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    back = ft.read_index(str(path), device=dev)
+    torch.cuda.synchronize()
+    t_read = time.time() - t0
+    check(type(back) is type(index) and back.store == "f32"
+          and back.base_index.ntotal == NB and back.device == dev,
+          f"O-b. read_index gave {class_tree(back)} ({back.store})")
+    n_main_knobs(back)
+    (Dr, Ir), t_s, peak = m_driven(fused_knn, tally, "O-b. the read index's search",
+                                   lambda: back.search(xq, K),
+                                   need=("ivf_recon_fused_dyn",))
+    k1 = fused_knn.ivf_recon_fused_dyn.launches
+    recall = recall_at_k(Ir, gt, K)
+    check(recall >= RECALL_MIN, f"O-b. recall@10 {recall:.4f}")
+    other = rows_equal_up_to_k1_ties("O-b. the read index's search against phase 5's",
+                                     state["D"], state["I"], Dr, Ir)
+    print(f"O-b. write_ref_index {size} B ({size / 2**20:.1f} MiB; model "
+          f"{model} B: 1M x (16 code + 8 id + 512 float32 refine) + centroids + PQ; "
+          f"the rest the FastScan blocks' padding and the records) in "
+          f"{t_write:.2f} s; read_index (sniffed) onto the card {t_read:.2f} s, "
+          f"{class_tree(back)} with an f32 store; {NQ} q at nprobe {NPROBE} soft, "
+          f"k_factor {K_FACTOR}: {t_s * 1e3:.1f} ms, K1 x{k1}, recall@10 "
+          f"{recall:.4f} (phase 5 {state['recall']:.4f}), equal to phase 5's on "
+          f"{NQ - other} of {NQ} rows (the rest tied at K1's cut), peak "
+          f"{peak:.2f} GiB ({CARD})", flush=True)
+    return back, path
+
+
+def o_autotune(ft, back, xq, gt):
+    """O-c. ParameterSpace.explore over the read index."""
+    ps = ft.ParameterSpace()
+    ps.parameter_ranges = [ft.ParameterRange("nprobe", O_NPROBES),
+                           ft.ParameterRange("k_factor_rf", O_KFACTORS)]
+    crit = ft.OneRecallAtRCriterion(NQ, K)
+    crit.set_groundtruth(None, gt)
+    t0 = time.time()
+    ops = ps.explore(back, xq, crit)
+    t_all = time.time() - t0
+    perf = {o.key: o.perf for o in ops.all_pts}
+    main_key = f"nprobe={NPROBE},k_factor_rf={K_FACTOR}"
+    check(perf[main_key] >= RECALL_MIN, f"O-c. {main_key}: 1-recall@10 {perf[main_key]:.4f}")
+    n_main_knobs(back)
+    print(f"O-c. ParameterSpace.explore of {len(ops.all_pts)} points in {t_all:.1f} s "
+          f"({NQ} q each, 1-recall@10 against bench_gt_cache.npz); {main_key}: "
+          f"{perf[main_key]:.4f}; optimal: "
+          + "; ".join(f"{o.key} {o.perf:.4f} {o.t * 1e3:.1f} ms" for o in ops.optimal_pts)
+          + f" ({CARD})", flush=True)
+
+
+def o_bench(ft, fused_knn, tally, path, xb, xt, xq, gt, dev):
+    """O-d. Benchmark over the 1M set: O-b's file and IVF4096,Flat (trained,
+    added, saved and reloaded by BenchmarkIO); then SyntheticDataset's
+    ground truth through IndexFlat (K2). Returns the reloaded IVF4096,Flat."""
+    from faiss_tpu_torch import bench_fw
+    from faiss_tpu_torch.utils import datasets as ftds
+
+    ds = bench_fw.DatasetDescriptor(dataset=o_dataset(ftds, xb, xt, xq, gt, dev),
+                                    name="bench1M")
+    io = bench_fw.BenchmarkIO(str(O_DIR / "bench_io"))
+    descs = [bench_fw.IndexDescriptor(path=str(path), search_params={"nprobe": [1, 4, 16]}),
+             bench_fw.IndexDescriptor(f"IVF{NLIST},Flat",
+                                      search_params={"nprobe": [1, 16]})]
+    counts0 = m_counts(fused_knn)
+    t0 = time.time()
+    out = bench_fw.Benchmark(ds, descs, k=K, io=io, device=dev).run()
+    torch.cuda.synchronize()
+    t_bench = time.time() - t0
+    for name, n in m_counts(fused_knn).items():
+        tally[name] = tally.get(name, 0) + n - counts0[name]
+    check(Path(io.index_path("bench1M", descs[1])).exists(), "O-d. BenchmarkIO saved nothing")
+    ivf = io.load_index("bench1M", descs[1], dev)
+    check(type(ivf).__name__ == "IndexIVFFlat" and ivf.ntotal == NB,
+          f"O-d. BenchmarkIO reloaded {class_tree(ivf)}")
+    rows = "; ".join(
+        f"{e['factory'].split('/')[-1]} (train {e['train_s']:.1f} s, add {e['add_s']:.1f} s): "
+        + ", ".join(f"{p['params']} recall {p['recall']:.4f} {p['time_s'] * 1e3:.1f} ms"
+                    for p in e["points"])
+        for e in out["indexes"])
+    print(f"O-d. Benchmark over the 1M set in {t_bench:.1f} s: {rows}; "
+          f"IVF{NLIST},Flat saved and reloaded by BenchmarkIO ({CARD})", flush=True)
+
+    t0 = time.time()
+    syn = ftds.SyntheticDataset(*O_SYN, device=dev)
+    t_gen = time.time() - t0
+    sxb, sxq = syn.get_database(), syn.get_queries()
+    gt100, t_gt, peak = m_driven(fused_knn, tally, "O-d. get_groundtruth(100)",
+                                   lambda: syn.get_groundtruth(100),
+                                   need=("ivf_recon_fused",), warm=False)
+    k2 = fused_knn.ivf_recon_fused.launches
+    check(gt100.shape == (O_SYN[3], 100), f"O-d. ground truth of shape {gt100.shape}")
+    o_gt64("O-d. SyntheticDataset.get_groundtruth(100)", sxb, sxq, gt100, dev)
+    print(f"O-d. SyntheticDataset{O_SYN} drawn in {t_gen:.1f} s; "
+          f"get_groundtruth(100) through IndexFlat on the card {t_gt:.2f} s, K2 x{k2}, "
+          f"{EXACT_ROWS} rows equal float64 (tie-aware), peak {peak:.2f} GiB ({CARD})",
+          flush=True)
+    return ivf
+
+
+def o_exact(ft, fused_knn, tally, ivf, xb, xq, gt, dev):
+    """O-e. extra.knn against the cache, knn_ground_truth over the
+    dataset's blocks against extra.knn, big_batch_search of O-d's IVF4096,Flat
+    against its own search."""
+    from faiss_tpu_torch.contrib.big_batch_search import big_batch_search
+    from faiss_tpu_torch.contrib.exhaustive_search import knn_ground_truth
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    Dk, Ik = ft.knn(xq, xb, K, device=dev)
+    t_knn = time.time() - t0
+    differ = o_ids_equal("O-e. extra.knn against bench_gt_cache.npz", xb, xq, gt, Ik, dev)
+    bs = 1 << 17
+    t0 = time.time()
+    Dg, Ig = knn_ground_truth(xq, (xb[s : s + bs] for s in range(0, NB, bs)), K,
+                              device=dev)
+    t_gt = time.time() - t0
+    n_equal("O-e. knn_ground_truth against extra.knn", Dg, Ig, Dk, Ik,
+            n_tol(xq, float((xb.astype(np.float64) ** 2).sum(1).max())))
+
+    ivf.nprobe = 16
+    (Ds, Is), t_own, _ = m_driven(fused_knn, tally, "O-e. the IVF4096,Flat's own search",
+                                  lambda: ivf.search(xq, K),
+                                  need=(("ivf_recon_fused_dyn", "ivf_recon_fused"),))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    Db, Ib = big_batch_search(ivf, xq, K)
+    torch.cuda.synchronize()
+    t_bbs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_equal("O-e. big_batch_search against the index's own search", Db, Ib, Ds, Is,
+            n_tol(xq, float((xb.astype(np.float64) ** 2).sum(1).max())))
+    d64, ymax = d64_rows(xb, xq, dev)
+    got = torch.gather(d64, 1, torch.from_numpy(Ib[:EXACT_ROWS]).to(dev)).cpu().numpy()
+    err = float(np.abs(Db[:EXACT_ROWS] - got).max())
+    check((np.abs(Db[:EXACT_ROWS] - got)
+           <= 1e-5 * ((xq[:EXACT_ROWS].astype(np.float64) ** 2).sum(1) + ymax)[:, None]).all(),
+          f"O-e. big_batch_search distances differ from float64 by {err:.3e}")
+    del d64
+    print(f"O-e. extra.knn ({NQ} q x {NB}) {t_knn:.2f} s, equal to bench_gt_cache.npz "
+          f"up to ties ({differ} rows' id sets differ, all within ties); "
+          f"knn_ground_truth over {-(-NB // bs)} blocks of {bs} {t_gt:.2f} s, equal to "
+          f"extra.knn; big_batch_search of IVF{NLIST},Flat at nprobe 16 {t_bbs:.2f} s "
+          f"(peak {peak:.2f} GiB), equal to its own search ({t_own * 1e3:.1f} ms) "
+          f"tie-aware, {EXACT_ROWS} rows within 1e-5 of float64 (max err {err:.3e}) "
+          f"({CARD})", flush=True)
+
+
+def o_offline(xb, xt, xq, dev):
+    """O-f. OfflineIVF over the 1M set as four .npy files."""
+    from faiss_tpu_torch.contrib.offline_ivf import OfflineIVF
+
+    root = O_DIR / "offline"
+    root.mkdir(parents=True, exist_ok=True)
+    files = []
+    for s in range(4):
+        np.save(root / f"xb_{s}.npy", xb[s * NB // 4 : (s + 1) * NB // 4])
+        files.append(f"xb_{s}.npy")
+    np.save(root / "xq.npy", xq)
+    cfg = {"d": D, "output": str(root / "out"), "index": f"IVF{NLIST},Flat",
+           "nprobe": 16, "k": K, "training_sample": len(xt),
+           "datasets": {"db": {"root": str(root), "files": files},
+                        "queries": {"root": str(root), "files": ["xq.npy"]}}}
+    oivf = OfflineIVF(cfg, device=dev)
+    times = {}
+    for step, fn in (("train", oivf.train_index), ("shard", oivf.index_shard),
+                     ("merge", oivf.merge_index), ("search", oivf.search),
+                     ("evaluate", lambda: oivf.evaluate(sample=1000))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[step] = time.time() - t0
+    recall = out
+    I = np.load(root / "out" / "I.npy")
+    check(I.shape == (NQ, K) and (I >= 0).all() and (I < NB).all(),
+          "O-f. OfflineIVF's results")
+    check(recall >= 0.9, f"O-f. OfflineIVF evaluate: {recall:.4f}")
+    size = sum(f.stat().st_size for f in (root / "out").iterdir())
+    shutil.rmtree(root)
+    print(f"O-f. OfflineIVF (IVF{NLIST},Flat, nprobe 16, k {K}) over four .npy "
+          f"files: " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+          + f"; intersection@10 against extra.knn on 1000 q {recall:.4f}; "
+          f"{size / 2**20:.0f} MiB of outputs ({CARD})", flush=True)
+
+
+def o_unpatch(ft, torch_utils):
+    """Undo torch_utils's patches of the Index tree (its import installs
+    them for the whole process; the later phases pass numpy)."""
+    def walk(c):
+        for name in torch_utils._PATCHED_METHODS:
+            fn = c.__dict__.get(name)
+            if getattr(fn, "_torch_wrapped", False):
+                setattr(c, name, fn.__wrapped__)
+        for sub in c.__subclasses__():
+            walk(sub)
+
+    walk(ft.Index)
+
+
+def o_serving(ft, fused_knn, tally, back, xq, dev):
+    """O-g. SearchServer / ClientIndex over the read index, search_with_torch
+    with query tensors on the card, the C API's example on the card."""
+    from faiss_tpu_torch import c_api
+    from faiss_tpu_torch.contrib.client_server import ClientIndex, SearchServer
+
+    n_main_knobs(back)
+    D0, I0 = back.search(xq, K)
+    server = SearchServer(back).start()
+    try:
+        client = ClientIndex([("127.0.0.1", server.port)])
+        check(client.ntotal == NB, f"O-g. the client sees {client.ntotal} rows")
+        (Dc, Ic), t_c, _ = m_driven(fused_knn, tally, "O-g. ClientIndex.search",
+                                    lambda: client.search(xq, K),
+                                    need=("ivf_recon_fused_dyn",), warm=False)
+        k1 = fused_knn.ivf_recon_fused_dyn.launches
+        client.close()
+    finally:
+        server.stop()
+    other = rows_equal_up_to_k1_ties("O-g. the served search against the direct one",
+                                     D0, I0, Dc, Ic)
+
+    from faiss_tpu_torch.contrib import torch_utils
+
+    try:
+        xq_t = torch.from_numpy(xq).to(dev)
+        Dt, It = torch_utils.search_with_torch(back, xq_t, K)
+        Dp, Ip = back.search(xq_t, K)  # the patched method
+    finally:
+        o_unpatch(ft, torch_utils)
+    check(Dt.device == It.device == Dp.device == xq_t.device and It.dtype == torch.int64,
+          f"O-g. search_with_torch gave {Dt.device} for queries on {xq_t.device}")
+    other_t = rows_equal_up_to_k1_ties("O-g. search_with_torch against the numpy search",
+                                       D0, I0, Dt.cpu().numpy(), It.cpu().numpy())
+    rows_equal_up_to_k1_ties("O-g. the patched search against the numpy search",
+                             D0, I0, Dp.cpu().numpy(), Ip.cpu().numpy())
+
+    t0 = time.time()
+    paths = c_api.build()
+    t_build = time.time() - t0
+    t0 = time.time()
+    out = c_api.run_example("cuda")
+    t_run = time.time() - t0
+    check("device cuda" in out and "C API EXAMPLE: OK" in out, f"O-g. C API: {out}")
+    print(f"O-g. SearchServer on localhost over the read index, ClientIndex: "
+          f"{NQ} q in {t_c * 1e3:.1f} ms, K1 x{k1}, equal to the direct search on "
+          f"{NQ - other} of {NQ} rows (the rest tied at K1's cut); "
+          f"search_with_torch with query tensors on {dev}: tensors on {Dt.device}, "
+          f"equal on {NQ - other_t} rows; C API built by gcc in {t_build:.2f} s "
+          f"({Path(paths['lib']).name}), its example on device cuda in {t_run:.2f} s: "
+          f"{out.strip().splitlines()[-1]} ({CARD})", flush=True)
+
+
+def tools_phases(ft, fused_knn, state, xb, xt, xq, gt, dev):
+    """Phase O. Returns the launches of each kernel on O's searches, by the
+    name of its entry in the kernels' line."""
+    t_all = time.time()
+    times, peaks, tally = {}, {}, {}
+    index = state["index"]
+    n_main_knobs(index)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    stats = ft.MatrixStats(xb)
+    n_part(times, peaks, "stats", t0)
+    print(f"O. MatrixStats of the database in {times['stats']:.2f} s: "
+          + stats.comments.replace("\n", "; "), flush=True)
+    t0 = time.time()
+    back, path = o_ref_format(ft, fused_knn, tally, state, xq, gt, dev)
+    n_part(times, peaks, "O-a/b", t0)
+    t0 = time.time()
+    o_autotune(ft, back, xq, gt)
+    n_part(times, peaks, "O-c", t0)
+    t0 = time.time()
+    ivf = o_bench(ft, fused_knn, tally, path, xb, xt, xq, gt, dev)
+    n_part(times, peaks, "O-d", t0)
+    t0 = time.time()
+    o_exact(ft, fused_knn, tally, ivf, xb, xq, gt, dev)
+    n_part(times, peaks, "O-e", t0)
+    del ivf
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    o_offline(xb, xt, xq, dev)
+    n_part(times, peaks, "O-f", t0)
+    t0 = time.time()
+    o_serving(ft, fused_knn, tally, back, xq, dev)
+    n_part(times, peaks, "O-g", t0)
+    del back
+    shutil.rmtree(O_DIR)
+    torch.cuda.empty_cache()
+    print(f"phase O: {time.time() - t_all:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s / {peaks[k]:.2f} GiB peak"
+                      for k, v in times.items())
+          + f"); launches {tally} ({CARD})", flush=True)
+    return tally
+
+
 def main():
     # ``--only K`` runs phases 1-3 and phase K alone (the graph indexes and
     # the IMI), ``--only L`` phases 1-3 and phase L (the additive quantizers
     # and RaBitQ), ``--only M`` phases 1-3 and phase M (the extra metrics and
     # the codecs of faiss_tpu's remainder), ``--only N`` phases 1-4 and
-    # phase N (the multi-device layer), with no kernels' line
+    # phase N (the multi-device layer), ``--only O`` phases 1-4 and phase O
+    # (faiss_tpu's tools), with no kernels' line
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("K", "L", "M", "N"):
-        print("usage: chip_smoke.py [--only K|L|M|N]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("K", "L", "M", "N", "O"):
+        print("usage: chip_smoke.py [--only K|L|M|N|O]", file=sys.stderr)
         return 2
     only_k = only == "K"
     if not torch.cuda.is_available():
@@ -5938,9 +6382,10 @@ def main():
             deep10m_phases(ft, fused_knn, dev, only_k=True)
         elif only == "M":
             codec_phases(ft, fused_knn, xb, xt, xq, gt, dev)
-        elif only == "N":
+        elif only in ("N", "O"):
             state = ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev, main_only=True)
-            sharded_phases(ft, fused_knn, state, xb, xt, xq, gt, dev)
+            (sharded_phases if only == "N" else tools_phases)(
+                ft, fused_knn, state, xb, xt, xq, gt, dev)
         else:
             aq_rabitq_phases(ft, fused_knn, xb, xt, xq, gt, dev)
         print(card)
@@ -5988,6 +6433,11 @@ def main():
     # phase N's launches (IndexShards, IndexReplicas) in a field of their own
     for name, n in sharded_phases(ft, fused_knn, state, xb, xt, xq, gt, dev).items():
         next(e for e in kernels if e["name"] == name)["n_launches"] = n
+    torch.cuda.empty_cache()
+    # phase O's launches (the read index, the benchmark, the served and the
+    # ground-truth searches) in a field of their own
+    for name, n in tools_phases(ft, fused_knn, state, xb, xt, xq, gt, dev).items():
+        next(e for e in kernels if e["name"] == name)["o_launches"] = n
     del xb, xt, xq, state
     torch.cuda.empty_cache()
     kernels.append(deep10m_phases(ft, fused_knn, dev))

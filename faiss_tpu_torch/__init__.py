@@ -108,11 +108,22 @@ Ported so far:
     ``ivflib`` (``merge_into``, ``shard_ivf_index_centroids``,
     ``clone_index``, ``SlidingIndexWindow``, ...) and ``invlists``
     (array, slice, hstack, vstack and on-disk inverted lists,
-    ``replace_invlists``).
+    ``replace_invlists``);
+  - the tools — the reference library's own file format (``io_ref``:
+    ``read_ref_index``, ``write_ref_index``; ``read_index`` sniffs it),
+    ``reverse_index_factory``, the auto-tuning of ``autotune``
+    (``ParameterSpace``, ``OperatingPoints``, the criteria), the benchmark
+    framework ``bench_fw``, the standalone ops of ``extra`` (``knn``,
+    ``pairwise_distances``, ``knn_hamming``, ``kmin``/``kmax``,
+    ``merge_knn_results``, ``ResultHeap``, the diversity filter, bitstring
+    packing), ``MatrixStats``, the datasets of ``utils.datasets``, the
+    ``contrib`` modules (exhaustive search, inspection, clustering, the
+    list-major ``big_batch_search``, ``ondisk``, ``offline_ivf``, the
+    socket ``client_server``, ``torch_utils``) and the C API
+    (``c_api``, built with gcc at first use).
 
-Not ported yet: ``reverse_index_factory`` and the reference-format reader
-``io_ref`` (ROADMAP queue 1 item 12; ``io_ref`` raises
-NotImplementedError naming it).
+The port does all that faiss_tpu does, except ``contrib.torch_utils``'s
+``torch_to_jax`` and ``jax_to_torch``, which hand arrays to JAX.
 """
 
 import torch
@@ -282,9 +293,11 @@ from .models.rabitq import (  # noqa: E402,F401
 )
 from .models.sq import IndexIVFScalarQuantizer, IndexScalarQuantizer  # noqa: E402,F401
 from .models.ivf_pq import (  # noqa: E402,F401
+    IVFFastScanStats,
     IndexIVFPQ,
     IndexIVFPQFastScan,
     IndexIVFPQR,
+    ivf_fast_scan_stats,
 )
 from .models.meta import (  # noqa: E402,F401
     IndexIDMap,
@@ -355,3 +368,45 @@ from .parallel.sharded import (  # noqa: E402,F401
     make_mesh,
     sharded_kmeans_iter,
 )
+from .io_ref import read_ref_index, write_ref_index  # noqa: E402,F401
+from .extra import (  # noqa: E402,F401
+    ResultHeap,
+    bucket_sort,
+    diversity_search,
+    diversity_select,
+    kmax,
+    kmin,
+    knn,
+    knn_gpu,
+    knn_hamming,
+    merge_knn_results,
+    pack_bitstrings,
+    pairwise_distances,
+    rand,
+    randint,
+    randn,
+    unpack_bitstrings,
+)
+from .autotune import (  # noqa: E402,F401
+    AutoTuneCriterion,
+    IntersectionCriterion,
+    OneRecallAtRCriterion,
+    OperatingPoint,
+    OperatingPoints,
+    ParameterRange,
+    ParameterSpace,
+)
+from .factory_tools import reverse_index_factory  # noqa: E402,F401
+from .stats import MatrixStats  # noqa: E402,F401
+from .bench_fw import (  # noqa: E402,F401
+    Benchmark,
+    DatasetDescriptor,
+    IndexDescriptor,
+    run_benchmark,
+)
+
+# the ScalarQuantizer type aliases at module level, as faiss_tpu sets them
+# (faiss-style: ScalarQuantizer_QT_8bit, ...)
+for _qt in QuantizerType:
+    globals()[f"ScalarQuantizer_{_qt.name}"] = _qt
+del _qt

@@ -33,7 +33,8 @@ IndexIVFFlatDedup and IndexIVFSpectralHash are written as faiss_tpu writes
 them but not read back (TypeError, as there).
 
 ``read_index`` builds the index on ``device`` (the card unless the caller
-passes another). An IVF index gets its host lists (codes, list numbers,
+passes another); it also reads the reference library's own format, which
+it tells by the file's first four bytes (io_ref). An IVF index gets its host lists (codes, list numbers,
 ids) and stages its device layouts at its first search. ``IO_FLAG_MMAP``
 maps the payloads in place instead of reading them."""
 
@@ -709,7 +710,11 @@ def _mmap_npz(fname) -> Dict[str, np.ndarray]:
             name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
             f.seek(info.header_offset + 30 + name_len + extra_len)
             version = npformat.read_magic(f)
-            shape, fortran, dtype = npformat._read_array_header(f, version)
+            read_header = {(1, 0): npformat.read_array_header_1_0,
+                           (2, 0): npformat.read_array_header_2_0}.get(version)
+            if read_header is None:
+                raise ValueError(f"npy format {version} cannot be mapped")
+            shape, fortran, dtype = read_header(f)
             if dtype.hasobject:
                 raise ValueError("object arrays cannot be mapped")
             out[info.filename[:-4]] = np.memmap(
@@ -719,27 +724,41 @@ def _mmap_npz(fname) -> Dict[str, np.ndarray]:
     return out
 
 
-def _check_container(fname_or_file) -> None:
-    """Raise where the payload is not the npz container: a file of the
-    reference library's own format (io_ref) is ROADMAP queue 1 item 12."""
-    if isinstance(fname_or_file, (str, bytes, os.PathLike)):
-        with open(fname_or_file, "rb") as f:
-            head = f.read(4)
-    else:
+def _sniff_ref_format(fname_or_file) -> bool:
+    """True where the payload is a file of the reference library's own
+    format (.faissindex, io_ref): it opens with one of its fourccs, where the
+    npz container opens with the zip magic "PK\\x03\\x04" (faiss_tpu
+    io.py:1043)."""
+    from .io_ref import REF_FOURCCS
+
+    if isinstance(fname_or_file, (str, bytes, os.PathLike)) and not (
+        isinstance(fname_or_file, bytes) and len(fname_or_file) > 4096
+    ):
+        try:
+            with open(fname_or_file, "rb") as f:
+                head = f.read(4)
+        except (OSError, ValueError):
+            return False
+    elif hasattr(fname_or_file, "read") and hasattr(fname_or_file, "seek"):
         pos = fname_or_file.tell()
         head = fname_or_file.read(4)
         fname_or_file.seek(pos)
-    if head != b"PK\x03\x04":
-        raise NotImplementedError(
-            "read_index: not an npz index file; reading the reference "
-            "library's own format (io_ref) is ROADMAP queue 1 item 12")
+    else:
+        return False
+    return head in REF_FOURCCS
 
 
 def read_index(fname_or_file, io_flags: int = 0, *, device="cuda") -> Index:
-    """Read an index written by :func:`write_index` or by faiss_tpu's, onto
-    ``device``."""
+    """Read an index written by :func:`write_index` or by faiss_tpu's, or a
+    file of the reference library's own format (sniffed by its first four
+    bytes; io_ref), onto ``device``."""
     device = require_device(device)
-    _check_container(fname_or_file)
+    if _sniff_ref_format(fname_or_file):
+        from .io_ref import read_ref_index
+
+        if isinstance(fname_or_file, bytes):  # a path, as the sniff read it
+            fname_or_file = os.fsdecode(fname_or_file)
+        return read_ref_index(fname_or_file, device=device)
     if io_flags & IO_FLAG_MMAP:
         if not isinstance(fname_or_file, (str, bytes, os.PathLike)):
             raise ValueError("IO_FLAG_MMAP requires a file path")

@@ -53,6 +53,7 @@ from .ivf_pq import (
     collect_sub_batches,
     dyn_bucket_for,
     grouped_layout,
+    ivf_fast_scan_stats,
 )
 
 # packed slots gathered per staging window (a [CH, d] float32 transient)
@@ -242,6 +243,7 @@ class IndexIVFFlat(IndexIVF):
                 out = _fused_search_rerank_recon(
                     xq, br, br["xb"], None, k, kc, qt, ct, nprobe
                 )
+            ivf_fast_scan_stats.nq += real  # faiss_tpu ivf.py:963-967
             pending.append((start, real, out, use_dyn))
         return {"pending": pending, "nq": len(x), "k": k, "nprobe": nprobe,
                 "nchunks": nch}

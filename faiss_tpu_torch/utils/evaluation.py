@@ -5,6 +5,17 @@ from __future__ import annotations
 import numpy as np
 
 
+def knn_intersection_measure(I1: np.ndarray, I2: np.ndarray) -> float:
+    """Fraction of shared ids per row (contrib/evaluation.py:17; faiss_tpu
+    utils/evaluation.py:12)."""
+    nq, k = I1.shape
+    assert I2.shape == (nq, k)
+    ninter = sum(
+        len(np.intersect1d(I1[i], I2[i][I2[i] >= 0])) for i in range(nq)
+    )
+    return ninter / float(nq * k)
+
+
 def recall_at_k(I: np.ndarray, gt: np.ndarray, k: int, rank: int = 1) -> float:
     """R@k of the true NN: fraction of queries whose gt[:, :rank] ids appear
     in the first k results (the `1-recall@R` criterion, AutoTune.h:56)."""

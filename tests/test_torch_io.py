@@ -9,8 +9,9 @@ for bit, and the indexes search alike (ids tie-aware; distances within
 its float32 ADC sums, which the two packages add in another order). Also
 serialize / deserialize, IO_FLAG_MMAP, faiss_tpu's committed
 tests/io_compat files and their golden results, and the refusals: classes
-the port does not have, files of the reference library's own format, and
-the card as the default device when there is none."""
+the port does not have and the card as the default device when there is
+none; a file of the reference library's own format is read, or refused, as
+faiss_tpu's read_index does (tests/test_torch_io_ref.py holds the rest)."""
 
 import io
 import json
@@ -358,11 +359,19 @@ def test_refusals(data, tmp_path, monkeypatch):
     dedup.add(xb)
     with pytest.raises(TypeError, match="unknown serialized class IndexIVFFlatDedup"):
         ftt.deserialize_index(ftj.serialize_index(dedup), device="cpu")
-    # the reference library's own format (io_ref)
+    # the reference library's own format (io_ref): read_index sniffs it and
+    # reads these bytes (an empty IxF2 flat) as faiss_tpu's read_index does;
+    # an unknown fourcc after the sniff is refused by both
     ref_file = tmp_path / "ref.faissindex"
     ref_file.write_bytes(b"IxF2" + bytes(60))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ftt.read_index(str(ref_file), device="cpu")
+    got, want = ftt.read_index(str(ref_file), device="cpu"), ftj.read_index(str(ref_file))
+    assert (type(got).__name__, got.d, got.ntotal, got.metric_type) == (
+        type(want).__name__, want.d, want.ntotal, want.metric_type)
+    bad = tmp_path / "bad.faissindex"
+    bad.write_bytes(b"IxRF" + bytes(33) + b"IHNf" + bytes(60))
+    for read in (ftj.read_index, lambda f: ftt.read_index(f, device="cpu")):
+        with pytest.raises(ValueError, match="unsupported reference index fourcc"):
+            read(str(bad))
     # index classes that neither package writes
     with pytest.raises(TypeError, match="serialize"):
         ftt.serialize_index(ftt.IndexRandom(D, 10, device="cpu"))
