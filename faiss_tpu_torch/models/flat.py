@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..base import Index, query_buckets, range_result, sel_mask
 from ..codecs.sq import ScalarQuantizer
 from ..metric import MetricType, is_similarity_metric
@@ -247,7 +248,8 @@ class IndexFlat(Index):
         """Upload pending rows in the storage dtype; refresh the norms (L2
         only) and drop the staged kernel stores."""
         if self._pending:
-            new = [self._upload(p) for p in self._pending]
+            with tracing.wait("flat.upload", sum(p.nbytes for p in self._pending)):
+                new = [self._upload(p) for p in self._pending]
             self._xb = torch.cat(([self._xb] if self._xb is not None else []) + new)
             self._pending = []
             self._drop_staged()

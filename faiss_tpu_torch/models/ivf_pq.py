@@ -45,11 +45,10 @@ shows they help).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import tracing
 from ..base import query_buckets
 from ..codecs.pq import ProductQuantizer, codes_numpy, codes_tensor
 from ..metric import MetricType
@@ -532,22 +531,25 @@ def _fused_search_rerank_recon_dyn(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe,
     candidates mapped through ``slot_map`` to input slots, the top ``kc``
     re-ranked exactly against the refine store, rows returned in the
     original order. Returns (D, slots, ndropped), on the device."""
-    perm, pcols_s, cm2, cmap, ndropped = _dyn_inputs(xq, br, nprobe, qt, msteps)
-    xq_s = xq[perm]
-    pen = {}
-    if strict_probe:
-        pen = dict(
-            biasg=torch.where(_probe_mask(cm2, pcols_s), 0.0, 1e9),
-            lid=br["lid"], cgroup=br["cgroup"],
+    with tracing.span("sbbr.worklists"):
+        perm, pcols_s, cm2, cmap, ndropped = _dyn_inputs(xq, br, nprobe, qt, msteps)
+        xq_s = xq[perm]
+        pen = {}
+        if strict_probe:
+            pen = dict(
+                biasg=torch.where(_probe_mask(cm2, pcols_s), 0.0, 1e9),
+                lid=br["lid"], cgroup=br["cgroup"],
+            )
+    with tracing.span("sbbr.scan"):
+        _, slots_raw, _ = ivf_recon_fused_dyn(
+            _pad_dims(xq_s, br), br["yT"], br["n2s"], cmap, qt, ct,
+            yT_lo=br.get("yT_lo"), **pen
         )
-    _, slots_raw, _ = ivf_recon_fused_dyn(
-        _pad_dims(xq_s, br), br["yT"], br["n2s"], cmap, qt, ct,
-        yT_lo=br.get("yT_lo"), **pen
-    )
-    D, I = rerank_exact(xq_s, xb, _slots_of(slots_raw, br, kc), k, xb_n2=xb_n2,
-                        **_sq_kw(sq))
-    inv = torch.argsort(perm, stable=True)
-    return D[inv], I[inv], ndropped
+    with tracing.span("sbbr.rerank"):
+        D, I = rerank_exact(xq_s, xb, _slots_of(slots_raw, br, kc), k,
+                            xb_n2=xb_n2, **_sq_kw(sq))
+        inv = torch.argsort(perm, stable=True)
+        return D[inv], I[inv], ndropped
 
 
 def grouped_layout(listnos, centroids, nlist, ct, device):
@@ -613,7 +615,8 @@ def dyn_bucket_for(index, xq_dev, br, nprobe, qt):
             xq_dev, br["centroids_g"], br["cn2g"], br["chunk_first"],
             br["chunk_last"], nprobe, qt, br["nchunks"],
         )[3]
-        m = int(bitmap.sum(dim=1).max())  # one host sync per nprobe
+        with tracing.wait("sbbr.bucket", 8):  # one host sync per nprobe
+            m = int(bitmap.sum(dim=1).max())
         index._dyn_bucket[nprobe] = min(br["nchunks"], -(-m // 64) * 64)
     return index._dyn_bucket[nprobe]
 
@@ -624,24 +627,30 @@ def collect_sub_batches(index, st):
     942): copy each sub-batch home, map slots to ids, and widen the adaptive
     worklist bucket when a dynamic-chunk batch dropped probed chunks (its
     recall impact is bounded to that batch). The port's selects are exact,
-    so no row needs faiss_tpu's lossy-row replay. The read's seconds go to
-    ``ivf_fast_scan_stats.t_scan`` (faiss_tpu ivf_pq.py:1556)."""
-    t0 = time.perf_counter()
+    so no row needs faiss_tpu's lossy-row replay. Each read is a
+    ``tracing.wait`` of its own."""
     nq, k, nprobe = st["nq"], st["k"], st["nprobe"]
     D = np.full((nq, k), np.inf, np.float32)
     I = np.full((nq, k), -1, np.int64)
     for start, real, (d, slots, ndropped), was_dyn in st["pending"]:
-        if was_dyn and int(ndropped) > 0 and not index.dyn_msteps:
-            index._dyn_bucket[nprobe] = min(
-                st["nchunks"], index._dyn_bucket[nprobe] + 64
-            )
-        d = d[:real].cpu().numpy()
-        slots = slots[:real].cpu().numpy()
-        D[start : start + real, : d.shape[1]] = d
-        I[start : start + real, : d.shape[1]] = np.where(
-            slots >= 0, index._ids_host[np.maximum(slots, 0)], -1
-        )
-    ivf_fast_scan_stats.t_scan += time.perf_counter() - t0
+        with tracing.span("collect.sub_batch"):
+            if was_dyn:
+                with tracing.wait("collect.ndropped", ndropped.nbytes):
+                    ndropped = int(ndropped)
+                if ndropped > 0 and not index.dyn_msteps:
+                    index._dyn_bucket[nprobe] = min(
+                        st["nchunks"], index._dyn_bucket[nprobe] + 64
+                    )
+            d, slots = d[:real], slots[:real]
+            with tracing.wait("collect.d2h_dist", d.nbytes):
+                d = d.cpu().numpy()
+            with tracing.wait("collect.d2h_slots", slots.nbytes):
+                slots = slots.cpu().numpy()
+            with tracing.span("collect.id_map"):
+                D[start : start + real, : d.shape[1]] = d
+                I[start : start + real, : d.shape[1]] = np.where(
+                    slots >= 0, index._ids_host[np.maximum(slots, 0)], -1
+                )
     return D, I
 
 
@@ -651,10 +660,9 @@ class IVFFastScanStats:
     IVF-Flat big batches; of the refined IVF-PQ's, ``ndis`` keys that
     entered selection (every query of a tile scores every slot of every
     chunk the tile scans), ``chunks_scanned`` and ``chunks_skipped`` per
-    sub-batch; ``lossy_rows`` stays 0: faiss_tpu counts the rows its
-    approximate selects may have lost, and the port's selects are exact;
-    ``t_scan`` the seconds of both paths' reads (their collects), which
-    wait for the device's work."""
+    sub-batch. faiss_tpu's ``lossy_rows`` (rows its approximate selects may
+    have lost) has no counterpart: the port's selects are exact. Its
+    ``t_scan`` neither: the collects' waits are ``tracing`` spans."""
 
     def __init__(self):
         self.reset()
@@ -664,15 +672,12 @@ class IVFFastScanStats:
         self.ndis = 0
         self.chunks_scanned = 0
         self.chunks_skipped = 0
-        self.lossy_rows = 0
-        self.t_scan = 0.0
 
     def __repr__(self):
         return (
             f"IVFFastScanStats(nq={self.nq}, ndis={self.ndis}, "
             f"chunks_scanned={self.chunks_scanned}, "
-            f"chunks_skipped={self.chunks_skipped}, "
-            f"lossy_rows={self.lossy_rows}, t_scan={self.t_scan:.3f}s)"
+            f"chunks_skipped={self.chunks_skipped})"
         )
 
 
@@ -939,26 +944,33 @@ class IndexIVFPQ(IndexIVF):
         S = np.full((nq, k), -1, np.int64)
         cent = br["centroids"]
         for start, padded, real in query_buckets(nq):
-            xq = torch.zeros(padded, self.d, device=self.device)
-            xq[:real] = torch.from_numpy(x[start : start + real]).to(self.device)
-            luts = -2.0 * pq_ops.pq_ip_tables(xq, cb)
-            coarse_ip = xq @ cent.T
-            if nprobe:
-                key = cent.square().sum(-1)[None, :] - 2.0 * coarse_ip
-                cols = topk(key, nprobe, largest=False)[1]
-                coarse_ip = torch.where(_probe_mask(coarse_ip, cols), coarse_ip,
-                                        -5e8)
-            dd, ii = pq_ops.ivfpq_brute_adc_knn(
-                luts, coarse_ip, xq.square().sum(1), br["codes"], br["listnos"],
-                br["n2"], k,
-            )
-            dd, ii = dd[:real], ii[:real]
-            if nprobe:  # candidates from masked lists are not results
-                keep = dd < _MASKED_KEY
-                ii = torch.where(keep, ii, -1)
-                dd = torch.where(keep, dd, float("inf"))
-            D[start : start + real] = dd.cpu().numpy()
-            S[start : start + real] = ii.cpu().numpy()
+            with tracing.span("xla.sub_batch"):
+                xq = torch.zeros(padded, self.d, device=self.device)
+                xs = x[start : start + real]
+                with tracing.wait("xla.h2d", xs.nbytes):
+                    xq[:real] = torch.from_numpy(xs).to(self.device)
+                luts = -2.0 * pq_ops.pq_ip_tables(xq, cb)
+                coarse_ip = xq @ cent.T
+                if nprobe:
+                    key = cent.square().sum(-1)[None, :] - 2.0 * coarse_ip
+                    cols = topk(key, nprobe, largest=False)[1]
+                    coarse_ip = torch.where(_probe_mask(coarse_ip, cols),
+                                            coarse_ip, -5e8)
+                dd, ii = pq_ops.ivfpq_brute_adc_knn(
+                    luts, coarse_ip, xq.square().sum(1), br["codes"],
+                    br["listnos"], br["n2"], k,
+                )
+                dd, ii = dd[:real], ii[:real]
+                if nprobe:  # candidates from masked lists are not results
+                    keep = dd < _MASKED_KEY
+                    ii = torch.where(keep, ii, -1)
+                    dd = torch.where(keep, dd, float("inf"))
+                with tracing.wait("xla.d2h_dist", dd.nbytes):
+                    dd = dd.cpu().numpy()
+                with tracing.wait("xla.d2h_ids", ii.nbytes):
+                    ii = ii.cpu().numpy()
+                D[start : start + real] = dd
+                S[start : start + real] = ii
         return D, S
 
     def _build_brute(self):
@@ -977,27 +989,30 @@ class IndexIVFPQ(IndexIVF):
                 "the group-packed layout holds residual codes; with "
                 "by_residual=False every search scans by probe"
             )
-        self._dyn_bucket = None  # worklist size is layout-dependent
-        pq, ct, dev = self.pq, self.FUSED_CT, self.device
-        centroids = self._centroids_host()
-        listnos = self._listnos_host
-        lay, local_of = grouped_layout(listnos, centroids, self.nlist, ct, dev)
-        sm_d = lay["slot_map_dev"]
-        codes_d = codes_tensor(self._codes_host, dev)
-        ln_d = torch.from_numpy(listnos.astype(np.int64)).to(dev)
-        cent_d = torch.from_numpy(centroids).to(dev)
-        cn2 = torch.from_numpy((centroids**2).sum(1).astype(np.float32)).to(dev)
-        n2 = _slot_norms(codes_d, ln_d, self._maybe_term2(), cn2)
-        codesT, n2s, lid = _stage_brute_device(codes_d, ln_d, n2, sm_d, local_of)
-        d_pad = -(-self.d // 128) * 128
-        yT = None
-        if len(lay["slot_map"]) * d_pad * 2 <= self.recon_scan_max_bytes:
-            yT = _stage_recon_device(codes_d, ln_d, cent_d, pq._dev(), sm_d, d_pad)
-        self._brute = dict(
-            lay, yT=yT, d_pad=d_pad, codesT=codesT, n2s=n2s, lid=lid,
-            cbt=pq_ops.pq_blockdiag_codebook(pq._dev()), codes=codes_d,
-            listnos=ln_d, n2=n2, centroids=cent_d,
-        )
+        # the first search stages the layout: one wait for its copies
+        with tracing.wait("layout.stage", self._codes_host.nbytes
+                          + self._listnos_host.nbytes):
+            self._dyn_bucket = None  # worklist size is layout-dependent
+            pq, ct, dev = self.pq, self.FUSED_CT, self.device
+            centroids = self._centroids_host()
+            listnos = self._listnos_host
+            lay, local_of = grouped_layout(listnos, centroids, self.nlist, ct, dev)
+            sm_d = lay["slot_map_dev"]
+            codes_d = codes_tensor(self._codes_host, dev)
+            ln_d = torch.from_numpy(listnos.astype(np.int64)).to(dev)
+            cent_d = torch.from_numpy(centroids).to(dev)
+            cn2 = torch.from_numpy((centroids**2).sum(1).astype(np.float32)).to(dev)
+            n2 = _slot_norms(codes_d, ln_d, self._maybe_term2(), cn2)
+            codesT, n2s, lid = _stage_brute_device(codes_d, ln_d, n2, sm_d, local_of)
+            d_pad = -(-self.d // 128) * 128
+            yT = None
+            if len(lay["slot_map"]) * d_pad * 2 <= self.recon_scan_max_bytes:
+                yT = _stage_recon_device(codes_d, ln_d, cent_d, pq._dev(), sm_d, d_pad)
+            self._brute = dict(
+                lay, yT=yT, d_pad=d_pad, codesT=codesT, n2s=n2s, lid=lid,
+                cbt=pq_ops.pq_blockdiag_codebook(pq._dev()), codes=codes_d,
+                listnos=ln_d, n2=n2, centroids=cent_d,
+            )
         return self._brute
 
     _dyn_bucket_for = dyn_bucket_for
@@ -1032,32 +1047,35 @@ class IndexIVFPQ(IndexIVF):
         nq = len(x)
         pending = []
         for start, padded, real in query_buckets(nq, self.pipeline_batch):
-            qt = min(padded, 256)
-            xq = torch.zeros(padded, self.d, device=self.device)
-            xq[:real] = torch.from_numpy(x[start : start + real]).to(self.device)
-            use_dyn = bool(nprobe)
-            if use_dyn:
-                msteps = self._dyn_bucket_for(xq, br, nprobe, qt)
-                use_dyn = msteps <= int(frac * nch)
-            if use_dyn and use_recon:
-                out = _fused_search_rerank_recon_dyn(
-                    xq, br, refine_xb, refine_n2, k, kc, qt, ct, nprobe,
-                    msteps, self.strict_probe, sq=refine_sq,
-                )
-            elif use_dyn:
-                out = _fused_search_rerank_dyn(
-                    xq, br, refine_xb, k, kc, qt, ct, nprobe, msteps,
-                    sq=refine_sq,
-                )
-            elif use_recon:
-                out = _fused_search_rerank_recon(
-                    xq, br, refine_xb, refine_n2, k, kc, qt, ct, nprobe,
-                    sq=refine_sq,
-                )
-            else:
-                out = _fused_search_rerank(
-                    xq, br, refine_xb, k, kc, qt, ct, nprobe, sq=refine_sq,
-                )
+            with tracing.span("sbbr.sub_batch"):
+                qt = min(padded, 256)
+                xq = torch.zeros(padded, self.d, device=self.device)
+                xs = x[start : start + real]
+                with tracing.wait("sbbr.h2d", xs.nbytes):
+                    xq[:real] = torch.from_numpy(xs).to(self.device)
+                use_dyn = bool(nprobe)
+                if use_dyn:
+                    msteps = self._dyn_bucket_for(xq, br, nprobe, qt)
+                    use_dyn = msteps <= int(frac * nch)
+                if use_dyn and use_recon:
+                    out = _fused_search_rerank_recon_dyn(
+                        xq, br, refine_xb, refine_n2, k, kc, qt, ct, nprobe,
+                        msteps, self.strict_probe, sq=refine_sq,
+                    )
+                elif use_dyn:
+                    out = _fused_search_rerank_dyn(
+                        xq, br, refine_xb, k, kc, qt, ct, nprobe, msteps,
+                        sq=refine_sq,
+                    )
+                elif use_recon:
+                    out = _fused_search_rerank_recon(
+                        xq, br, refine_xb, refine_n2, k, kc, qt, ct, nprobe,
+                        sq=refine_sq,
+                    )
+                else:
+                    out = _fused_search_rerank(
+                        xq, br, refine_xb, k, kc, qt, ct, nprobe, sq=refine_sq,
+                    )
             nscan = msteps if use_dyn else nch
             ivf_fast_scan_stats.nq += real
             ivf_fast_scan_stats.ndis += padded * nscan * ct

@@ -16,6 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import tracing
 from ..base import IDSelectorArray, Index, add_page_rows, query_buckets
 from ..metric import MetricType, is_similarity_metric
 from ..ops.distances import rerank_exact
@@ -88,9 +89,15 @@ class IndexPreTransform(Index):
     def apply_chain(self, x) -> np.ndarray:
         """The chain over float32 rows, on the device; numpy out."""
         xd = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        for vt in self.chain:
-            xd = vt.apply_tensor(xd)
-        return xd.cpu().numpy()
+        if not self.chain:
+            return xd.numpy()
+        with tracing.span("pretransform.apply_chain"):
+            with tracing.wait("pretransform.h2d", xd.nbytes):
+                xd = xd.to(self.chain[0].device)
+            for vt in self.chain:
+                xd = vt.apply_tensor(xd)
+            with tracing.wait("pretransform.d2h", xd.nbytes):
+                return xd.cpu().numpy()
 
     def reverse_chain(self, y) -> np.ndarray:
         yd = torch.from_numpy(np.ascontiguousarray(y, np.float32))
@@ -128,8 +135,9 @@ class IndexPreTransform(Index):
                                  params=params)
 
     def search_submit(self, x, k, *, params=None):
-        return self.index.search_submit(
-            self.apply_chain(self._check_input(x)), k, params=params)
+        with tracing.span("IndexPreTransform.search_submit"):
+            return self.index.search_submit(
+                self.apply_chain(self._check_input(x)), k, params=params)
 
     def search_collect(self, handle):
         return self.index.search_collect(handle)
@@ -345,19 +353,17 @@ class IndexRefine(Index):
     def search_submit(self, x, k, *, params=None):
         """Enqueue the search of every sub-batch on the device; the matching
         :meth:`search_collect` waits for and returns (D, I)."""
-        x = self._check_input(x)
-        kc = max(k, int(round(k * self.k_factor)))
-        nprobe = self._fused_refined_nprobe(x, kc, params)
-        if nprobe is None:
-            return ("eager", self._search_rerank(x, k, kc, params))
-        xb = self.refine_index._consolidate()
-        return (
-            "fused",
-            self.base_index._sbbr_submit(
+        with tracing.span("IndexRefine.search_submit"):
+            x = self._check_input(x)
+            kc = max(k, int(round(k * self.k_factor)))
+            nprobe = self._fused_refined_nprobe(x, kc, params)
+            if nprobe is None:
+                return tracing.handle("eager", self._search_rerank(x, k, kc, params))
+            xb = self.refine_index._consolidate()
+            return tracing.handle("fused", self.base_index._sbbr_submit(
                 x, k, kc, xb, nprobe, self.refine_index._norms,
                 refine_sq=self._refine_sq(),
-            ),
-        )
+            ))
 
     def _refine_sq(self):
         """(scale, off) on the device where the refine store holds SQ8 codes
@@ -368,7 +374,8 @@ class IndexRefine(Index):
     def _search_rerank(self, x, k, kc, params):
         """The base's search for ``kc`` candidates, then their exact re-rank
         against the refine store, per query bucket on the device."""
-        _, Ic = self.base_index.search(x, kc, params=params)
+        with tracing.span("eager.base_search"):
+            _, Ic = self.base_index.search(x, kc, params=params)
         largest = is_similarity_metric(self.metric_type)
         D = np.full((len(x), k), -np.inf if largest else np.inf, np.float32)
         I = np.full((len(x), k), -1, np.int64)
@@ -379,17 +386,25 @@ class IndexRefine(Index):
         sq = self._refine_sq() or (None, None)
         for start, _, real in query_buckets(len(x)):
             sl = slice(start, start + real)
-            xq = torch.from_numpy(x[sl]).to(self.device)
-            if flat:
-                d, i = rerank_exact(
-                    xq, xb, torch.from_numpy(Ic[sl]).to(self.device), k,
-                    metric=self.metric_type, xb_n2=self.refine_index._norms,
-                    sq_scale=sq[0], sq_off=sq[1],
-                )
-            else:
-                d, i = self._rerank_reconstructed(xq, Ic[sl], k, largest)
-            D[sl, : d.shape[1]] = d.cpu().numpy()
-            I[sl, : d.shape[1]] = i.cpu().numpy()
+            with tracing.span("eager.rerank"):
+                with tracing.wait("eager.h2d_queries", x[sl].nbytes):
+                    xq = torch.from_numpy(x[sl]).to(self.device)
+                if flat:
+                    with tracing.wait("eager.h2d_candidates", Ic[sl].nbytes):
+                        cand = torch.from_numpy(Ic[sl]).to(self.device)
+                    d, i = rerank_exact(
+                        xq, xb, cand, k, metric=self.metric_type,
+                        xb_n2=self.refine_index._norms, sq_scale=sq[0],
+                        sq_off=sq[1],
+                    )
+                else:
+                    d, i = self._rerank_reconstructed(xq, Ic[sl], k, largest)
+                with tracing.wait("eager.d2h_dist", d.nbytes):
+                    d = d.cpu().numpy()
+                with tracing.wait("eager.d2h_ids", i.nbytes):
+                    i = i.cpu().numpy()
+                D[sl, : d.shape[1]] = d
+                I[sl, : d.shape[1]] = i
         return D, I
 
     def _rerank_reconstructed(self, xq, cand, k, largest):
@@ -413,10 +428,11 @@ class IndexRefine(Index):
         return vals, torch.where(torch.isinf(vals), -1, ids)
 
     def search_collect(self, handle):
-        tag, st = handle
-        if tag == "fused":
-            return self.base_index._sbbr_collect(st)
-        return st
+        with tracing.span("IndexRefine.search_collect", of=handle):
+            tag, st = handle
+            if tag == "fused":
+                return self.base_index._sbbr_collect(st)
+            return st
 
     def search(self, x, k, *, params=None):
         return self.search_collect(self.search_submit(x, k, params=params))

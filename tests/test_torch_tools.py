@@ -86,8 +86,7 @@ def test_fast_scan_stats_match_reference(kind):
     """The same big-batch searches (128 queries, strict nprobe 4; for the
     refined IVF-PQ, then soft with every worklist engaged) through faiss_tpu
     (Pallas in interpret mode) and the port on a converted index count the
-    same queries, and for the refined IVF-PQ the same keys and chunks; the
-    port's lossy rows are 0 (its selects are exact) and its t_scan grows."""
+    same queries, and for the refined IVF-PQ the same keys and chunks."""
     from faiss_tpu_torch.convert import ivfflat_from_arrays, refine_flat_from_arrays
 
     rs = np.random.RandomState(24)
@@ -135,9 +134,6 @@ def test_fast_scan_stats_match_reference(kind):
     if kind == "ivfpq_refined":
         assert (st.ndis, st.chunks_scanned, st.chunks_skipped) == (
             sj.ndis, sj.chunks_scanned, sj.chunks_skipped)
-    assert st.lossy_rows == 0 <= sj.lossy_rows
-    assert st.t_scan > 0.0
-    assert "t_scan=" in repr(st)
 
 
 # ---------------------------------------------------------------------------
