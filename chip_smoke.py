@@ -43,11 +43,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      skipped steps, printed with its worklist splits, is above 0);
   6. on the first real 2048-query sub-batch with its real worklists, K1 and
      its plain PyTorch version must return the same slots (tie-aware) and
-     keys within 1e-4 * (|q|^2 + n2);
+     keys within 1e-4 * (|q|^2 + n2), in K1's four variants: soft,
+     penalized (the sub-batch's probed lists), and both over a second plane
+     of the store (its values times 2^-8) as hi/lo;
   7. time K1 and the plain version with CUDA events (plain, kernel, kernel,
-     plain) and the search of all 8192 queries with a host clock; as a note
-     beside K1 (not its library_ms), cuBLAS bf16 torch.mm of the same two
-     products over the mean tile's real worklist columns, with no select;
+     plain) in each variant, and the search of all 8192 queries with a host
+     clock; as a note beside K1 (not its library_ms), cuBLAS bf16 torch.mm
+     of the same two products over the mean tile's real worklist columns,
+     with no select;
   8. the unrefined IndexIVFPQFastScan.search of the 8192 queries at
      nprobe=1, k=10 (K4; every launch the tensor-core instance of
      csrc/adc_mma.cuh, none the lookup scan): on 64 rows the distances
@@ -186,10 +189,11 @@ median of 5, QPS and recall@10 against bench_gt_cache.npz:
      rows (those whose probed lists hold kc slots, for 24 and 26) must equal
      a float64 exact search over the row's probed lists: distances within
      1e-5 * (|q|^2 + max |y|^2), ids up to ties at it;
- 30. K1 soft + hi/lo, K1 penalized + hi/lo and K2 masked + hi/lo on the
-     first 4096-query sub-batch of their paths at nprobe=1 against their
-     plain versions (keys within 1e-4 * (|q|^2 + n2) + 1e-6 * |key|, ids
-     tie-aware), timed by CUDA events in turns; each mode must have
+ 30. K1 soft and penalized over the hi plane alone and over hi/lo, and K2
+     masked + hi/lo, on the first 4096-query sub-batch of their paths at
+     nprobe=1 against their plain versions (keys within 1e-4 * (|q|^2 +
+     n2) + 1e-6 * |key|, ids tie-aware), timed by CUDA events in turns;
+     each mode must have
      launched on the path; the note of phase 7 at K1 hi/lo's shape (three
      products); peak device memory of the IVF-Flat phases.
  31. IndexIVFPQR "IVF4096,PQ8+16" (PQ8 and a refine PQ16, both 8-bit)
@@ -323,10 +327,10 @@ print stands beside the card's name and power limit:
      1e-5 * (|q|^2 + |y|^2) and to the unrotated |q - x|^2 within 1e-4
      relative, submit/collect equal to search as in G, host-clock median
      of 5 with QPS and the rotation's share; K1 against its plain version
-     on the first real 4096-query sub-batch (keys within lane_tol, ids
-     tie-aware), timed in turns, its entry ``ivf_recon_dyn[opq,d96]`` in
-     the kernels' line bounded at d = 96, and the share of its products on
-     the 32 zero-padded dimensions printed;
+     on the first real 4096-query sub-batch (d 96 of d_pad 128, qt 256, ct
+     2048, kc 120; keys within lane_tol, ids tie-aware) in its four
+     variants as in phase 6, each timed in turns, the soft one's entry
+     ``ivf_recon_dyn[opq,d96]`` in the kernels' line bounded at d = 96;
  H. (last) BASELINE row 12: the 8.1M x 784 uint8 set of
      benchs/jobs/job_kmeans_row12.py (its generator copied, seed 42)
      generated into RAM, ``Kmeans(784, 256, niter=20, seed=1234,
@@ -747,8 +751,8 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev, main_only=False):
     index, centroids, PQ codebooks, results and recall). With
     ``main_only`` phase 4 alone (the main path's search and its checks),
     returning the state only."""
-    from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims
-    from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware, recall_at_k
+    from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims, _probe_mask
+    from faiss_tpu_torch.utils.evaluation import recall_at_k
 
     base = ft.IndexIVFPQFastScan(None, D, NLIST, M, NBITS, device=dev)
     base.cp.niter = NITER
@@ -802,32 +806,22 @@ def ivfpq_phases(ft, fused_knn, xb, xt, xq, gt, dev, main_only=False):
     if main_only:
         return state
 
-    # K1 against its plain version on the first real sub-batch
+    # 6-7. K1 against its plain version on the first real sub-batch, in its
+    # four variants (the hi/lo ones over a second plane of the store), each
+    # timed with it in turns: plain, kernel, kernel, plain
     qt = 256
     xq_dev = torch.from_numpy(xq[:BATCH]).to(dev)
-    perm, _, _, cmap, ndropped = _dyn_inputs(xq_dev, br, NPROBE, qt, msteps)
+    perm, pcols_s, cm2, cmap, ndropped = _dyn_inputs(xq_dev, br, NPROBE, qt, msteps)
     xq_p = _pad_dims(xq_dev[perm], br)
     args = (xq_p, br["yT"], br["n2s"], cmap, qt, base.FUSED_CT)
-    fused_knn.pad_steps_skipped(reset=True)
-    kk, ks, kf = fused_knn.ivf_recon_fused_dyn(*args)
-    rk, rs_, _ = fused_knn.ivf_recon_fused_dyn_ref(*args)
-    torch.cuda.synchronize()
-    print(f"K1 sub-batch 0: {recon_note(fused_knn, 'K1')} of {cmap.numel()}",
-          flush=True)
-    check(bool(torch.isinf(kf).all()), "K1's floor is not all +inf")
+    pen = dict(biasg=torch.where(_probe_mask(cm2, pcols_s), 0.0, 1e9),
+               lid=br["lid"], cgroup=br["cgroup"])
     n2 = br["n2s"][0].cpu().numpy()
-    tol = lane_tol((xq_p.cpu().numpy() ** 2).sum(1), n2, rk.cpu().numpy(),
-                   rs_.cpu().numpy())
-    max_abs_err = compare_lanes(kk, ks, rk, rs_, tol, "K1", ids_agree_tie_aware)
-    print(f"K1 vs plain on sub-batch 0 [{BATCH} q, {cmap.shape[1]} steps, "
-          f"ndropped {int(ndropped)}]: max_abs_err {max_abs_err:.3e}, "
-          f"slots agree on all rows", flush=True)
-
-    # times at the main-path shape: plain, kernel, kernel, plain
-    ms, plain_ms, t = turns(lambda: fused_knn.ivf_recon_fused_dyn_ref(*args),
-                            lambda: fused_knn.ivf_recon_fused_dyn(*args), 20)
-    print(f"K1 {t[1]:.3f} / {t[2]:.3f} ms, plain {t[0]:.3f} / {t[3]:.3f} ms "
-          f"per {BATCH}-query sub-batch", flush=True)
+    variants = k1_variants(
+        fused_knn, f"sub-batch 0 [{BATCH} q, {cmap.shape[1]} steps, ndropped "
+        f"{int(ndropped)}]", args, pen, second_plane(br["yT"]),
+        (xq_p.cpu().numpy() ** 2).sum(1), n2, 20, d=D)
+    max_abs_err, ms, plain_ms = variants["soft"]
     real_cols = int((cmap != br["nchunks"]).sum(1).float().mean()) * base.FUSED_CT
     print(f"note: cuBLAS bf16 torch.mm of K1's two products over the mean "
           f"tile's real worklist columns ({BATCH} q x {real_cols}), no select: "
@@ -1166,6 +1160,31 @@ def kernel_check(fused_knn, what, kern, plain, qn2, n2, reps, recon=None):
           f"{t[1]:.2f} / {t[2]:.2f} ms, plain {t[0]:.2f} / {t[3]:.2f} ms",
           flush=True)
     return err, ms, plain_ms
+
+
+def second_plane(yT):
+    """A second bf16 plane of the store's shape for K1's hi/lo variants
+    where the store has one: its values times 2^-8 (zero where it is)."""
+    return (yT.float() * 2.0**-8).to(torch.bfloat16)
+
+
+def k1_variants(fused_knn, what, args, pen, lo, qn2, n2, reps, d=None):
+    """K1 in its four variants on one sub-batch's inputs ``args`` (xq_p, yT,
+    n2s, cmap, qt, ct): soft, penalized (``pen``: biasg, lid, cgroup), and
+    both over the second plane ``lo``; each against its plain version
+    (keys within lane_tol, ids tie-aware, the floor all +inf) and timed with
+    it in turns by CUDA events. ``d``: the real dims, which the kernel alone
+    multiplies. Returns {variant: (max_abs_err, kernel ms, plain ms)}."""
+    out = {}
+    for name, kw in (("soft", {}), ("penalized", pen), ("soft + hi/lo", dict(yT_lo=lo)),
+                     ("penalized + hi/lo", dict(pen, yT_lo=lo))):
+        kw = dict(kw, d=d)
+        out[name] = kernel_check(
+            fused_knn, f"{what} K1 {name}",
+            lambda: fused_knn.ivf_recon_fused_dyn(*args, **kw),
+            lambda: fused_knn.ivf_recon_fused_dyn_ref(*args, **kw), qn2, n2, reps,
+            recon="K1")
+    return out
 
 
 def counted(fused_knn, what, fn, count):
@@ -2700,25 +2719,18 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev, radius):
     perm, pcols_s, cm2, cmap, _ = P._dyn_inputs(xq4, br, 1, qt, msteps)
     xs = xq4[perm]
     a1 = (P._pad_dims(xs, br), br["yT"], br["n2s"], cmap, qt, ct)
-    lo = dict(yT_lo=br["yT_lo"])
     qn_s = xs.square().sum(1).cpu().numpy()
-    k1 = kernel_check(
-        fused_knn, f"K1 soft + hi/lo [4096 q, {msteps} steps]",
-        lambda: fused_knn.ivf_recon_fused_dyn(*a1, **lo),
-        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **lo), qn_s, n2, 10,
-        recon="K1")
+    pen = torch.where(P._probe_mask(cm2, pcols_s), 0.0, 1e9)
+    variants = k1_variants(
+        fused_knn, f"[4096 q, {msteps} steps]", a1,
+        dict(biasg=pen, lid=br["lid"], cgroup=br["cgroup"]), br["yT_lo"], qn_s, n2,
+        10, d=D)
+    k1, k1p = variants["soft + hi/lo"], variants["penalized + hi/lo"]
     real_cols = int((cmap != br["nchunks"]).sum(1).float().mean()) * ct
     print(f"note: cuBLAS bf16 torch.mm of K1's three hi/lo products over the "
           f"mean tile's real worklist columns (4096 q x {real_cols}), no select: "
           f"{tc_products_ms(a1[0], br['yT'], br['yT_lo'], real_cols, 10):.3f} ms",
           flush=True)
-    pen = torch.where(P._probe_mask(cm2, pcols_s), 0.0, 1e9)
-    kw1 = dict(lo, biasg=pen, lid=br["lid"], cgroup=br["cgroup"])
-    k1p = kernel_check(
-        fused_knn, f"K1 penalized + hi/lo [4096 q, {msteps} steps]",
-        lambda: fused_knn.ivf_recon_fused_dyn(*a1, **kw1),
-        lambda: fused_knn.ivf_recon_fused_dyn_ref(*a1, **kw1), qn_s, n2, 10,
-        recon="K1")
     mask = torch.where(P._probed(xq4, br["centroids_g"], br["cn2g"], 1)[1], 0.0, 1e9)
     a2 = (P._pad_dims(xq4, br), br["yT"], br["n2s"], br["yT_lo"])
     kw2 = dict(qt=qt, ct=ct, biasg=mask, lid=br["lid"])
@@ -2743,7 +2755,7 @@ def ivfflat_phases(ft, fused_knn, xb, xt, xq, gt, dev, radius):
               *scan_cost(br["yT"], br["n2s"], len(xq4), (a2[0], mask), True,
                          planes=2)),
     ]
-    del a1, a2, kw1, kw2, pen, mask, xs, perm, cm2, cmap, br
+    del a1, a2, kw2, pen, mask, xs, perm, cm2, cmap, br, variants
 
     # D. range search at nprobe 16 on the whole index (by probe, no kernel),
     # against float64 over each row's probed lists
@@ -3006,7 +3018,7 @@ def deep10m_phases(ft, fused_knn, dev, only_k=False):
     Deep10M point (K1 on every sub-batch), K1 held against its plain
     version on the first real sub-batch. Returns K1's entry of the kernels'
     JSON line at this path's shape."""
-    from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims
+    from faiss_tpu_torch.models.ivf_pq import _dyn_inputs, _pad_dims, _probe_mask
     from faiss_tpu_torch.utils.evaluation import recall_at_k
 
     t0 = time.time()
@@ -3145,23 +3157,23 @@ def deep10m_phases(ft, fused_knn, dev, only_k=False):
     # K1 against its plain version on the first real sub-batch of the path
     qt, batch = 256, base.pipeline_batch
     xr = torch.from_numpy(index.apply_chain(xq[:batch])).to(dev)
-    perm, _, _, cmap, ndropped = _dyn_inputs(xr, br, DEEP_NPROBE, qt, msteps)
+    perm, pcols_s, cm2, cmap, ndropped = _dyn_inputs(xr, br, DEEP_NPROBE, qt, msteps)
     xq_p = _pad_dims(xr[perm], br)
     args = (xq_p, br["yT"], br["n2s"], cmap, qt, base.FUSED_CT)
+    pen = dict(biasg=torch.where(_probe_mask(cm2, pcols_s), 0.0, 1e9),
+               lid=br["lid"], cgroup=br["cgroup"])
     n2 = br["n2s"][0].cpu().numpy()
-    err, ms, plain_ms = kernel_check(
-        fused_knn, f"F. K1 [{batch} q, {msteps} steps, ndropped {int(ndropped)}]",
-        lambda: fused_knn.ivf_recon_fused_dyn(*args),
-        lambda: fused_knn.ivf_recon_fused_dyn_ref(*args),
-        (xq_p.cpu().numpy() ** 2).sum(1), n2, 3, recon="K1")
+    variants = k1_variants(
+        fused_knn, f"F. [{batch} q, {msteps} steps, ndropped {int(ndropped)}]", args,
+        pen, second_plane(br["yT"]), (xq_p.cpu().numpy() ** 2).sum(1), n2, 3,
+        d=DEEP_D)
+    err, ms, plain_ms = variants["soft"]
     t_ops, nbyt = dyn_cost(br, cmap, qt, br["yT"], (xq_p,), False, d=DEEP_D)
     d_pad = br["d_pad"]
-    pad_share = (d_pad - DEEP_D) / d_pad
-    print(f"F. K1 at d={DEEP_D} padded to d_pad={d_pad}: {pad_share:.0%} of its "
-          f"products fall on zero dimensions ({t_ops * 1e3 / (1 - pad_share) * pad_share:.3f} "
-          f"ms of the {t_ops * 1e3 / (1 - pad_share):.3f} ms the padded products "
-          f"take at the bf16 peak); bound at d={DEEP_D} "
-          f"{max(t_ops * 1e3, nbyt / PEAK_BYTES * 1e3):.3f} ms ({CARD})", flush=True)
+    print(f"F. K1 at d={DEEP_D} of d_pad={d_pad}: the kernel multiplies and reads "
+          f"{DEEP_D} dims, the padding's {(d_pad - DEEP_D) / d_pad:.0%} skipped; "
+          f"bound at d={DEEP_D} {max(t_ops * 1e3, nbyt / PEAK_BYTES * 1e3):.3f} ms "
+          f"({CARD})", flush=True)
     k1 = entry("ivf_recon_dyn[opq,d96]", "faiss_tpu_torch/csrc/ivf_recon_dyn.cu",
                "faiss_tpu/ops/pallas_knn.py:1249", launches, err, ms, plain_ms,
                t_ops, nbyt)

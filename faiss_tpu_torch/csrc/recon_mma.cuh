@@ -1,10 +1,13 @@
-// The tensor-core scan shared by the recon kernels K1 (ivf_recon_dyn.cu),
-// K2 (ivf_recon.cu) and K7 (recon_floor.cu): the keys
+// The tensor-core scan shared by the recon kernels K2 (ivf_recon.cu) and
+// K7 (recon_floor.cu): the keys
 //     key(r, s) = n2[s] - 2 * q_r . (y_hi[:, s] + y_lo[:, s])  (+ pen)
 // of a block's BM = 64 float32 queries against a walk of column tiles of a
 // transposed bf16 store (one plane, or hi and lo), handed tile by tile to
-// an epilogue policy: K1 and K2 offer them to the exact top-128 select of
+// an epilogue policy: K2 offers them to the exact top-128 select of
 // tile_select.cuh (TopK), K7 keeps per-lane running minima (recon_floor.cu).
+// K1 (ivf_recon_dyn.cu) has its own scan, on wgmma (recon_wgmma.cuh), and
+// takes from here the worklist walk (dyn_block, ListWalk, shared with K5),
+// the launch's operands and TMA descriptors, and the barrier helpers.
 //
 // Arithmetic: the TPU kernels' (faiss_tpu/ops/pallas_knn.py:920-946). The
 // prologue splits each float32 query into bf16 hi = bf16(q) and lo =
@@ -35,19 +38,24 @@
 // each consumer thread on its accumulators once a tile's last stage is in
 // them, and finish() by the consumer threads after the last tile. A policy
 // rather than a second scan, so that the ring, the mbarriers, the
-// producer, the query reloads and the products exist once for all three
+// producer, the query reloads and the products exist once for both
 // kernels.
 // TopK: the epilogue adds n2 and, with a penalty, the bias term; a key
 // below the query's threshold goes to the select, which the two warps of
 // the rows compact between tiles (a 64-thread named barrier), never the
 // block.
 //
-// Why mma.sync and not wgmma: a block holds 64 queries' selects (128 KB)
-// beside the queries and the ring, so one block runs per SM, and between
-// the products its warps run the epilogue and the select. A wgmma tile is
-// 64 rows by a warpgroup; with one warpgroup, its 4 warps run the epilogue
-// and select alone, and on the H100 that was slower than 8 warps of
-// mma.sync, whose epilogues and selects overlap the other warps' products.
+// Why mma.sync and not wgmma, for K2 and K7 only: a block holds 64
+// queries' selects (128 KB) beside the queries and the ring, so one block
+// runs per SM, and between the products its warps run the epilogue and the
+// select. A wgmma tile is 64 rows by a warpgroup; with one warpgroup, its 4
+// warps run the epilogue and select alone, and on the H100 that was slower
+// than 8 warps of mma.sync, whose epilogues and selects overlap the other
+// warps' products. K1 took the other way out (recon_wgmma.cuh): two
+// warpgroups on the same 64 rows, taking alternate tiles, so that one's
+// products overlap the other's epilogue; 2.1-2.5x faster at Deep10M's
+// shape on the H100 (PERF.md). K2 and K7 could follow it; K7 runs two
+// blocks an SM on its lane minima, which that design does not allow.
 //
 // Shared memory per block (bytes): the ring 4 stages x 8,192 per plane
 // (65,536 with two planes, 32,768 with one) and 4 x 256 of n2; the queries
@@ -421,9 +429,9 @@ __device__ __forceinline__ void epilogue(const Args& a, const Walk& w, int t,
   sel.make_room(16 * (warp % 4) + (warp / 4) * (16 / WN), 16 / WN);
 }
 
-// The exact top-128 (K1, K2): the epilogue policy that offers each tile's
+// The exact top-128 (K2): the epilogue policy that offers each tile's
 // keys to the select and writes each query's top-128 to row q0 + r of
-// okey/oslot (and ofloor). PEN: the penalized (K1) or masked (K2) mode.
+// okey/oslot (and ofloor). PEN: the masked mode.
 template <bool PEN>
 struct TopK {
   static constexpr int kBytes = Select::kBytes;
@@ -572,7 +580,7 @@ __device__ DynBlock dyn_block(const int* cmap, int msteps, int qt, int pad_chunk
 }
 
 // The tiles of a block's worklist steps [s0, s0 + ntiles / tpc), tpc tiles
-// of TBN columns a chunk of ct (K1: recon_mma's BN; K5: adc_mma's).
+// of TBN columns a chunk of ct (K1: recon_wgmma's BN; K5: adc_mma's).
 template <int TBN>
 struct ListWalk {
   const int* work;

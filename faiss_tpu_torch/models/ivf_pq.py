@@ -543,7 +543,7 @@ def _fused_search_rerank_recon_dyn(xq, br, xb, xb_n2, k, kc, qt, ct, nprobe,
     with tracing.span("sbbr.scan"):
         _, slots_raw, _ = ivf_recon_fused_dyn(
             _pad_dims(xq_s, br), br["yT"], br["n2s"], cmap, qt, ct,
-            yT_lo=br.get("yT_lo"), **pen
+            yT_lo=br.get("yT_lo"), d=xq_s.shape[1], **pen
         )
     with tracing.span("sbbr.rerank"):
         D, I = rerank_exact(xq_s, xb, _slots_of(slots_raw, br, kc), k,

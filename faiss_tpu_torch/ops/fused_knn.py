@@ -102,18 +102,20 @@ SM, the columns split across blocks in whole 128-column lane groups and
 the splits' minima merged by a second pass.
 
 K1, K2 and K7 take the TPU kernels' products on the tensor cores
-(csrc/recon_mma.cuh): the float32 query split into bf16 hi + lo, then
-qh.yh + ql.yh + qh.yl with the lo plane and qh.y + ql.y without, summed in
-float32 (the dropped ql.yl term is below 2^-16 |q| |y|). They serve 64
-queries a block, split the columns (K2, K7) or each worklist (K1) across
-blocks so that a launch fills the card, and merge the splits' results in a
-second pass of the same source; K1 stops each tile at its last non-PAD
-step. K4's, K5's and K6's tensor-core instances do the same for their
-columns or worklists. The plain
-versions use float32 matrix products with TF32 off (of hi + lo summed in
-float32 for K1/K2; the ADC sum as a product with a one-hot of the codes,
-exact but summed in another order) and chunk over columns, so none builds a
-full [nq, S] score matrix. A wrapper launches its kernel for CUDA tensors
+(K1 as wgmma in two ping-pong warpgroups, csrc/recon_wgmma.cuh; K2 and K7
+as mma.sync, csrc/recon_mma.cuh): the float32 query split into bf16 hi +
+lo, then qh.yh + ql.yh + qh.yl with the lo plane and qh.y + ql.y without,
+summed in float32 (the dropped ql.yl term is below 2^-16 |q| |y|). K1
+multiplies only the real dims ``d`` (rounded up to 32, 64 at least) of its
+d_pad. They serve 64 queries a block, split the columns (K2, K7) or each
+worklist (K1) across blocks so that a launch fills the card, and merge the
+splits' results in a second pass of the same source; K1 stops each tile at
+its last non-PAD step. K4's, K5's and K6's tensor-core instances do the
+same for their columns or worklists. The plain versions use float32
+matrix products with TF32 off (of hi + lo summed in float32 for K1/K2; the
+ADC sum as a product with a one-hot of the codes, exact but summed in
+another order) and chunk over columns, so none builds a full [nq, S] score
+matrix. A wrapper launches its kernel for CUDA tensors
 and runs its plain version for CPU tensors only; any other device raises.
 Each kernel is compiled with nvcc at first use into ``_build/<source
 hash>/`` (a plain C interface loaded with ctypes); nothing is built at
@@ -169,7 +171,7 @@ _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # <name>_launch, <name>_smem_bytes and <name>_error_string
 KERNELS = {
     "ivf_recon_dyn": (
-        [_vp] * 14 + [_ci, _ci, _ll] + [_ci] * 6 + [_vp], [_ci],
+        [_vp] * 14 + [_ci, _ci, _ci, _ll] + [_ci] * 6 + [_vp], [_ci],
     ),
     "ivf_recon": (
         [_vp, _vp, _vp, _ll] + [_vp] * 8 + [_ci, _ci, _ll, _ci, _ci, _ci, _ci, _vp],
@@ -407,6 +409,15 @@ def _bias_terms(biasg, rows, groups, lid_cols):
 # -- K1 ----------------------------------------------------------------------
 
 
+def _real_dims(d, d_pad):
+    """K1's real dims: ``d`` (all of d_pad when None), 0 < d <= d_pad."""
+    if d is None:
+        return d_pad
+    if not 0 < d <= d_pad:
+        raise ValueError(f"d={d} must lie in 1..d_pad={d_pad}")
+    return int(d)
+
+
 def _check_dyn(xq, yT, n2, cmap, qt, ct, yT_lo):
     nq, d_pad = xq.shape if xq.dim() == 2 else (None, None)
     if (xq.dtype, yT.dtype, n2.dtype, cmap.dtype) != (
@@ -455,15 +466,18 @@ def _check_penalty(biasg, lid, cgroup, nq, S, ct):
 
 
 def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
-                        lid=None, cgroup=None, yT_lo=None):
+                        lid=None, cgroup=None, yT_lo=None, d=None):
     """K1 (see the module docstring). ``xq`` [nq, d_pad] float32 (queries
     sorted by home group, dims zero-padded), ``yT`` [d_pad, S] bfloat16
     transposed store whose last chunk is the all-+inf PAD chunk, optionally
     ``yT_lo`` its lo residual plane (same shape, contiguous), ``n2`` [1, S]
     float32 (+inf on pads), ``cmap`` [nq // qt, msteps] int32 chunk worklist
     per tile; for the penalized mode ``biasg`` [nq, G * 128] float32 {0,
-    1e9}, ``lid`` [1, S] int32 and ``cgroup`` [S // ct] int32. Returns
-    (keys, slots, floor).
+    1e9}, ``lid`` [1, S] int32 and ``cgroup`` [S // ct] int32; ``d`` the
+    real dims (0 < d <= d_pad, all of d_pad when None): the dims from d on
+    must be zero in ``xq`` and the store, and the kernel neither reads them
+    past d rounded up to 32 (64 at least, 128s past 128) nor multiplies
+    them. Returns (keys, slots, floor).
 
     The last chunk of the store (``S // ct - 1``) is the PAD chunk: its n2
     is all +inf, and each worklist lists its tile's chunks first and fills
@@ -475,11 +489,12 @@ def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising; any other device raises."""
     _check_dyn(xq, yT, n2, cmap, qt, ct, yT_lo)
+    d = _real_dims(d, xq.shape[1])
     pen = _check_penalty(biasg, lid, cgroup, xq.shape[0], yT.shape[1], ct)
     lo = () if yT_lo is None else (yT_lo,)
     if not _route("K1", (xq, yT, n2, cmap) + lo + pen):
         return ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt, ct, biasg, lid,
-                                       cgroup, yT_lo)
+                                       cgroup, yT_lo, d)
     nq, d_pad = xq.shape
     S, msteps = yT.shape[1], cmap.shape[1]
     _check_mma_operands("K1", xq, (yT,) + lo, n2, d_pad, ct)
@@ -491,7 +506,7 @@ def ivf_recon_fused_dyn(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
         "ivf_recon_dyn", xq.data_ptr(), yT.data_ptr(), _ptr(yT_lo),
         n2.data_ptr(), cmap.data_ptr(), _ptr(biasg), _ptr(lid), _ptr(cgroup),
         keys.data_ptr(), slots.data_ptr(), floor.data_ptr(), _ptr(part_key),
-        _ptr(part_slot), _pad_counter(xq.device).data_ptr(), nq, d_pad, S,
+        _ptr(part_slot), _pad_counter(xq.device).data_ptr(), nq, d_pad, d, S,
         msteps, qt, ct, 0 if biasg is None else biasg.shape[1],
         _pad_chunk(S, ct), splits, _stream(xq.device),
     )
@@ -564,16 +579,18 @@ def _tile_topk(score_tile, cmap, qt, ct, nq, device):
 
 
 def ivf_recon_fused_dyn_ref(xq, yT, n2, cmap, qt: int, ct: int, biasg=None,
-                            lid=None, cgroup=None, yT_lo=None):
+                            lid=None, cgroup=None, yT_lo=None, d=None):
     """Plain PyTorch version of K1's contract: per tile, gather the worklist
-    chunks, score ``n2 - 2 q @ (hi + lo).float()`` (plus the penalty of the
-    penalized mode) and take ``torch.topk``."""
+    chunks, score ``n2 - 2 q @ (hi + lo).float()`` over the first ``d``
+    dims (all when None; the rest are zero padding) plus the penalty of the
+    penalized mode, and take ``torch.topk``."""
+    d = _real_dims(d, xq.shape[1])
 
     def score(rows, chunks, idx):
-        y = yT[:, idx].float()
+        y = yT[:d, idx].float()
         if yT_lo is not None:
-            y = y + yT_lo[:, idx].float()
-        sc = n2[0, idx][None, :] - 2.0 * (xq[rows] @ y)
+            y = y + yT_lo[:d, idx].float()
+        sc = n2[0, idx][None, :] - 2.0 * (xq[rows, :d] @ y)
         if biasg is not None:
             sc = sc + _bias_terms(biasg, rows, cgroup[chunks], lid[0, idx])
         return sc

@@ -11,12 +11,21 @@ csrc/recon_mma.cuh, tile_select.cuh) as far as the CPU reaches them:
   faiss_tpu indexes, cutting each tile's worklist after its last non-PAD
   step, as the kernel does, leaves the plain version's result equal bit for
   bit;
+- K1's real d: its plain version told the real d equals the one over the
+  unpadded dims (the zero padding K1 skips adds exact zeros), and the
+  wrapper refuses a d outside 1..d_pad;
+- K1's warpgroup scan (recon_wgmma.cuh) as its source states it: shared
+  memory within one block an SM, every warpgroup's accumulators covering
+  its tile once with each warp on its select's 16 rows, and the row
+  groups' hand-offs between the two warpgroups on barriers of their own;
 - the wrappers' new checks (16-byte operands, the column splits and their
   scratch, the PAD chunk), and that every kernel source, the new headers
   included, builds only where nvcc is.
 
 The CUDA kernels themselves are compared with the plain versions on the card
 by chip_smoke.py."""
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +45,10 @@ from faiss_tpu_torch.ops.fused_knn import (
     ivf_recon_fused_ref,
 )
 from faiss_tpu_torch.utils.evaluation import ids_agree_tie_aware
+from test_torch_floor_tc import consts
 from torch_threads import one_torch_thread  # noqa: F401
+
+WG_HEADER = (fused_knn.CSRC / "recon_wgmma.cuh").read_text()
 
 
 def bf16_to_torch(a):
@@ -297,6 +309,119 @@ def test_pad_skip_leaves_k1_plain_version_equal(kind):
             # of masked slots, equal PQ reconstructions)
             assert ids_agree_tie_aware(full[0][rows].numpy(), full[1][rows].numpy(),
                                        cut[0].numpy(), cut[1].numpy(), 0.0).all()
+
+
+@pytest.mark.parametrize("penalized", [False, True], ids=["soft", "penalized"])
+@pytest.mark.parametrize("kind", ["ivfpq", "ivfflat"])
+def test_k1_plain_version_at_real_d_equals_zero_padded(kind, penalized):
+    """K1 multiplies only the real dims: its plain version over queries and
+    a store zero-padded from d = 16 to d_pad = 128, told the real d, equals
+    bit for bit the plain version over the unpadded first 16 dims, and the
+    same over all 128 dims in keys (slots up to the order of equal keys),
+    on IVF-PQ and IVF-Flat layouts staged from trained faiss_tpu indexes:
+    the padding adds exact zeros to every sum."""
+    port, br, xq, ct = trained(kind)
+    qt, nprobe, d = 64, 1, xq.shape[1]
+    perm, pcols_s, cm2, cmap, _ = port_pq._dyn_inputs(xq, br, nprobe, qt, br["nchunks"])
+    xq_p = port_pq._pad_dims(xq[perm], br)
+    assert xq_p.shape[1] == br["yT"].shape[0] == 128 > d
+    assert not br["yT"][d:].any() and not xq_p[:, d:].any()
+    lo = br.get("yT_lo")
+    pen = {}
+    if penalized:
+        pen = dict(biasg=torch.where(port_pq._probe_mask(cm2, pcols_s), 0.0, 1e9),
+                   lid=br["lid"], cgroup=br["cgroup"])
+    at_d = ivf_recon_fused_dyn_ref(xq_p, br["yT"], br["n2s"], cmap, qt, ct,
+                                   yT_lo=lo, d=d, **pen)
+    real = ivf_recon_fused_dyn_ref(
+        xq_p[:, :d].contiguous(), br["yT"][:d], br["n2s"], cmap, qt, ct,
+        yT_lo=None if lo is None else lo[:d], **pen)
+    padded = ivf_recon_fused_dyn_ref(xq_p, br["yT"], br["n2s"], cmap, qt, ct,
+                                     yT_lo=lo, **pen)
+    for out in (at_d, padded):
+        assert torch.equal(out[0], real[0]) and torch.equal(out[2], real[2])
+        assert ids_agree_tie_aware(out[0].numpy(), out[1].numpy(),
+                                   real[0].numpy(), real[1].numpy(), 0.0).all()
+    assert torch.equal(at_d[1], real[1])
+
+
+@pytest.mark.parametrize("d", [0, -1, 129])
+def test_k1_wrapper_raises_on_real_d_out_of_range(d):
+    """The real d lies in 1..d_pad: the wrapper raises before any route."""
+    nq, d_pad, ct = 64, 128, 64
+    xq = torch.zeros(nq, d_pad)
+    yT = torch.zeros(d_pad, 2 * ct, dtype=torch.bfloat16)
+    n2 = torch.zeros(1, 2 * ct)
+    cmap = torch.zeros(1, 1, dtype=torch.int32)
+    fused_knn.ivf_recon_fused_dyn(xq, yT, n2, cmap, nq, ct, d=d_pad)
+    with pytest.raises(ValueError, match="d_pad=128"):
+        fused_knn.ivf_recon_fused_dyn(xq, yT, n2, cmap, nq, ct, d=d)
+    with pytest.raises(ValueError, match="d_pad=128"):
+        fused_knn.ivf_recon_fused_dyn(*(t.to("meta") for t in (xq, yT, n2, cmap)),
+                                      nq, ct, d=d)
+
+
+def c_int_expr(pattern, **env):
+    """The C++ int expression that ``pattern``'s group captures in
+    recon_wgmma.cuh, evaluated with ``env`` (threadIdx.x as tid)."""
+    e = re.search(pattern, WG_HEADER).group(1).replace("threadIdx.x", "tid")
+    return eval(e.replace("/", "//"), {}, env)
+
+
+@pytest.mark.parametrize("hilo", [False, True], ids=["one-plane", "hilo"])
+def test_k1_shared_memory_keeps_one_block_per_sm(hilo):
+    """The ring (stages of 128 dims x 64 columns a plane, each 1024-byte
+    aligned for the swizzle) with its n2, the 64 queries' selects and the
+    mbarriers stay within the mma.sync scan's 198,208 / 230,976 bytes."""
+    h = consts(WG_HEADER)
+    one, two = map(int, re.search(
+        r"stages\(bool hilo\) \{ return hilo \? (\d+) : (\d+); \}", WG_HEADER).groups()[::-1])
+    stages = two if hilo else one
+    stage = (2 if hilo else 1) * h["kPlane"]
+    select = 8 * h["BM"] * h["CAP"] + 8 * h["BM"]
+    smem = stages * (stage + h["BN"] * 4) + select + 2 * stages * 8
+    assert stage % 1024 == 0 and h["kBox"] % 1024 == 0
+    assert smem <= (230976 if hilo else 198208)
+    assert (fused_knn.RECON_BLOCK, fused_knn.RECON_TILE) == (h["BM"], h["BN"])
+    assert h["THREADS"] == 384 and h["CONSUMERS"] == 256
+
+
+def test_k1_accumulators_cover_each_tile_once():
+    """Per warpgroup, d[4 j + 2 h + e] of its 128 threads (row a_row() +
+    8 h, column 8 j + a_col() + e) covers the 64 x 64 tile once, and warp
+    w of either warpgroup holds rows 16 (w % 4) .. + 16: the two warps that
+    share a row group's select."""
+    for g in range(2):
+        seen = set()
+        for tid in range(128 * g, 128 * (g + 1)):
+            r0 = c_int_expr(r"int a_row\(\) \{\s*return ([^;]+);", tid=tid)
+            c0 = c_int_expr(r"int a_col\(\) \{ return ([^;]+); \}", tid=tid)
+            w = tid // 32
+            for j in range(8):
+                for h in range(2):
+                    for e in range(2):
+                        row, col = r0 + 8 * h, 8 * j + c0 + e
+                        assert 16 * (w % 4) <= row < 16 * (w % 4) + 16
+                        seen.add((row, col))
+        assert seen == {(r, c) for r in range(64) for c in range(64)}
+
+
+def test_k1_row_groups_hand_off_on_barriers_of_their_own():
+    """Row group rg's turn passes from warpgroup 0 to 1 on one named
+    barrier and back on another: each warpgroup waits on the barrier the
+    other arrives at, no two row groups or directions share one, and none
+    is barrier 0 (__syncthreads) or the consumers' BAR_ALL."""
+    wait = r'"bar\.sync %0, 64;\\n" ::"r"\(([^)]+\)?)\)'
+    arrive = r'"bar\.arrive %0, 64;\\n" ::"r"\(([^)]+)\)'
+    ids = set()
+    for rg in range(4):
+        w = [c_int_expr(wait, rg=rg, g=g) for g in range(2)]
+        a = [c_int_expr(arrive, rg=rg, g=g) for g in range(2)]
+        assert w[1] == a[0] and w[0] == a[1] and a[0] != a[1]
+        ids.update(a)
+    h = consts(WG_HEADER)
+    assert len(ids) == 8 and 0 not in ids and h["BAR_ALL"] not in ids
+    assert max(ids | {h["BAR_ALL"]}) < 16
 
 
 def test_split_count_fills_the_card():
